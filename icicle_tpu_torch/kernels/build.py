@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Each library is one `nvcc` call over its sources in kernels/csrc/, for
+Hopper (sm_90a), into icicle_tpu_torch/build/lib<name>.so, with a plain C
+interface that kernels/*.py load with ctypes. A library is rebuilt when it
+is missing or older than one of its sources. `build_all` starts one nvcc
+process per stale library, all at once, and waits for every one.
+
+nvcc is taken from $CUDA_HOME/bin (default /usr/local/cuda), else from PATH.
+Nothing is built when a module is imported: `load` builds at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "kernels", "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# library name -> its sources in CSRC
+LIBRARIES = {"ntt": ["ntt_dif.cu"]}
+
+# -Xptxas -v: the compiler reports registers, shared memory and spills
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise IcicleException(IcicleError.BACKEND_LOAD_FAILED,
+                              "nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(os.path.join(CSRC, s)) > built
+               for s in LIBRARIES[name])
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every stale library among `names` (default: all), in
+    parallel. Returns each compiled library's compiler output; raises with
+    that output when a compile fails."""
+    names = list(LIBRARIES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC, s) for s in LIBRARIES[name])]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp)
+    reports = {name: proc.communicate()[0] for name, (proc, _) in jobs.items()}
+    failed = [name for name, (proc, _) in jobs.items() if proc.returncode != 0]
+    if failed:
+        raise IcicleException(
+            IcicleError.BACKEND_LOAD_FAILED,
+            "nvcc failed:\n" + "\n".join(f"lib{n}.so:\n{reports[n]}" for n in failed))
+    for name, (_, tmp) in jobs.items():
+        os.replace(tmp, lib_path(name))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if stale."""
+    with _lock:
+        if name not in _loaded:
+            build_all([name])
+            _loaded[name] = ctypes.CDLL(lib_path(name))
+        return _loaded[name]
