@@ -4,9 +4,12 @@ icicle_tpu/fields/field.py).
 The parameter table is the JAX package's (standard public constants, equal
 to the reference's config values). `Field` serves the single-limb fields
 (p < 2^31: babybear, koalabear, m31) over int32 tensors through
-:class:`icicle_tpu_torch.math.mont32.Mont32`. Goldilocks and the multi-limb
-fields raise NotImplementedError until the slices that port their engines
-(ROADMAP.md queue A).
+:class:`icicle_tpu_torch.math.mont32.Mont32`, and the multi-limb fields
+(bn254, bls12, bw6, grumpkin, stark252) over `(..., L)` int32 limb tensors
+holding uint32 bit patterns through
+:class:`icicle_tpu_torch.math.bigint.BigField`. Goldilocks raises
+NotImplementedError until the slice that ports its engine (ROADMAP.md
+queue A item 5).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from icicle_tpu_torch.math.bigint import BigField
 from icicle_tpu_torch.math.params import FieldParams
 from icicle_tpu_torch.math.mont32 import Mont32
 from icicle_tpu_torch.runtime.device import resolve
@@ -77,21 +81,23 @@ _def("grumpkin_base", _BN254_R,
 
 
 class Field:
-    """Named prime field with canonical-form elementwise ops on int32 tensors."""
+    """Named prime field with canonical-form elementwise ops on int32 tensors
+    (single-limb) or int32 limb tensors (multi-limb, trailing limb axis)."""
 
     def __init__(self, params: FieldParams):
         if params.modulus == GOLDILOCKS_P:
             raise NotImplementedError(
                 "goldilocks is not ported yet (ROADMAP.md queue A item 5)")
-        if params.bits > 31:
-            raise NotImplementedError(
-                f"{params.name}: multi-limb fields are not ported yet "
-                "(ROADMAP.md queue A item 3, the MSM slice)")
         self.params = params
         self.name = params.name
         self.modulus = params.modulus
-        self.engine = Mont32(params)
-        self.limb_shape = ()
+        self.nlimbs = params.nlimbs
+        if params.bits <= 31:
+            self.engine = Mont32(params)
+            self.limb_shape = ()
+        else:
+            self.engine = BigField(params)
+            self.limb_shape = (params.nlimbs,)
 
     # -- delegated arithmetic ------------------------------------------------
     def add(self, a, b):
@@ -124,25 +130,52 @@ class Field:
     def pow_const(self, a, e: int):
         return self.engine.pow_const(a, e)
 
+    def eq(self, a, b):
+        return a == b if self.limb_shape == () else self.engine.eq(a, b)
+
+    def is_zero(self, a):
+        return a == 0 if self.limb_shape == () else self.engine.is_zero(a)
+
     # -- conversions (test/tooling boundary; numpy/python ints) ---------------
     def from_ints(self, values, device=None) -> torch.Tensor:
-        """Python ints (nested lists / numpy object arrays) -> element tensor."""
+        """Python ints (nested lists / numpy object arrays) -> element tensor
+        (multi-limb: little-endian uint32 limbs as int32 bit patterns)."""
         arr = np.asarray(values, dtype=object)
-        flat = np.array([int(v) % self.modulus for v in arr.reshape(-1)],
-                        dtype=np.int32)
-        return torch.from_numpy(flat.reshape(arr.shape)).to(resolve(device))
+        flat = [int(v) % self.modulus for v in arr.reshape(-1)]
+        if self.limb_shape == ():
+            out = np.array(flat, dtype=np.int32).reshape(arr.shape)
+        else:
+            nbytes = 4 * self.nlimbs
+            raw = b"".join(v.to_bytes(nbytes, "little") for v in flat)
+            out = np.frombuffer(raw, dtype="<u4").astype(np.uint32).view(
+                np.int32).reshape(arr.shape + self.limb_shape)
+        return torch.from_numpy(out).to(resolve(device))
 
     def to_ints(self, t: torch.Tensor) -> np.ndarray:
         """Element tensor -> numpy object array of Python ints."""
-        return t.cpu().numpy().astype(object)
+        a = t.cpu().numpy()
+        if self.limb_shape == ():
+            return a.astype(object)
+        rows = np.ascontiguousarray(a.view(np.uint32).astype("<u4")).reshape(
+            -1, self.nlimbs)
+        out = np.empty(rows.shape[0], dtype=object)
+        for i, row in enumerate(rows):
+            out[i] = int.from_bytes(row.tobytes(), "little")
+        return out.reshape(a.shape[:-1])
+
+    def element_shape(self, batch_shape=()) -> tuple:
+        return tuple(batch_shape) + self.limb_shape
 
     def zeros(self, batch_shape=(), device=None) -> torch.Tensor:
-        return torch.zeros(tuple(batch_shape), dtype=torch.int32,
+        return torch.zeros(self.element_shape(batch_shape), dtype=torch.int32,
                            device=resolve(device))
 
     def const(self, value: int, batch_shape=(), device=None) -> torch.Tensor:
-        return torch.full(tuple(batch_shape), value % self.modulus,
-                          dtype=torch.int32, device=resolve(device))
+        if self.limb_shape == ():
+            return torch.full(tuple(batch_shape), value % self.modulus,
+                              dtype=torch.int32, device=resolve(device))
+        return self.from_ints([value], device)[0].expand(
+            self.element_shape(batch_shape))
 
     def rand(self, rng: np.random.Generator, batch_shape=(), device=None) -> torch.Tensor:
         """Uniform random canonical elements; draws the same bytes from `rng`

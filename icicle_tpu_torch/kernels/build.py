@@ -3,8 +3,9 @@
 Each library is one `nvcc` call over its sources in kernels/csrc/, for
 Hopper (sm_90a), into icicle_tpu_torch/build/lib<name>.so, with a plain C
 interface that kernels/*.py load with ctypes. A library is rebuilt when it
-is missing or older than one of its sources. `build_all` starts one nvcc
-process per stale library, all at once, and waits for every one.
+is missing or older than one of its sources or than any header (`*.cuh`)
+in csrc/. `build_all` starts one nvcc process per stale library, all at
+once, and waits for every one.
 
 nvcc is taken from $CUDA_HOME/bin (default /usr/local/cuda), else from PATH.
 Nothing is built when a module is imported: `load` builds at first use.
@@ -24,8 +25,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "kernels", "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-# library name -> its sources in CSRC
-LIBRARIES = {"ntt": ["ntt_dif.cu"]}
+# library name -> its sources in CSRC (headers: every *.cuh in CSRC); one
+# source per library, so that every source compiles in its own nvcc
+LIBRARIES = {"ntt": ["ntt_dif.cu"], "msm_scan": ["msm_scan.cu"],
+             "ec_reduce": ["ec_reduce.cu"]}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,13 +53,18 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _inputs(name: str) -> list[str]:
+    """The files a library is compiled from: its sources and every header."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return [os.path.join(CSRC, f) for f in LIBRARIES[name] + headers]
+
+
 def _stale(name: str) -> bool:
     out = lib_path(name)
     if not os.path.exists(out):
         return True
     built = os.path.getmtime(out)
-    return any(os.path.getmtime(os.path.join(CSRC, s)) > built
-               for s in LIBRARIES[name])
+    return any(os.path.getmtime(f) > built for f in _inputs(name))
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -11,16 +11,33 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
+
 WORD = 32
+HALF = 16
+
+
+def limbs_of(value: int, n: int, bits: int = WORD) -> list[int]:
+    """Little-endian fixed-width limb decomposition of a non-negative int."""
+    mask = (1 << bits) - 1
+    return [(value >> (bits * i)) & mask for i in range(n)]
+
+
+def int_of(limbs, bits: int = WORD) -> int:
+    out = 0
+    for i, limb in enumerate(limbs):
+        out |= int(limb) << (bits * i)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _derived(modulus: int, nlimbs: int):
     r = 1 << (WORD * nlimbs)
     r2 = (r * r) % modulus
-    # n' = -p^{-1} mod 2^32, for Montgomery word-by-word reduction.
+    # n' = -p^{-1} mod 2^w, for Montgomery word-by-word reduction.
     inv32 = (-pow(modulus, -1, 1 << WORD)) % (1 << WORD)
-    return r % modulus, r2, inv32
+    inv16 = (-pow(modulus, -1, 1 << HALF)) % (1 << HALF)
+    return r % modulus, r2, inv32, inv16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +60,10 @@ class FieldParams:
         return (self.bits + WORD - 1) // WORD
 
     @property
+    def nhalf(self) -> int:
+        return 2 * self.nlimbs
+
+    @property
     def r(self) -> int:  # R mod p (the Montgomery unit), R = 2^(32*nlimbs)
         return _derived(self.modulus, self.nlimbs)[0]
 
@@ -55,12 +76,33 @@ class FieldParams:
         return _derived(self.modulus, self.nlimbs)[2]
 
     @property
+    def inv16(self) -> int:
+        return _derived(self.modulus, self.nlimbs)[3]
+
+    @property
     def two_adicity(self) -> int:
         s, m = 0, self.modulus - 1
         while m % 2 == 0:
             m //= 2
             s += 1
         return s
+
+    # -- numpy constant views -------------------------------------------------
+    def p_limbs32(self) -> np.ndarray:
+        return np.array(limbs_of(self.modulus, self.nlimbs), dtype=np.uint32)
+
+    def p_limbs16(self) -> np.ndarray:
+        return np.array(limbs_of(self.modulus, self.nhalf, HALF), dtype=np.uint32)
+
+    def const_limbs32(self, value: int) -> np.ndarray:
+        return np.array(limbs_of(value % self.modulus, self.nlimbs), dtype=np.uint32)
+
+    def to_mont_int(self, value: int) -> int:
+        return (value * (1 << (WORD * self.nlimbs))) % self.modulus
+
+    def from_mont_int(self, value: int) -> int:
+        rinv = pow(1 << (WORD * self.nlimbs), -1, self.modulus)
+        return (value * rinv) % self.modulus
 
     def omega(self, logn: int) -> int:
         """Primitive 2^logn-th root of unity, by repeated squaring of `rou`

@@ -72,19 +72,6 @@ class NTTConfig:
 
 
 @dataclasses.dataclass
-class MSMConfig:
-    """reference msm.h:19-97."""
-
-    precompute_factor: int = 1
-    c: int = 0  # 0 = auto window size
-    bitsize: int = 0  # 0 = scalar field bit size
-    batch_size: int = 1
-    are_points_shared_in_batch: bool = True
-    backend: Optional[str] = None
-    ext: ConfigExtension = dataclasses.field(default_factory=ConfigExtension)
-
-
-@dataclasses.dataclass
 class MatMulConfig:
     """reference mat_ops.h:20-56."""
 

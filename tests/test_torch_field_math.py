@@ -48,7 +48,7 @@ def test_field_names_match():
     assert tfield.field_names() == jfield.field_names()
 
 
-@pytest.mark.parametrize("name", ["goldilocks", "bn254_scalar", "stark252"])
+@pytest.mark.parametrize("name", ["goldilocks"])
 def test_unported_fields_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfield.Field(tfield.field_params(name))

@@ -24,7 +24,9 @@ _FORBIDDEN = re.compile(
 
 def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, icicle_tpu_torch, icicle_tpu_torch.interop, "
-            "icicle_tpu_torch.kernels.ntt_kernel\n"
+            "icicle_tpu_torch.kernels.ntt_kernel, icicle_tpu_torch.ops.msm_tpu3, "
+            "icicle_tpu_torch.kernels.msm_scan, icicle_tpu_torch.kernels.ec_reduce, "
+            "icicle_tpu_torch.curves.montgomery\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'icicle_tpu' or m.startswith('icicle_tpu.'))\n"
             "print(bad)\n")
@@ -58,6 +60,24 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from icicle_tpu_torch.fields.field import get_field
     with pytest.raises(IcicleException, match="no CUDA device"):
         get_field("babybear").from_ints([1, 2, 3])
+
+
+def test_msm_affine_raises_without_cuda(monkeypatch):
+    """numpy inputs go to the default device: with no CUDA and no
+    set_device("cpu"), the MSM raises instead of computing on the CPU."""
+    import numpy as np
+
+    from icicle_tpu_torch import msm_affine
+    monkeypatch.setattr(device, "_device", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scalars = np.zeros((4, 8), dtype=np.uint32)
+    scalars[:, 0] = [1, 2, 3, 4]
+    px = np.zeros((4, 8), dtype=np.uint32)
+    px[:, 0] = 1
+    py = np.zeros((4, 8), dtype=np.uint32)
+    py[:, 0] = 2
+    with pytest.raises(IcicleException, match="no CUDA device"):
+        msm_affine("bn254", scalars, px, py)
 
 
 def test_set_device_cpu(monkeypatch):
