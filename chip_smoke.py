@@ -11,13 +11,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                nvcc per source, all in parallel, with the compiler's report
                (registers, stack, spills);
   3. kernels -- each kernel against its plain torch version on the card,
-               bit-exact, at the shapes the main paths give it: dif_rows
-               (NTT), prefix_scan (MSM B3, C = 4096 lanes) and ec_reduce
-               (MSM B4, 2048 and 3072 and 24 lanes). The MSM kernels' serial
-               depth is cut for the comparison (K = 64, R = 64), since their
-               plain versions are Python loops over it; then each is timed
-               alone at full depth. Median ms from CUDA events beside the
-               plain version's ms and the bound;
+               bit-exact, at the lane widths the main paths give it: dif_rows
+               (NTT), prefix_scan (MSM B3, C = 4096 lanes), ec_reduce (B4,
+               2048, 3072 and 24 lanes; v2's 3712 and 29), prefix_scan_r12 (B5, 4096 lanes),
+               suffix_fold (B6, 8192 lanes, dummy slots and run ends inside
+               K) and bucket_accum (B7, 12 windows x 1024 lanes). The MSM
+               kernels' serial depth is cut for the comparison (K = 64,
+               R = 64), since their plain versions are Python loops over it;
+               then each is timed alone at full depth. Median ms from CUDA
+               events beside the plain version's ms and the bound;
   4. NTT     -- the NTT main path through icicle_tpu_torch.ntt on CUDA
                tensors: babybear 2^26, koalabear 2^24, babybear 2^16,
                forward and inverse. Forward must equal the kernel-free
@@ -25,14 +27,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                and each NTT must launch the DIF kernel twice; then a
                torch.profiler breakdown of device time by kernel for one
                forward and one inverse babybear NTT at 2^26 and 2^16;
-  5. MSM     -- the MSM main path through icicle_tpu_torch.msm_affine on
-               CUDA tensors: bn254 2^24 with bench.py's inputs (one repeated
-               point, so the answer is (sum of scalars) * P), which must
-               launch B3 12 times and B4 14 times; points/s of msm_tpu3 over
-               prepared bases (host clock to synchronize, median of 3 after
-               a warm-up); the distinct-point check at 2^16 (P_i = (i+1) P
-               against (sum (i+1) s_i) P); a torch.profiler breakdown of one
-               2^24 MSM;
+  5. MSM     -- four routes of the bn254 G1 MSM on CUDA tensors, each through
+               its entry point: the v3 pipeline (msm_affine; engine "u32",
+               B3 + B4), v3 with engine "r12" (msm_affine under
+               ICICLE_TPU_MSM_ENGINE=r12; B5 + B4), the v2 pipeline
+               (msm_affine under ICICLE_TPU_MSM_PIPELINE=v2; B6 + B4) at
+               2^24 with bench.py's inputs (one repeated point, so the
+               answer is (sum of scalars) * P), and the v1 pipeline
+               (msm_tpu, 1024 lanes; B7) at 2^20 with the same kind of
+               inputs. Each must launch exactly the kernels its plan gives
+               (counted) and equal the oracle; then points/s (host clock to
+               synchronize, median of 3 after a warm-up: v3 over prepared
+               bases, v2 and v1 over device-resident points, as bench.py
+               times them); then each route on 2^16 distinct points
+               (P_i = (i+1) P against (sum (i+1) s_i) P); torch.profiler
+               breakdowns of one 2^24 MSM of the u32, r12 and v2 routes
+               and one 2^20 MSM of the v1 route;
   6. the main paths' JSON line (per-path launches, times, profiles);
   7. the kernels JSON line; 8. the result JSON line, last.
 
@@ -47,14 +57,19 @@ call must move (each input read once, each output written once) over
 data sheet's 67 TFLOP/s). A one-word Montgomery multiply counts as three
 integer multiplies (a*b wide, m = lo*inv32, m*p wide); an L-limb one as
 4 L^2 + L (a*b and m*p, low and high words, and the L words of m): 264 at
-L = 8. A mixed add (B3's slot) is 11 such multiplies and a projective add
-(B4's row) 12, plus two multiplies by b3 = 3b each: add chains with no
-integer multiply where b3 is a small integer (bn254: 9, grumpkin: -51), as
-in the kernels and the Pallas bodies, else two more Montgomery multiplies.
+L = 8. A mixed add (B3's slot, B7's slot) is 11 such multiplies and a
+projective add (B4's row) 12, plus two multiplies by b3 = 3b each: add
+chains with no integer multiply where b3 is a small integer (bn254: 9,
+grumpkin: -51), as in the kernels and the Pallas bodies, else two more
+Montgomery multiplies. B6's slot is one of each, as its Pallas body
+computes. B5 computes B3's function, so its bound is B3's; its own radix-12
+multiply count (11 multiplies of 2 nw^2 + nw = 990 at nw = 22, plus 2 nw for
+the two by b3) is printed beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -143,12 +158,34 @@ def ec_reduce_bound(R: int, C: int, curve) -> tuple[float, str]:
     return bound((R + 1) * C * 3 * curve.fq.nlimbs * 4, R * C * add_muls(curve, PADD_MONTS))
 
 
+def suffix_fold_bound(K: int, C: int, curve) -> tuple[float, str]:
+    nl = curve.fq.nlimbs
+    return bound((K * (2 * nl + 1) + 3 * nl) * C * 4,
+                 K * C * (add_muls(curve, MADD_MONTS) + add_muls(curve, PADD_MONTS)))
+
+
+def bucket_accum_bound(W: int, K: int, C: int, curve) -> tuple[float, str]:
+    return bound(W * K * C * (1 + 5 * curve.fq.nlimbs) * 4,
+                 W * K * C * add_muls(curve, MADD_MONTS))
+
+
+def r12_madd_muls(nw: int) -> int:
+    """32-bit multiplies of one radix-12 mixed add: 11 Montgomery multiplies
+    of 2 nw^2 + nw and two wordwise multiplies by b3."""
+    return MADD_MONTS * (2 * nw * nw + nw) + 2 * nw
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper; its `launches` attribute counts its launches."""
     from icicle_tpu_torch.kernels import ec_reduce as TR
+    from icicle_tpu_torch.kernels import msm_fold2 as TF
+    from icicle_tpu_torch.kernels import msm_kernel as TK
     from icicle_tpu_torch.kernels import msm_scan as TS
+    from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
     from icicle_tpu_torch.kernels import ntt_kernel as K
-    return {"dif_rows": K.dif_rows, "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce}
+    return {"dif_rows": K.dif_rows, "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
+            "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
+            "bucket_accum": TK.bucket_accum}
 
 
 def counted(path: str, fn, launches: dict):
@@ -165,6 +202,12 @@ def counted(path: str, fn, launches: dict):
 
 MSM_24 = "msm bn254 2^24 (repeated point)"
 MSM_16 = "msm bn254 2^16 (distinct points)"
+R12_24 = "msm r12 bn254 2^24 (repeated point)"
+R12_16 = "msm r12 bn254 2^16 (distinct points)"
+V2_24 = "msm v2 bn254 2^24 (repeated point)"
+V2_16 = "msm v2 bn254 2^16 (distinct points)"
+V1_20 = "msm v1 bn254 2^20 (repeated point)"
+V1_16 = "msm v1 bn254 2^16 (distinct points)"
 NTT_MAIN = "ntt babybear 2^26 fwd+inv"
 
 
@@ -180,119 +223,275 @@ def bench_scalars(rng, n: int) -> np.ndarray:
 
 
 def check_msm_kernels(dev, gen, smi: str) -> dict:
-    """B3 and B4 against their plain versions on the card at the MSM's lane
-    widths (serial depth cut for the plain side), then timed alone at full
-    depth. Inputs: random canonical bn254 base-field limbs."""
+    """B3-B7 against their plain versions on the card at the MSM routes'
+    lane widths (serial depth cut for the plain side), then timed alone at
+    full depth. Inputs: random canonical bn254 base-field limbs (any such
+    value is a valid Montgomery form, in R or R'), sorted random keys (B7),
+    random flags with dummy slots and run ends (B6)."""
     from icicle_tpu_torch.curves.params import get_curve
     from icicle_tpu_torch.kernels import ec_reduce as TR
+    from icicle_tpu_torch.kernels import msm_fold2 as TF
+    from icicle_tpu_torch.kernels import msm_kernel as TK
     from icicle_tpu_torch.kernels import msm_scan as TS
+    from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 
     curve = get_curve("bn254")
     nl = curve.fq.nlimbs
     top = curve.fq.modulus >> (32 * (nl - 1))
+    W1 = 12   # windows per B7 launch at the v1 2^20 shape
 
-    def points(depth: int, coords: int, lanes: int) -> torch.Tensor:
-        a = torch.randint(0, 1 << 32, (depth, coords, lanes, nl), generator=gen,
+    def points(*lead, coords: int, lanes: int) -> torch.Tensor:
+        """(*lead, coords * L, lanes) int32 canonical limbs, lane-minor."""
+        a = torch.randint(0, 1 << 32, (*lead, coords, lanes, nl), generator=gen,
                           device=dev, dtype=torch.int64)
-        a[..., nl - 1] = torch.randint(0, top, (depth, coords, lanes), generator=gen,
+        a[..., nl - 1] = torch.randint(0, top, (*lead, coords, lanes), generator=gen,
                                        device=dev, dtype=torch.int64)
-        return a.to(torch.int32).permute(0, 1, 3, 2).reshape(
-            depth, coords * nl, lanes).contiguous()
+        a = a.to(torch.int32).transpose(-1, -2)          # (*lead, coords, L, lanes)
+        return a.reshape(*lead, coords * nl, lanes).contiguous()
 
-    kernels = {"prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref, 2, prefix_scan_bound),
-               "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref, 3, ec_reduce_bound)}
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def fold_flags(depth: int, lanes: int) -> torch.Tensor:
+        real = rand(depth, lanes) < 0.9                  # ~10% dummy slots
+        dacc = rand(depth, lanes) < 0.12                 # ~1 run end in 8
+        dacc[-1] = True
+        return (real.to(torch.int32) * TF.IS_REAL) | (dacc.to(torch.int32) * TF.IS_DACC)
+
+    def sorted_keys(depth: int, lanes: int) -> torch.Tensor:
+        k = torch.randint(0, 24, (W1, depth, lanes), generator=gen, device=dev)
+        return k.sort(dim=1).values.to(torch.int32).contiguous()
+
+    # name -> (kernel, plain version, inputs(depth, lanes), bound(depth, lanes))
+    kernels = {
+        "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
+                        lambda d, c: (points(d, coords=2, lanes=c),),
+                        lambda d, c: prefix_scan_bound(d, c, curve)),
+        "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
+                      lambda d, c: (points(d, coords=3, lanes=c),),
+                      lambda d, c: ec_reduce_bound(d, c, curve)),
+        "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
+                            lambda d, c: (points(d, coords=2, lanes=c),),
+                            lambda d, c: prefix_scan_bound(d, c, curve)),
+        "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref,
+                        lambda d, c: (points(d, coords=2, lanes=c), fold_flags(d, c)),
+                        lambda d, c: suffix_fold_bound(d, c, curve)),
+        "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref,
+                         lambda d, c: (sorted_keys(d, c), points(W1, d, coords=2, lanes=c)),
+                         lambda d, c: bucket_accum_bound(W1, d, c, curve)),
+    }
     checks = [  # (kernel, depth, lanes, role); the plain side runs every one
         ("prefix_scan", 64, 4096, "B3, one 2^24 window group, K cut from 8192"),
         ("ec_reduce", 64, 2048, "B4, 2^24 cross-tile fold, R cut from 2048"),
         ("ec_reduce", 8, 3072, "B4, 2^24 bucket pass 1"),
         ("ec_reduce", 128, 24, "B4, 2^24 bucket pass 2"),
+        ("ec_reduce", 64, 3712, "B4, v2 2^24 cross-tile pass 1"),
+        ("ec_reduce", 128, 29, "B4, v2 2^24 cross-tile pass 2"),
+        ("prefix_scan_r12", 64, 4096, "B5, one r12 2^24 window group, K cut from 8192"),
+        ("suffix_fold", 64, 8192, "B6, one v2 2^24 window, K cut from 2304"),
+        ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024"),
     ]
     full = [("prefix_scan", 8192, 4096, "B3 at full depth (12 per 2^24 MSM)"),
-            ("ec_reduce", 2048, 2048, "B4 cross-tile at full depth (12 per 2^24 MSM)")]
+            ("ec_reduce", 2048, 2048, "B4 cross-tile at full depth (12 per 2^24 MSM)"),
+            ("prefix_scan_r12", 8192, 4096, "B5 at full depth (12 per r12 2^24 MSM)"),
+            ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)"),
+            ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)")]
+    r12_nw = TS12.r12_engine("bn254").nw
     rows = {name: [] for name in kernels}
     for name, depth, lanes, role in checks:
-        fn, ref, coords, bnd = kernels[name]
-        x = points(depth, coords, lanes)
-        got = fn(curve, x)
+        fn, ref, make, bnd = kernels[name]
+        args = make(depth, lanes)
+        got = fn(curve, *args)
         torch.cuda.synchronize()
-        want = ref(curve, x)
+        want = ref(curve, *args)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
-        kernel_ms = cuda_ms(lambda: fn(curve, x))
-        plain_ms = cuda_ms(lambda: ref(curve, x), reps=1)
-        bound_ms, bound_by = bnd(depth, lanes, curve)
+        kernel_ms = cuda_ms(lambda: fn(curve, *args))
+        plain_ms = cuda_ms(lambda: ref(curve, *args), reps=1)
+        bound_ms, bound_by = bnd(depth, lanes)
         rows[name].append({"role": role, "depth": depth, "lanes": lanes, "checked": True,
                            "max_abs_diff": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  {name:11s} ({depth}, {coords * nl}, {lanes}) exact; kernel {kernel_ms:.4f} ms, "
+        log(f"  {name:15s} {tuple(args[-1].shape)} exact; kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
-        del x, got, want
+        del args, got, want
     for name, depth, lanes, role in full:
-        fn, _, coords, bnd = kernels[name]
-        x = points(depth, coords, lanes)
-        kernel_ms = cuda_ms(lambda: fn(curve, x), reps=3)
-        bound_ms, bound_by = bnd(depth, lanes, curve)
-        rows[name].append({"role": role, "depth": depth, "lanes": lanes, "checked": False,
-                           "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  {name:11s} ({depth}, {coords * nl}, {lanes}) kernel {kernel_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.1f}x  [{role}] [{smi}]")
-        del x
+        fn, _, make, bnd = kernels[name]
+        args = make(depth, lanes)
+        kernel_ms = cuda_ms(lambda: fn(curve, *args), reps=3)
+        bound_ms, bound_by = bnd(depth, lanes)
+        row = {"role": role, "depth": depth, "lanes": lanes, "checked": False,
+               "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        extra = ""
+        if name == "prefix_scan_r12":
+            # its own arithmetic: radix-12 multiplies at the integer rate
+            row["r12_muls"] = depth * lanes * r12_madd_muls(r12_nw)
+            row["r12_muls_ms"] = row["r12_muls"] / INT_MULS_PER_S * 1e3
+            extra = f", its radix-12 multiplies alone {row['r12_muls_ms']:.3f} ms"
+        rows[name].append(row)
+        log(f"  {name:15s} {tuple(args[-1].shape)} kernel {kernel_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.1f}x{extra}  [{role}] [{smi}]")
+        del args
     torch.cuda.empty_cache()
     return rows
 
 
-def msm_main_path(dev, smi: str, launches: dict) -> dict:
-    """The MSM main path on CUDA tensors; records each checked MSM's kernel
-    launches in `launches` and returns its measurements."""
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """os.environ[name] = value inside the block, restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def expected_launches(route: str, n: int) -> dict:
+    """Each kernel's launches in one MSM of `route` at n points, from the
+    ported plan functions."""
+    from icicle_tpu_torch.ops import msm_tpu as V1
+    from icicle_tpu_torch.ops import msm_tpu2 as V2
+    from icicle_tpu_torch.ops import msm_tpu3 as V3
+
+    counts = dict.fromkeys(kernel_counters(), 0)
+    nbits = 254
+    if route in ("u32", "r12"):
+        plan = V3._resolve_plan("bn254", n, None, None, None, route, 1)
+        groups = -(-plan["n_windows"] // plan["wg"])
+        counts["prefix_scan" if route == "u32" else "prefix_scan_r12"] = groups
+        counts["ec_reduce"] = groups + (2 if plan["M"] > 128 else 1)
+    elif route == "v2":
+        _, _, _, tiles, n_windows, wg = V2._plan2(n, None, nbits, None)
+        counts["suffix_fold"] = -(-n_windows // wg)
+        counts["ec_reduce"] = 2 if tiles > 128 else 1
+    else:
+        _, n_windows, _, _ = V1._plan(n, None, nbits, 1024)
+        per_chunk = V1._auto_wchunk(n, n_windows, 8) or n_windows
+        counts["bucket_accum"] = -(-n_windows // per_chunk)
+    return counts
+
+
+def msm_main_paths(dev, smi: str, launches: dict) -> dict:
+    """The MSM routes on CUDA tensors; records each checked MSM's kernel
+    launches in `launches` and returns the measurements."""
     from icicle_tpu_torch import get_curve, msm_affine
     from icicle_tpu_torch.curves.host_ec import ec_add, ec_mul
-    from icicle_tpu_torch.ops.msm_tpu3 import _resolve_plan, msm_tpu3, msm_tpu3_prepare
+    from icicle_tpu_torch.ops.msm_tpu import msm_tpu
+    from icicle_tpu_torch.ops.msm_tpu2 import msm_tpu2
+    from icicle_tpu_torch.ops.msm_tpu3 import msm_tpu3, msm_tpu3_prepare
 
     curve = get_curve("bn254")
     fr, fq = curve.fr, curve.fq
     mod = fq.modulus
     gen_pt = (curve.gen_x, curve.gen_y)
 
-    def expected_launches(n: int) -> tuple[int, int]:
-        plan = _resolve_plan("bn254", n, None, None, None, None, 1)
-        groups = -(-plan["n_windows"] // plan["wg"])
-        return groups, groups + (2 if plan["M"] > 128 else 1)
+    def entry(route: str):
+        """The route's entry point a user calls: (s, px, py) -> affine."""
+        if route == "u32":
+            return lambda s, x, y: msm_affine("bn254", s, x, y)
+        if route == "r12":
+            def run(s, x, y):
+                with env("ICICLE_TPU_MSM_ENGINE", "r12"):
+                    return msm_affine("bn254", s, x, y)
+            return run
+        if route == "v2":
+            def run(s, x, y):
+                with env("ICICLE_TPU_MSM_PIPELINE", "v2"):
+                    return msm_affine("bn254", s, x, y)
+            return run
+        return lambda s, x, y: msm_tpu("bn254", s, x, y)
 
-    def run_checked(label, n, scal, px, py, want):
+    def timed_call(route: str, s, x, y):
+        """The call points/s is measured over: v3 over prepared bases (set-up
+        outside the timed region, as bench.py), v2 and v1 over device points."""
+        if route in ("u32", "r12"):
+            prepared = msm_tpu3_prepare("bn254", x, y, engine=route)
+            torch.cuda.synchronize()
+            return lambda: msm_tpu3("bn254", s, prepared=prepared)
+        if route == "v2":
+            return lambda: msm_tpu2("bn254", s, x, y)
+        return lambda: msm_tpu("bn254", s, x, y)
+
+    def run_checked(route, label, n, scal, px, py, want, timed=True):
         s_dev = torch.from_numpy(scal.view(np.int32)).to(dev)
-        got = counted(label, lambda: msm_affine("bn254", s_dev, px, py), launches)
-        launched = (launches[label]["prefix_scan"], launches[label]["ec_reduce"])
-        if launched != expected_launches(n) or launches[label]["dif_rows"] != 0:
-            raise AssertionError(f"{label}: launched {launches[label]}, expected (B3, B4) = "
-                                 f"{expected_launches(n)} and no dif_rows")
+        got = counted(label, lambda: entry(route)(s_dev, px, py), launches)
+        if launches[label] != expected_launches(route, n):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected "
+                                 f"{expected_launches(route, n)}")
         want = want if want is not None else (0, 0)
         if got != want:
             raise AssertionError(f"{label}: MSM result {got} != oracle {want}")
-        prepared = msm_tpu3_prepare("bn254", px, py)
-        torch.cuda.synchronize()
-        ms, last = host_ms(lambda: msm_tpu3("bn254", s_dev, prepared=prepared), reps=3)
-        if last != want:
-            raise AssertionError(f"{label}: timed msm_tpu3 result {last} != oracle {want}")
-        log(f"  {label}: == oracle, {launched[0]} B3 + {launched[1]} B4 launches; timed "
-            f"over prepared bases == oracle, {ms:.1f} ms, {n / (ms * 1e-3):.4g} points/s [{smi}]")
-        return s_dev, prepared, want, {"n": n, "launches_b3": launched[0],
-                                       "launches_b4": launched[1], "ms": ms,
-                                       "points_per_s": n / (ms * 1e-3)}
+        launched = {k: v for k, v in launches[label].items() if v}
+        out = {"n": n, "route": route, "launches": launched}
+        if timed:
+            call = timed_call(route, s_dev, px, py)
+            ms, last = host_ms(call, reps=3)
+            if last != want:
+                raise AssertionError(f"{label}: timed result {last} != oracle {want}")
+            out.update(ms=ms, points_per_s=n / (ms * 1e-3))
+            log(f"  {label}: == oracle, launches {launched}; timed == oracle, {ms:.1f} ms, "
+                f"{n / (ms * 1e-3):.4g} points/s [{smi}]")
+        else:
+            log(f"  {label}: == oracle, launches {launched} [{smi}]")
+        return s_dev, out
 
-    # bench.py's 2^24 inputs (bench.py:48-59): one repeated point
+    def bench_inputs(n: int, seed: int):
+        """bench.py's inputs (bench.py:48-59): one repeated point."""
+        rng = np.random.default_rng(seed)
+        P = ec_mul(gen_pt, 0xDEADBEEF, mod)
+        scal = bench_scalars(rng, n)
+        total = sum(int(np.sum(scal[:, limb], dtype=np.uint64)) << (32 * limb)
+                    for limb in range(8)) % fr.modulus
+        px = fq.from_ints([P[0]], dev).expand(n, fq.nlimbs)
+        py = fq.from_ints([P[1]], dev).expand(n, fq.nlimbs)
+        return scal, px, py, ec_mul(P, total, mod)
+
+    def profile(label: str, call, want) -> dict:
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            got = call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"profiled {label}: {got} != oracle {want}")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        log(f"  profile, one {label}: wall {wall_ms:.1f} ms (profiled), device busy "
+            f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f} [{smi}]")
+        top = []
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+            top.append({"kernel": e.key[:120], "ms": e.self_device_time_total / 1e3,
+                        "count": e.count})
+        return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+
+    out = {}
+    # 2^24 with bench.py's inputs: v3 "u32", v3 "r12", v2
     n = 1 << 24
-    rng = np.random.default_rng(0)
-    P = ec_mul(gen_pt, 0xDEADBEEF, mod)
-    scal = bench_scalars(rng, n)
-    total = sum(int(np.sum(scal[:, limb], dtype=np.uint64)) << (32 * limb)
-                for limb in range(8)) % fr.modulus
-    px = fq.from_ints([P[0]], dev).expand(n, fq.nlimbs)
-    py = fq.from_ints([P[1]], dev).expand(n, fq.nlimbs)
-    s24, prep24, want24, big = run_checked(MSM_24, n, scal, px, py, ec_mul(P, total, mod))
+    scal, px, py, want24 = bench_inputs(n, 0)
+    profiles = {}
+    for route, label in (("u32", MSM_24), ("r12", R12_24), ("v2", V2_24)):
+        s24, out[label] = run_checked(route, label, n, scal, px, py, want24)
+        profiles[label] = profile(label, timed_call(route, s24, px, py), want24)
+        del s24
+        torch.cuda.empty_cache()
     del px, py
 
-    # bench.py's distinct-point check (bench.py:158-223) at 2^16
+    # v1 at 2^20 with the same kind of inputs
+    n = 1 << 20
+    scal, px, py, want20 = bench_inputs(n, 2)
+    s20, out[V1_20] = run_checked("v1", V1_20, n, scal, px, py, want20)
+    profiles[V1_20] = profile(V1_20, timed_call("v1", s20, px, py), want20)
+    del s20, px, py
+
+    # bench.py's distinct-point check (bench.py:158-223) at 2^16, every route
     n2 = 1 << 16
     rng = np.random.default_rng(1)
     P = ec_mul(gen_pt, 0xC0FFEE, mod)
@@ -305,32 +504,14 @@ def msm_main_path(dev, smi: str, launches: dict) -> dict:
                 for i in range(n2)) % fr.modulus
     px = fq.from_ints([p[0] for p in pts], dev)
     py = fq.from_ints([p[1] for p in pts], dev)
-    _, _, _, small = run_checked(MSM_16, n2, scal, px, py, ec_mul(P, total, mod))
+    want16 = ec_mul(P, total, mod)
+    for route, label in (("u32", MSM_16), ("r12", R12_16), ("v2", V2_16), ("v1", V1_16)):
+        _, out[label] = run_checked(route, label, n2, scal, px, py, want16,
+                                    timed=route == "u32")
     del px, py
-
-    # where the time goes: one 2^24 MSM over prepared bases
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        got = msm_tpu3("bn254", s24, prepared=prep24)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if got != want24:
-        raise AssertionError(f"profiled 2^24 MSM: {got} != oracle {want24}")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"  profile, one 2^24 MSM: wall {wall_ms:.1f} ms (profiled), device busy "
-        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f} [{smi}]")
-    top = []
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-        top.append({"kernel": e.key[:120], "ms": e.self_device_time_total / 1e3,
-                    "count": e.count})
-    del s24, prep24
     torch.cuda.empty_cache()
-    return {"2^24": big, "2^16_distinct": small,
-            "profile": {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}}
+    out["profiles"] = profiles
+    return out
 
 
 def main() -> None:
@@ -407,7 +588,7 @@ def main() -> None:
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         del x, factor, got, want
     torch.cuda.empty_cache()
-    log("== kernels: prefix_scan and ec_reduce against their plain versions on the card")
+    log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
     msm_rows = check_msm_kernels(dev, gen, smi)
 
     # -- 4. NTT main path -----------------------------------------------------
@@ -424,7 +605,7 @@ def main() -> None:
             return fwd, ntt(f, fwd, NTTDir.INVERSE)
 
         y, z = counted(label, fwd_inv, launches)
-        if launches[label] != {"dif_rows": 4, "prefix_scan": 0, "ec_reduce": 0}:
+        if launches[label] != dict(dict.fromkeys(kernel_counters(), 0), dif_rows=4):
             raise AssertionError(f"{label}: launched {launches[label]}, expected 4 dif_rows "
                                  "for two NTTs and nothing else")
         ref = N._ntt_torch(f, x, NTTDir.FORWARD, NTTConfig())
@@ -470,9 +651,10 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 5. MSM main path -----------------------------------------------------
-    log("== main path: icicle_tpu_torch.msm_affine on CUDA tensors")
-    msm = msm_main_path(dev, smi, launches)
+    # -- 5. MSM main paths ----------------------------------------------------
+    log("== main paths: the MSM routes (msm_affine, its r12 engine and v2 pipeline, msm_tpu) "
+        "on CUDA tensors")
+    msm = msm_main_paths(dev, smi, launches)
 
     # -- 6. main paths line ---------------------------------------------------
     print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "launches": launches,
@@ -480,8 +662,9 @@ def main() -> None:
 
     # -- 7. kernels line ------------------------------------------------------
     # launches: the kernel's count in the checked run of its headline main
-    # path (one babybear 2^26 NTT forward + inverse; one bn254 2^24 MSM);
-    # launches_per_path: its count in every main path's checked run
+    # path (one babybear 2^26 NTT forward + inverse; one bn254 2^24 MSM of
+    # its route, 2^20 for v1); launches_per_path: its count in every main
+    # path's checked run
     def per_path(kname: str) -> dict:
         return {path: counts[kname] for path, counts in launches.items()}
 
@@ -505,7 +688,8 @@ def main() -> None:
         "card": smi,
     }
 
-    def msm_entry(kname: str, source: str, replaces: str, main_role: str) -> dict:
+    def msm_entry(kname: str, source: str, replaces: str, main_role: str,
+                  headline: str) -> dict:
         # ms and bound_ms: one launch at the main path's widest full-depth
         # shape; plain_ms: the plain version at the cut depth of the first
         # checked shape, beside the kernel's ms there ("checked_ms")
@@ -514,7 +698,7 @@ def main() -> None:
         checked = rows[0]
         return {
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[MSM_24][kname],
+            "launches": launches[headline][kname], "headline_path": headline,
             "launches_per_path": per_path(kname),
             "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
             "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
@@ -530,10 +714,19 @@ def main() -> None:
         entry,
         msm_entry("prefix_scan", "icicle_tpu_torch/kernels/csrc/msm_scan.cu",
                   "icicle_tpu/pallas/msm_scan.py:45 (make_prefix_scan)",
-                  "B3 at full depth (12 per 2^24 MSM)"),
+                  "B3 at full depth (12 per 2^24 MSM)", MSM_24),
         msm_entry("ec_reduce", "icicle_tpu_torch/kernels/csrc/ec_reduce.cu",
                   "icicle_tpu/pallas/ec_reduce.py:63 (make_ec_reduce)",
-                  "B4 cross-tile at full depth (12 per 2^24 MSM)"),
+                  "B4 cross-tile at full depth (12 per 2^24 MSM)", MSM_24),
+        msm_entry("prefix_scan_r12", "icicle_tpu_torch/kernels/csrc/msm_scan_r12.cu",
+                  "icicle_tpu/pallas/msm_scan_r12.py:135 (make_prefix_scan_r12)",
+                  "B5 at full depth (12 per r12 2^24 MSM)", R12_24),
+        msm_entry("suffix_fold", "icicle_tpu_torch/kernels/csrc/msm_fold2.cu",
+                  "icicle_tpu/pallas/msm_fold2.py:75 (make_suffix_fold)",
+                  "B6 at full depth (29 per v2 2^24 MSM)", V2_24),
+        msm_entry("bucket_accum", "icicle_tpu_torch/kernels/csrc/bucket_accum.cu",
+                  "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)",
+                  "B7 at full depth (2 per v1 2^20 MSM)", V1_20),
     ]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

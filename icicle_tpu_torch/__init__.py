@@ -11,9 +11,11 @@ limb bit patterns.
 
 Ported so far: the runtime, the field layer (Mont32 and multi-limb), the
 NTT, whose four-step row passes run in a hand-written Hopper kernel
-(kernels/csrc/ntt_dif.cu), and the bn254 G1 MSM (the v3 prefix-scan
-pipeline), whose scan and EC reductions run in two more
-(kernels/csrc/msm_scan.cu, ec_reduce.cu).
+(kernels/csrc/ntt_dif.cu), and the bn254 G1 MSM: the v3 prefix-scan
+pipeline, whose scan and EC reductions run in two more
+(kernels/csrc/msm_scan.cu, ec_reduce.cu) or, with the radix-12 engine, a
+third (msm_scan_r12.cu); the v2 suffix-fold pipeline (msm_fold2.cu); the
+v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu).
 
     fields:   get_field
     curves:   get_curve

@@ -14,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.field import Field
-from icicle_tpu_torch.ops.msm_tpu3 import prepared_bases
+from icicle_tpu_torch.ops.msm import signed_table
+from icicle_tpu_torch.ops.msm_tpu3 import ENGINES
 from icicle_tpu_torch.ops.ntt import NttDomain
 from icicle_tpu_torch.runtime.device import resolve
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
@@ -60,15 +62,15 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     """The JAX package's `msm_tpu3_prepare` result -> the port's prepared
     bases on `device`, for `msm_tpu3(prepared=...)`.
 
-    `prepared` holds the plan (c, T, tiles, wg, ...) and `pts_u8`, the
-    (tiles, T, 8L) int8 Montgomery byte planes of x || y (little-endian
+    `prepared` holds the plan (c, T, tiles, wg, engine, ...) and `pts_u8`,
+    the (tiles, T, 8L) int8 Montgomery byte planes of x || y (little-endian
     bytes of each uint32 limb, icicle_tpu/ops/msm_tpu3.py:446-457); pass
-    `np.asarray(prepared["pts_u8"])` or the jax.Array itself. Only bases
-    prepared with engine "u32" (R = 2^(32 L)) carry over."""
-    if prepared["engine"] != "u32":
-        raise NotImplementedError(
-            f'prepared_from_numpy: engine {prepared["engine"]!r} bases need kernel '
-            "B5's radix-12 domain, which is not ported yet (ROADMAP.md, next slice)")
+    `np.asarray(prepared["pts_u8"])` or the jax.Array itself. The limbs are
+    in the plan's engine's domain (R = 2^(32 L) for "u32", R' = 2^(12 nw)
+    for "r12") and carry over as they are, with the engine."""
+    if prepared["engine"] not in ENGINES:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"prepared_from_numpy: unknown engine {prepared['engine']!r}")
     if prepared["nu"] != 1 or prepared.get("glv", False):
         raise NotImplementedError(
             "prepared_from_numpy: precomputed or GLV bases are not ported yet "
@@ -79,7 +81,7 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     plan = {k: prepared[k] for k in ("engine", "nbits", "c", "M", "T", "tiles",
                                      "n_windows", "wg", "n_pad", "nu")}
     xy = torch.from_numpy(limbs.view(np.int32)).to(resolve(device))
-    return prepared_bases(curve_name, plan, xy, prepared["n"])
+    return dict(plan, pts=signed_table(get_curve(curve_name).fq, xy), n=prepared["n"])
 
 
 def domain_from_numpy(f: Field, logn: int, twiddles_u32, twiddles_inv_u32,

@@ -32,8 +32,9 @@ def ec_reduce(curve, pts: torch.Tensor) -> torch.Tensor:
     msm_lib.check_points("ec_reduce", pts, 3 * nl)
     if not pts.is_cuda:
         return ec_reduce_ref(curve, pts)
-    out = torch.empty((3 * nl, pts.shape[2]), dtype=torch.int32, device=pts.device)
-    msm_lib.launch("ec_reduce", curve, pts, out)
+    R, _, C = pts.shape
+    out = torch.empty((3 * nl, C), dtype=torch.int32, device=pts.device)
+    msm_lib.launch("ec_reduce", curve, [pts, out], [R, C])
     ec_reduce.launches += 1
     return out
 

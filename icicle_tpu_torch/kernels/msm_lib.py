@@ -1,9 +1,14 @@
 """The MSM's CUDA libraries (`msm_scan` from kernels/csrc/msm_scan.cu,
-`ec_reduce` from ec_reduce.cu, both over ec_field.cuh): loading with ctypes,
-the curve constants their kernels take, and the checks both wrappers share.
+`ec_reduce` from ec_reduce.cu, `msm_fold2` from msm_fold2.cu and
+`bucket_accum` from bucket_accum.cu, all over ec_field.cuh; `msm_scan_r12`
+from msm_scan_r12.cu over radix12.cuh): loading with ctypes, the curve
+constants their kernels take, and the checks the wrappers share.
 
 The kernels are instantiated for L = 8 limbs (bn254, grumpkin) and multiply
-by b3 = 3b as a small integer; other curves raise before a launch.
+by b3 = 3b as a small integer; other curves raise before a launch. Every C
+entry point takes its tensors' device pointers, its int dimensions, L, a
+host array of curve constants and the stream, and returns the launch's
+cudaError_t.
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
 KERNEL_LIMBS = 8
 
-# kernel -> (library in build.LIBRARIES, its C entry point)
-KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan"),
-           "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce")}
+# kernel -> (library in build.LIBRARIES, its C entry point, number of tensor
+# arguments, number of int dimensions before L)
+KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 2, 2),
+           "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 2),
+           "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 2, 2),
+           "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 3, 2),
+           "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 3, 3)}
 
 
 def as_curve(curve) -> Curve:
@@ -34,16 +43,32 @@ def invalid(kernel: str, msg: str) -> IcicleException:
     return IcicleException(IcicleError.INVALID_ARGUMENT, f"{kernel}: {msg}")
 
 
-def check_points(kernel: str, t: torch.Tensor, rows: int) -> None:
-    """t must be a contiguous int32 (D, rows, C) tensor on the CPU or CUDA."""
+def _check_int32(kernel: str, t: torch.Tensor) -> None:
     if t.device.type not in ("cpu", "cuda"):
         raise invalid(kernel, f"expected a CPU or CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
-        raise invalid(kernel, f"expected int32 limbs, got {t.dtype}")
-    if t.dim() != 3 or t.shape[1] != rows or t.shape[0] < 1 or t.shape[2] < 1:
-        raise invalid(kernel, f"expected (D, {rows}, C), got {tuple(t.shape)}")
+        raise invalid(kernel, f"expected int32, got {t.dtype}")
     if not t.is_contiguous():
         raise invalid(kernel, "input must be contiguous")
+
+
+def check_points(kernel: str, t: torch.Tensor, rows: int, ndim: int = 3) -> None:
+    """t must be a contiguous int32 (..., rows, C) tensor of `ndim` nonzero
+    dimensions on the CPU or CUDA."""
+    _check_int32(kernel, t)
+    if t.dim() != ndim or t.shape[-2] != rows or min(t.shape) < 1:
+        lead = ", ".join("D" * (ndim - 2))
+        raise invalid(kernel, f"expected ({lead}, {rows}, C), got {tuple(t.shape)}")
+
+
+def check_aux(kernel: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+    """t (flags, keys) must be a contiguous int32 tensor of `shape` on
+    `like`'s device."""
+    _check_int32(kernel, t)
+    if tuple(t.shape) != tuple(shape):
+        raise invalid(kernel, f"expected {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != like.device:
+        raise invalid(kernel, f"inputs on {t.device} and {like.device}")
 
 
 def b3_small(curve: Curve) -> int | None:
@@ -56,11 +81,11 @@ def b3_small(curve: Curve) -> int | None:
 
 @functools.lru_cache(maxsize=None)
 def _entry(kernel: str):
-    library, entry = KERNELS[kernel]
+    library, entry, n_tensors, n_dims = KERNELS[kernel]
     lib = build.load(library)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_tensors + [ctypes.c_int] * (n_dims + 1)
+                   + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.icicle_msm_error_string.argtypes = [ctypes.c_int]
     lib.icicle_msm_error_string.restype = ctypes.c_char_p
@@ -79,22 +104,26 @@ def _consts(curve_name: str):
     return (ctypes.c_uint32 * len(values))(*values)
 
 
-def launch(kernel: str, curve: Curve, src: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch `kernel` over src (D, rows, C) into out on the current stream;
-    raises if the curve has no instantiation or the launch is refused."""
+def not_built(kernel: str, curve: Curve, why: str) -> IcicleException:
+    return IcicleException(IcicleError.API_NOT_IMPLEMENTED,
+                           f"{kernel}: {why}; no CUDA kernel for {curve.name}")
+
+
+def launch(kernel: str, curve: Curve, tensors, dims, consts=None) -> None:
+    """Launch `kernel` over `tensors` (inputs, then the output) with its int
+    dimensions `dims` on the current stream; `consts` defaults to the
+    ec_field.cuh constants. Raises if the curve has no instantiation or the
+    launch is refused."""
     nl = curve.fq.nlimbs
     if nl != KERNEL_LIMBS or b3_small(curve) is None:
         has = f"{nl} limbs" if nl != KERNEL_LIMBS else "a b3 that is not a small integer"
-        raise IcicleException(
-            IcicleError.API_NOT_IMPLEMENTED,
-            f"{kernel}: the CUDA kernel is built for {KERNEL_LIMBS}-limb fields with a "
-            f"small b3 (bn254, grumpkin); {curve.name} has {has}")
+        raise not_built(kernel, curve, f"the CUDA kernel is built for {KERNEL_LIMBS}-limb "
+                        f"fields with a small b3 (bn254, grumpkin), and {curve.name} has {has}")
     fn, error_string = _entry(kernel)
-    consts = _consts(curve.name)
-    depth, _, lanes = src.shape
-    with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), out.data_ptr(), depth, lanes, nl,
-                 ctypes.addressof(consts), torch.cuda.current_stream().cuda_stream)
+    consts = consts if consts is not None else _consts(curve.name)
+    with torch.cuda.device(tensors[0].device):
+        err = fn(*(t.data_ptr() for t in tensors), *dims, nl, ctypes.addressof(consts),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise IcicleException(IcicleError.UNKNOWN_ERROR,
                               f"{kernel} launch failed: {error_string(err).decode()}")

@@ -34,7 +34,7 @@ def prefix_scan(curve, plimbs: torch.Tensor) -> torch.Tensor:
         return prefix_scan_ref(curve, plimbs)
     K, _, C = plimbs.shape
     out = torch.empty((K, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
-    msm_lib.launch("prefix_scan", curve, plimbs, out)
+    msm_lib.launch("prefix_scan", curve, [plimbs, out], [K, C])
     prefix_scan.launches += 1
     return out
 

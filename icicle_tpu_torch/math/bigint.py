@@ -190,7 +190,11 @@ class BigField:
             a.shape[:-1] + (self.nh,))
 
     def mul_mont(self, a, b):
-        """a * b * R^-1 mod p, R = 2^(32 L); canonical limbs in and out."""
+        """a * b * R^-1 mod p, R = 2^(32 L); canonical limbs out. The
+        operands may be any values whose product is below p R (T + m p
+        < 2 p R, so one conditional subtract suffices): canonical ones, or
+        one in [0, 4p) with the other canonical where 4p <= R, as the r12
+        engine's values in [0, 4p) are (bn254: 4p < 2^256)."""
         nh = self.nh
         a16, b16 = torch.broadcast_tensors(self._split16(a), self._split16(b))
         t, _ = _normalize(_settle(F.pad(_product_columns(a16, b16), (0, 1)), 16), 16)
@@ -200,6 +204,23 @@ class BigField:
         s, _ = _normalize(_settle(F.pad(s, (0, 1)), 16), 16)  # T + m p < 2pR
         hi = s[..., nh:2 * nh]                                # (T + m p) / R
         return self._reduce_once(hi[..., 0::2] | (hi[..., 1::2] << 16), s[..., 2 * nh])
+
+    def div_pow2(self, a, d: int):
+        """a * 2^-d mod p, canonical, for 0 <= d < 32 and limbs a < 4p (and
+        < R): the value mul_mont(a, 2^(32 L - d)) gives, for a few torch ops
+        instead of three products. k = -a p^-1 mod 2^d makes a + k p a
+        multiple of 2^d; (a + k p) / 2^d < (2^d + 3) p / 2^d, then
+        conditional subtracts of p."""
+        p32 = self._p32(a.device)
+        t = widen(a)
+        if d:
+            low = (1 << d) - 1
+            k = ((t[..., :1] & low) * ((-pow(self.p_int, -1, 1 << d)) & low)) & low
+            s, _ = _normalize(_settle(F.pad(t + k * p32, (0, 1)), 32), 32)
+            t = (s[..., :-1] >> d) | ((s[..., 1:] << (32 - d)) & MASK32)
+        for _ in range(-(-((1 << d) + 3) >> d) - 1):
+            t = widen(self._reduce_once(t, torch.zeros_like(t[..., 0])))
+        return narrow(t)
 
     def to_mont(self, a):
         return self.mul_mont(a, self.const(self.params.r2, like=a))

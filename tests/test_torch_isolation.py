@@ -26,6 +26,9 @@ def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, icicle_tpu_torch, icicle_tpu_torch.interop, "
             "icicle_tpu_torch.kernels.ntt_kernel, icicle_tpu_torch.ops.msm_tpu3, "
             "icicle_tpu_torch.kernels.msm_scan, icicle_tpu_torch.kernels.ec_reduce, "
+            "icicle_tpu_torch.kernels.msm_scan_r12, icicle_tpu_torch.kernels.msm_fold2, "
+            "icicle_tpu_torch.kernels.msm_kernel, icicle_tpu_torch.math.radix12, "
+            "icicle_tpu_torch.ops.msm_tpu, icicle_tpu_torch.ops.msm_tpu2, "
             "icicle_tpu_torch.curves.montgomery\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'icicle_tpu' or m.startswith('icicle_tpu.'))\n"

@@ -12,6 +12,7 @@ from icicle_tpu.curves.params import get_curve as jcurve
 from icicle_tpu.ops.msm_tpu3 import msm_tpu3_prepare as jax_prepare
 from icicle_tpu_torch import interop
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
+from icicle_tpu_torch.runtime.errors import IcicleException
 from tests.ec_ref import INF, ec_mul, msm_ref
 
 # The tier-1 run puts six pytest workers on the same cores; torch's intra-op
@@ -50,8 +51,11 @@ def test_prepared_from_jax_bases():
 
 
 def test_prepared_from_numpy_refuses_other_engines():
-    plan = {"engine": "r12", "nu": 1}
-    with pytest.raises(NotImplementedError, match="B5"):
-        interop.prepared_from_numpy("bn254", plan, "cpu")
+    # "u32" and "r12" bases carry over (tests/test_torch_msm_r12.py for r12);
+    # an engine the port does not have, and precomputed bases, do not
+    with pytest.raises(IcicleException, match="unknown engine"):
+        interop.prepared_from_numpy("bn254", {"engine": "r13", "nu": 1}, "cpu")
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         interop.prepared_from_numpy("bn254", {"engine": "u32", "nu": 2}, "cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        interop.prepared_from_numpy("bn254", {"engine": "r12", "nu": 2}, "cpu")
