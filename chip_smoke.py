@@ -18,8 +18,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                K) and bucket_accum (B7, 12 windows x 1024 lanes). The MSM
                kernels' serial depth is cut for the comparison (K = 64,
                R = 64), since their plain versions are Python loops over it;
-               then each is timed alone at full depth. Median ms from CUDA
-               events beside the plain version's ms and the bound;
+               B3 and B4, which split that axis into segments, are also
+               compared at full depth, at a ragged depth (61), and against
+               their serial plain version (segments=1) as projective
+               points where the depth is at most 128; then each kernel is
+               timed alone at full depth, B3 and B4 also at other segment
+               counts. Median ms from CUDA events beside the plain
+               version's ms and the bound;
   4. NTT     -- the NTT main path through icicle_tpu_torch.ntt on CUDA
                tensors: babybear 2^26, koalabear 2^24, babybear 2^16,
                forward and inverse. Forward must equal the kernel-free
@@ -222,12 +227,71 @@ def bench_scalars(rng, n: int) -> np.ndarray:
     return scal
 
 
+# (kernel, depth, lanes, role); the plain side runs every one, once (its
+# time from CUDA events around that call); B3's and B4's serial plain
+# version, a Python loop over the whole depth, runs where the depth is at
+# most SERIAL_DEPTH
+SERIAL_DEPTH = 128
+MSM_CHECKS = [
+    ("prefix_scan", 64, 4096, "B3, one 2^24 window group, K cut from 8192"),
+    ("prefix_scan", 61, 4096, "B3, K 61: ragged last segment"),
+    ("prefix_scan", 8192, 64, "B3, one 2^16 window group at full depth"),
+    ("prefix_scan", 8192, 4096, "B3, one 2^24 window group at full depth"),
+    ("ec_reduce", 64, 2048, "B4, 2^24 cross-tile fold, R cut from 2048"),
+    ("ec_reduce", 61, 2048, "B4, R 61: ragged and empty segments"),
+    ("ec_reduce", 8, 3072, "B4, 2^24 bucket pass 1"),
+    ("ec_reduce", 128, 24, "B4, 2^24 bucket pass 2"),
+    ("ec_reduce", 64, 3712, "B4, v2 2^24 cross-tile pass 1"),
+    ("ec_reduce", 128, 29, "B4, v2 2^24 cross-tile pass 2"),
+    ("ec_reduce", 2048, 2048, "B4, 2^24 cross-tile fold at full depth"),
+    ("prefix_scan_r12", 64, 4096, "B5, one r12 2^24 window group, K cut from 8192"),
+    ("suffix_fold", 64, 8192, "B6, one v2 2^24 window, K cut from 2304"),
+    ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024"),
+]
+# (kernel, depth, lanes, role, keyword arguments): timed only; `_segments`
+# times B3 and B4 at another split than their plan's
+MSM_FULL = [
+    ("prefix_scan", 8192, 4096, "B3 at full depth (12 per 2^24 MSM)", {}),
+    ("prefix_scan", 8192, 4096, "B3 variant", {"_segments": 8}),
+    ("prefix_scan", 8192, 4096, "B3 variant", {"_segments": 32}),
+    ("ec_reduce", 2048, 2048, "B4 cross-tile at full depth (12 per 2^24 MSM)", {}),
+    ("ec_reduce", 2048, 2048, "B4 variant", {"_segments": 8}),
+    ("ec_reduce", 2048, 2048, "B4 variant", {"_segments": 16}),
+    ("prefix_scan_r12", 8192, 4096, "B5 at full depth (12 per r12 2^24 MSM)", {}),
+    ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)", {}),
+    ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)", {}),
+]
+
+
+def same_points(curve, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a, b (..., 3L, C) projective Montgomery limbs on the card: equal as
+    projective points (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1, X1 Y2 = X2 Y1 by the
+    port's BigField) and neither (0, 0, 0)."""
+    from icicle_tpu_torch.curves.group import get_group
+    from icicle_tpu_torch.kernels.msm_lib import split_point
+    m = get_group(curve.name).f.mul_mont
+    nl = curve.fq.nlimbs
+    (x1, y1, z1), (x2, y2, z2) = (split_point(t.transpose(-1, -2), nl) for t in (a, b))
+    zero = any(bool(((x == 0) & (y == 0) & (z == 0)).all(-1).any())
+               for x, y, z in ((x1, y1, z1), (x2, y2, z2)))
+    return (not zero and torch.equal(m(x1, z2), m(x2, z1)) and torch.equal(m(y1, z2), m(y2, z1))
+            and torch.equal(m(x1, y2), m(x2, y1)))
+
+
 def check_msm_kernels(dev, gen, smi: str) -> dict:
     """B3-B7 against their plain versions on the card at the MSM routes'
     lane widths (serial depth cut for the plain side), then timed alone at
-    full depth. Inputs: random canonical bn254 base-field limbs (any such
-    value is a valid Montgomery form, in R or R'), sorted random keys (B7),
-    random flags with dummy slots and run ends (B6)."""
+    full depth. B3 and B4 take curve points (a pool of 64 multiples of the
+    generator and their negatives; B4's projective, sums of two, with one
+    row of identities) and are held bit-exact against their plain versions
+    at the plan's segment count, and against the serial plain version
+    (segments=1) as projective points; at full depth the split's variants
+    are timed beside the plan's. B5-B7 take random canonical bn254
+    base-field limbs (any such value is a valid Montgomery form, in R or
+    R'), sorted random keys (B7), random flags with dummy slots and run ends
+    (B6)."""
+    from icicle_tpu_torch.curves.group import Affine, Projective, get_group
+    from icicle_tpu_torch.curves.host_ec import ec_mul
     from icicle_tpu_torch.curves.params import get_curve
     from icicle_tpu_torch.kernels import ec_reduce as TR
     from icicle_tpu_torch.kernels import msm_fold2 as TF
@@ -236,8 +300,10 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 
     curve = get_curve("bn254")
-    nl = curve.fq.nlimbs
-    top = curve.fq.modulus >> (32 * (nl - 1))
+    fq = curve.fq
+    g = get_group("bn254")
+    nl = fq.nlimbs
+    top = fq.modulus >> (32 * (nl - 1))
     W1 = 12   # windows per B7 launch at the v1 2^20 shape
 
     def points(*lead, coords: int, lanes: int) -> torch.Tensor:
@@ -248,6 +314,32 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
                                        device=dev, dtype=torch.int64)
         a = a.to(torch.int32).transpose(-1, -2)          # (*lead, coords, L, lanes)
         return a.reshape(*lead, coords * nl, lanes).contiguous()
+
+    pool = [ec_mul((curve.gen_x, curve.gen_y), 0x5EED + 977 * i, fq.modulus) for i in range(64)]
+    pool_x = fq.to_mont(fq.from_ints([p[0] for p in pool] * 2, dev))
+    pool_y = fq.to_mont(fq.from_ints([p[1] for p in pool], dev))
+    pool_y = torch.cat([pool_y, fq.neg(pool_y)])                  # P and -P
+    pair = torch.randint(0, 128, (2, 128), generator=gen, device=dev)
+    one = g.one_mont(dev).expand(128, nl)
+    pool_proj = torch.cat(list(g.madd(Projective(pool_x[pair[0]], pool_y[pair[0]], one),
+                                      Affine(pool_x[pair[1]], pool_y[pair[1]]))), -1)
+
+    def lane_major(t: torch.Tensor) -> torch.Tensor:
+        """(D, C, rows) -> (D, rows, C) contiguous."""
+        return t.transpose(1, 2).contiguous()
+
+    def curve_affine(depth: int, lanes: int) -> torch.Tensor:
+        """(depth, 2L, lanes) Montgomery x || y of pool points."""
+        i = torch.randint(0, 128, (depth, lanes), generator=gen, device=dev)
+        return lane_major(torch.cat([pool_x[i], pool_y[i]], -1))
+
+    def curve_proj(depth: int, lanes: int) -> torch.Tensor:
+        """(depth, 3L, lanes) projective pool points, Z != 1, row 2 the
+        identity where depth > 2."""
+        pts = pool_proj[torch.randint(0, 128, (depth, lanes), generator=gen, device=dev)]
+        if depth > 2:
+            pts[2] = torch.cat(list(g.identity((lanes,), dev)), -1)
+        return lane_major(pts)
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -262,68 +354,72 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         k = torch.randint(0, 24, (W1, depth, lanes), generator=gen, device=dev)
         return k.sort(dim=1).values.to(torch.int32).contiguous()
 
-    # name -> (kernel, plain version, inputs(depth, lanes), bound(depth, lanes))
+    # name -> (kernel, plain version, inputs(depth, lanes), bound(depth, lanes),
+    # segment plan or None)
     kernels = {
         "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
-                        lambda d, c: (points(d, coords=2, lanes=c),),
-                        lambda d, c: prefix_scan_bound(d, c, curve)),
+                        lambda d, c: (curve_affine(d, c),),
+                        lambda d, c: prefix_scan_bound(d, c, curve), TS.scan_segments),
         "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
-                      lambda d, c: (points(d, coords=3, lanes=c),),
-                      lambda d, c: ec_reduce_bound(d, c, curve)),
+                      lambda d, c: (curve_proj(d, c),),
+                      lambda d, c: ec_reduce_bound(d, c, curve), TR.reduce_segments),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
                             lambda d, c: (points(d, coords=2, lanes=c),),
-                            lambda d, c: prefix_scan_bound(d, c, curve)),
+                            lambda d, c: prefix_scan_bound(d, c, curve), None),
         "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref,
                         lambda d, c: (points(d, coords=2, lanes=c), fold_flags(d, c)),
-                        lambda d, c: suffix_fold_bound(d, c, curve)),
+                        lambda d, c: suffix_fold_bound(d, c, curve), None),
         "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref,
                          lambda d, c: (sorted_keys(d, c), points(W1, d, coords=2, lanes=c)),
-                         lambda d, c: bucket_accum_bound(W1, d, c, curve)),
+                         lambda d, c: bucket_accum_bound(W1, d, c, curve), None),
     }
-    checks = [  # (kernel, depth, lanes, role); the plain side runs every one
-        ("prefix_scan", 64, 4096, "B3, one 2^24 window group, K cut from 8192"),
-        ("ec_reduce", 64, 2048, "B4, 2^24 cross-tile fold, R cut from 2048"),
-        ("ec_reduce", 8, 3072, "B4, 2^24 bucket pass 1"),
-        ("ec_reduce", 128, 24, "B4, 2^24 bucket pass 2"),
-        ("ec_reduce", 64, 3712, "B4, v2 2^24 cross-tile pass 1"),
-        ("ec_reduce", 128, 29, "B4, v2 2^24 cross-tile pass 2"),
-        ("prefix_scan_r12", 64, 4096, "B5, one r12 2^24 window group, K cut from 8192"),
-        ("suffix_fold", 64, 8192, "B6, one v2 2^24 window, K cut from 2304"),
-        ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024"),
-    ]
-    full = [("prefix_scan", 8192, 4096, "B3 at full depth (12 per 2^24 MSM)"),
-            ("ec_reduce", 2048, 2048, "B4 cross-tile at full depth (12 per 2^24 MSM)"),
-            ("prefix_scan_r12", 8192, 4096, "B5 at full depth (12 per r12 2^24 MSM)"),
-            ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)"),
-            ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)")]
     r12_nw = TS12.r12_engine("bn254").nw
     rows = {name: [] for name in kernels}
-    for name, depth, lanes, role in checks:
-        fn, ref, make, bnd = kernels[name]
+    for name, depth, lanes, role in MSM_CHECKS:
+        fn, ref, make, bnd, plan = kernels[name]
         args = make(depth, lanes)
         got = fn(curve, *args)
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         want = ref(curve, *args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
+        row = {"role": role, "depth": depth, "lanes": lanes, "checked": True,
+               "max_abs_diff": err}
+        extra = ""
+        if plan is not None:
+            row["segments"] = plan(depth, lanes)
+            extra = f", S {row['segments']}"
+            if depth <= SERIAL_DEPTH:
+                # the kernel's association against the serial fold, as points
+                if not same_points(curve, got, ref(curve, *args, segments=1)):
+                    raise AssertionError(f"{name} != its serial plain version (segments=1) "
+                                         f"as projective points at {role}")
+                row["serial_equal_as_points"] = True
+                extra += ", == serial as points"
         kernel_ms = cuda_ms(lambda: fn(curve, *args))
-        plain_ms = cuda_ms(lambda: ref(curve, *args), reps=1)
         bound_ms, bound_by = bnd(depth, lanes)
-        rows[name].append({"role": role, "depth": depth, "lanes": lanes, "checked": True,
-                           "max_abs_diff": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  {name:15s} {tuple(args[-1].shape)} exact; kernel {kernel_ms:.4f} ms, "
+        row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        rows[name].append(row)
+        log(f"  {name:15s} {tuple(args[-1].shape)} exact{extra}; kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
         del args, got, want
-    for name, depth, lanes, role in full:
-        fn, _, make, bnd = kernels[name]
+    for name, depth, lanes, role, kw in MSM_FULL:
+        fn, _, make, bnd, plan = kernels[name]
         args = make(depth, lanes)
-        kernel_ms = cuda_ms(lambda: fn(curve, *args), reps=3)
+        kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw), reps=3)
         bound_ms, bound_by = bnd(depth, lanes)
         row = {"role": role, "depth": depth, "lanes": lanes, "checked": False,
                "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         extra = ""
+        if plan is not None:
+            row["segments"] = kw.get("_segments", plan(depth, lanes))
+            extra = f", S {row['segments']}"
         if name == "prefix_scan_r12":
             # its own arithmetic: radix-12 multiplies at the integer rate
             row["r12_muls"] = depth * lanes * r12_madd_muls(r12_nw)

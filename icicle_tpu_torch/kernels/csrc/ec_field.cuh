@@ -1,7 +1,8 @@
 // Multi-limb Montgomery field arithmetic and complete elliptic-curve adds
 // on one thread's registers, for NVIDIA Hopper (sm_90a). Shared by the MSM
-// kernels msm_scan.cu (B3) and ec_reduce.cu (B4); templated on the limb
-// count L, instantiated by them for L = 8 (bn254 and grumpkin).
+// kernels msm_scan.cu (B3), ec_reduce.cu (B4), msm_fold2.cu (B6) and
+// bucket_accum.cu (B7); templated on the limb count L, instantiated by them
+// for L = 8 (bn254 and grumpkin).
 //
 // Elements are L little-endian uint32 limbs of the canonical value in
 // [0, p), Montgomery form with R = 2^(32 L): the bits that the torch side
@@ -239,9 +240,49 @@ inline CurveConsts<L> consts_from(const unsigned int* h) {
   return c;
 }
 
-// Threads per block for the one-thread-per-lane kernels: at the MSM's lane
-// counts (2048-4096) 32-thread blocks spread the lanes over up to 128 SMs.
+// Points in the MSM kernels' lane-minor layout: limb j of a coordinate at
+// src[j * row], x / y / z in rows 0..L-1 / L..2L-1 / 2L..3L-1, so a warp's
+// neighbouring lanes read and write neighbouring words.
+template <int L>
+__device__ __forceinline__ Fp<L> load_fp(const uint32_t* src, size_t row) {
+  Fp<L> a;
+#pragma unroll
+  for (int j = 0; j < L; ++j) a.v[j] = src[j * row];
+  return a;
+}
+
+template <int L>
+__device__ __forceinline__ Point<L> load_point(const uint32_t* src, size_t row) {
+  Point<L> p;
+  p.x = load_fp<L>(src, row);
+  p.y = load_fp<L>(src + L * row, row);
+  p.z = load_fp<L>(src + 2 * L * row, row);
+  return p;
+}
+
+template <int L>
+__device__ __forceinline__ void store_point(uint32_t* dst, size_t row, const Point<L>& p) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    dst[j * row] = p.x.v[j];
+    dst[(L + j) * row] = p.y.v[j];
+    dst[(2 * L + j) * row] = p.z.v[j];
+  }
+}
+
+// Threads per block of the kernels that keep one thread per lane over the
+// whole serial axis (B6 msm_fold2.cu, B7 bucket_accum.cu): at their lane
+// counts (8192; 12 x 1024) 32-thread blocks spread the lanes over all SMs.
 constexpr int kLaneThreads = 32;
+
+// Threads per block of the kernels that split the serial axis over many
+// threads (B3 msm_scan.cu, B4 ec_reduce.cu). Their __launch_bounds__ asks
+// for one block per SM: ptxas may then take up to 255 registers and takes
+// about 150-200, keeping more of each multiply chain in flight, so one
+// block (8 warps) fits an SM. That ran faster than ptxas's default choice
+// (about 110-150) and than a minimum of two blocks (16 warps, a
+// 128-register cap, where it spilled).
+constexpr int kSplitThreads = 256;
 
 }  // namespace icicle_ec
 

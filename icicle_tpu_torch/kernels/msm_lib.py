@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from icicle_tpu_torch.curves.group import get_group
+from icicle_tpu_torch.curves.group import Projective, get_group
 from icicle_tpu_torch.curves.params import Curve, get_curve
 from icicle_tpu_torch.kernels import build
 from icicle_tpu_torch.math.params import limbs_of
@@ -28,11 +28,16 @@ KERNEL_LIMBS = 8
 
 # kernel -> (library in build.LIBRARIES, its C entry point, number of tensor
 # arguments, number of int dimensions before L)
-KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 2, 2),
-           "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 2),
+KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 3, 3),
+           "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 3),
            "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 2, 2),
            "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 3, 2),
            "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 3, 3)}
+
+
+# threads the split of B3's and B4's serial axis aims to run: about two
+# waves of one resident 256-thread block on each of the H100's 132 SMs
+TARGET_THREADS = 1 << 16
 
 
 def as_curve(curve) -> Curve:
@@ -69,6 +74,34 @@ def check_aux(kernel: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
         raise invalid(kernel, f"expected {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != like.device:
         raise invalid(kernel, f"inputs on {t.device} and {like.device}")
+
+
+def segment_rows(t: torch.Tensor, S: int) -> torch.Tensor:
+    """(D, rows, C) -> (ceil(D/S), S, C, rows) for the plain versions of the
+    split kernels: step j of segment s is row s * ceil(D/S) + j; rows past D
+    are zeros, which `step_mask` masks."""
+    D, rows, C = t.shape
+    n = -(-D // S)
+    pad = t.new_zeros((S * n - D, rows, C))
+    return torch.cat([t, pad]).view(S, n, rows, C).permute(1, 0, 3, 2)
+
+
+def step_mask(j: int, n: int, D: int, S: int, device) -> torch.Tensor | None:
+    """None if step j of every segment of length n lies inside D, else the
+    (S, 1) mask of the segments whose step j does."""
+    if (S - 1) * n + j < D:
+        return None
+    return (torch.arange(S, device=device) * n + j < D).view(S, 1)
+
+
+def cat_point(p: Projective) -> torch.Tensor:
+    """(..., L) x, y, z -> (..., 3L)."""
+    return torch.cat(tuple(p), dim=-1)
+
+
+def split_point(t: torch.Tensor, nl: int) -> Projective:
+    """(..., 3L) -> (..., L) x, y, z views."""
+    return Projective(t[..., :nl], t[..., nl:2 * nl], t[..., 2 * nl:])
 
 
 def b3_small(curve: Curve) -> int | None:

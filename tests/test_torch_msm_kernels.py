@@ -4,8 +4,10 @@ kernels and the Pallas bodies' own formula functions, on the CPU.
 
 On the CPU `prefix_scan` / `ec_reduce` compute their plain versions; the
 CUDA kernels are held against those plain versions on the card by
-chip_smoke.py. The Pallas kernels themselves cannot run here: interpret
-mode did not finish make_prefix_scan at K = 2, C = 128 in minutes.
+chip_smoke.py. Where a test compares with the JAX package's serial order,
+it passes segments=1 (tests/test_torch_msm_split.py covers the split).
+The Pallas kernels themselves cannot run here: interpret mode did not
+finish make_prefix_scan at K = 2, C = 128 in minutes.
 
 Tolerance: exact equality of limbs, except where stated "as affine points":
 the XLA twin of B4 starts its sum from row 0, the kernel from the identity,
@@ -112,7 +114,7 @@ def test_prefix_scan_ref_matches_xla_twin():
     K, C = 8, 128
     x = _scan_input(K, C, seed=1)
     want = np.asarray(JS.make_prefix_scan_xla(CURVE, K, C)(jnp.asarray(x[None])))[0]
-    got = TS.prefix_scan_ref(CURVE, _i32(x))
+    got = TS.prefix_scan_ref(CURVE, _i32(x), segments=1)            # the serial fold
     assert got.shape == (K, 3 * NL, C) and got.dtype == torch.int32
     assert np.array_equal(_u32(got), want)
     # lane 1 sums P, -P, P, ...: the identity after every even slot
@@ -167,14 +169,17 @@ def test_ec_reduce_ref_matches_padd_list_fold_from_identity():
         acc = JR._padd_list(f, *acc, row[:NL], row[NL:2 * NL], row[2 * NL:],
                             JMK._b3_small(c))
     want = np.stack([np.asarray(v) for coord in acc for v in coord])
-    assert np.array_equal(_u32(TR.ec_reduce_ref(CURVE, _i32(x))), want)
+    assert np.array_equal(_u32(TR.ec_reduce_ref(CURVE, _i32(x), segments=1)), want)
 
 
 def test_wrappers_on_cpu_compute_plain_versions_and_launch_nothing():
     TS.prefix_scan.launches = TR.ec_reduce.launches = 0
     x = _i32(_scan_input(3, 6, seed=30))
+    assert torch.equal(TS.prefix_scan(CURVE, x, _segments=1),
+                       TS.prefix_scan_ref(CURVE, x, segments=1))
     assert torch.equal(TS.prefix_scan(CURVE, x), TS.prefix_scan_ref(CURVE, x))
     y = _i32(_reduce_input(3, 5, seed=31))
+    assert torch.equal(TR.ec_reduce(CURVE, y, _segments=1), TR.ec_reduce_ref(CURVE, y, segments=1))
     assert torch.equal(TR.ec_reduce(CURVE, y), TR.ec_reduce_ref(CURVE, y))
     assert TS.prefix_scan.launches == 0 and TR.ec_reduce.launches == 0
 
