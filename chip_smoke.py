@@ -12,7 +12,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (registers, stack, spills);
   3. kernels -- each kernel against its plain torch version on the card,
                bit-exact, at the lane widths the main paths give it: dif_rows
-               (NTT), prefix_scan (MSM B3, C = 4096 lanes), ec_reduce (B4,
+               (NTT; every pass of the 2^26, 2^25, 2^24 and 2^16 NTTs and a
+               log N 14 pass, each in all four layouts: rows or columns in,
+               rows or columns out; then its tile heights TR timed at
+               (8192, 2^13), and pass A's column reads against the
+               transpose they replace), prefix_scan (MSM B3, C = 4096 lanes), ec_reduce (B4,
                2048, 3072 and 24 lanes; v2's 3712 and 29), prefix_scan_r12 (B5, 4096 lanes),
                suffix_fold (B6, 8192 lanes, dummy slots and run ends inside
                K) and bucket_accum (B7, 12 windows x 1024 lanes). The MSM
@@ -31,7 +35,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                `_ntt_torch` on the card, inverse must give the input back,
                and each NTT must launch the DIF kernel twice; then a
                torch.profiler breakdown of device time by kernel for one
-               forward and one inverse babybear NTT at 2^26 and 2^16;
+               forward and one inverse babybear NTT at 2^26 and 2^16, each
+               of which must run two dif_rows launches and no other kernel;
   5. MSM     -- four routes of the bn254 G1 MSM on CUDA tensors, each through
                its entry point: the v3 pipeline (msm_affine; engine "u32",
                B3 + B4), v3 with engine "r12" (msm_affine under
@@ -610,6 +615,53 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     return out
 
 
+LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def layout_name(tin: bool, tout: bool) -> str:
+    return {(False, False): "rows", (False, True): "rows>cols", (True, False): "cols>rows",
+            (True, True): "cols"}[(tin, tout)]
+
+
+def time_dif_variants(f, dev, rand, K, smi: str) -> dict:
+    """dif_rows at the 2^26 NTT's (8192, 2^13) with each tile height TR that
+    fits (the plan's pick marked), in the two passes' layouts and the
+    default one; and pass A's column reads against the transpose they
+    replace (x.T.contiguous() and then a pass that reads rows)."""
+    rows, log_n = 8192, 13
+    tw = K._stage_twiddles(f, log_n, True, dev)
+    out = {"shape": [rows, 1 << log_n], "card": smi, "tr": {}}
+    for tin, tout, with_factor in ((True, True, False), (False, True, True),
+                                   (False, False, False), (False, False, True)):
+        shape = (1 << log_n, rows) if tin else (rows, 1 << log_n)
+        x = rand(f, shape)
+        factor = rand(f, shape) if with_factor else None
+        plan_tr = K.dif_plan(rows, log_n, tin, tout)[0]
+        times = {}
+        for tr in (1, 2, 4, 8):
+            if K.dif_smem_bytes(log_n, tr) <= K.SMEM_LIMIT:
+                times[tr] = cuda_ms(lambda: K.dif_rows(f, x, tw, factor, transpose_in=tin,
+                                                       transpose_out=tout, _tr=tr))
+        key = layout_name(tin, tout) + (" factor" if with_factor else "")
+        out["tr"][key] = {"plan_tr": plan_tr, "ms": times,
+                          "bound_ms": dif_rows_bound(rows, log_n, with_factor)[0]}
+        log(f"  TR variants, {key:15s}: " + ", ".join(
+            f"TR {tr}{'*' if tr == plan_tr else ''} {ms:.4f} ms" for tr, ms in times.items())
+            + f" (bound {out['tr'][key]['bound_ms']:.4f} ms) [{smi}]")
+        del x, factor
+    x = rand(f, (1 << log_n, rows))
+    t_ms = cuda_ms(lambda: x.T.contiguous())
+    via_t = cuda_ms(lambda: K.dif_rows(f, x.T.contiguous(), tw, transpose_out=True))
+    cols = cuda_ms(lambda: K.dif_rows(f, x, tw, transpose_in=True, transpose_out=True))
+    out["transpose_in"] = {"transpose_ms": t_ms, "transpose_then_rows_ms": via_t,
+                           "cols_ms": cols}
+    log(f"  pass A with column reads {cols:.4f} ms against x.T.contiguous() {t_ms:.4f} ms "
+        f"then a row pass: {via_t:.4f} ms together")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -650,14 +702,20 @@ def main() -> None:
                 log(f"  lib{lib}: {line.strip()}")
 
     # -- 3. kernel versus plain ----------------------------------------------
-    log("== kernels: dif_rows against dif_rows_ref on the card")
-    shapes = [  # (field, rows, log_n, forward, factor, role on the main path)
+    log("== kernels: dif_rows against dif_rows_ref on the card, every layout")
+    # (field, rows, log_n, forward, factor, role on the main path); each pass
+    # is checked in all four layouts, timed in each, and its plain version
+    # timed in the layout the four-step gives it (pass A: columns in and
+    # out, pass B: rows in, columns out)
+    shapes = [
         ("babybear", 8192, 13, True, False, "2^26 fwd pass A"),
         ("babybear", 8192, 13, True, True, "2^26 fwd pass B"),
         ("babybear", 8192, 13, False, False, "2^26 inv pass A"),
         ("babybear", 8192, 13, False, True, "2^26 inv pass B"),
         ("koalabear", 4096, 12, True, False, "2^24 fwd pass A"),
         ("koalabear", 4096, 12, True, True, "2^24 fwd pass B"),
+        ("babybear", 8192, 12, True, False, "2^25 fwd pass A (rows != N)"),
+        ("babybear", 4096, 13, True, True, "2^25 fwd pass B (rows != N)"),
         ("babybear", 256, 8, True, False, "2^16 fwd pass A"),
         ("babybear", 256, 8, True, True, "2^16 fwd pass B"),
         ("babybear", 8192, 14, True, True, "2^27 fwd pass B (logN 14, 64 KB rows)"),
@@ -665,25 +723,41 @@ def main() -> None:
     shape_rows = []
     for fname, rows, log_n, forward, with_factor, role in shapes:
         f = get_field(fname)
-        x = rand(f, (rows, 1 << log_n))
-        factor = rand(f, (rows, 1 << log_n)) if with_factor else None
         tw = K._stage_twiddles(f, log_n, forward, dev)
-        got = K.dif_rows(f, x, tw, factor)
-        torch.cuda.synchronize()
-        want = K.dif_rows_ref(f, x, tw, factor)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"dif_rows != dif_rows_ref at {role}: max abs err {err}")
-        kernel_ms = cuda_ms(lambda: K.dif_rows(f, x, tw, factor))
-        plain_ms = cuda_ms(lambda: K.dif_rows_ref(f, x, tw, factor))
-        bound_ms, bound_by = dif_rows_bound(rows, log_n, with_factor)
-        shape_rows.append({"role": role, "field": fname, "rows": rows, "N": 1 << log_n,
-                           "factor": with_factor, "max_abs_diff": err, "kernel_ms": kernel_ms,
-                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  {role:38s} {fname:9s} ({rows}, {1 << log_n}) exact; kernel {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        del x, factor, got, want
+        main_layout = (False, True) if with_factor else (True, True)
+        for tin, tout in LAYOUTS:
+            shape = (1 << log_n, rows) if tin else (rows, 1 << log_n)
+            x = rand(f, shape)
+            factor = rand(f, shape) if with_factor else None
+
+            def call(fn=K.dif_rows, x=x, factor=factor, tin=tin, tout=tout):
+                return fn(f, x, tw, factor, transpose_in=tin, transpose_out=tout)
+
+            got = call()
+            torch.cuda.synchronize()
+            want = call(K.dif_rows_ref)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            layout = layout_name(tin, tout)
+            if err != 0 or not torch.equal(got, want):
+                raise AssertionError(f"dif_rows != dif_rows_ref at {role}, {layout}: "
+                                     f"max abs err {err}")
+            kernel_ms = cuda_ms(call)
+            plain_ms = cuda_ms(lambda: call(K.dif_rows_ref), reps=3) \
+                if (tin, tout) == main_layout else None
+            bound_ms, bound_by = dif_rows_bound(rows, log_n, with_factor)
+            shape_rows.append({"role": role, "field": fname, "rows": rows, "N": 1 << log_n,
+                               "factor": with_factor, "layout": layout,
+                               "main_path": (tin, tout) == main_layout,
+                               "plan": K.dif_plan(rows, log_n, tin, tout),
+                               "max_abs_diff": err, "kernel_ms": kernel_ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            plain = "" if plain_ms is None else f", plain {plain_ms:.3f} ms"
+            log(f"  {role:38s} {layout:9s} {fname:9s} ({rows}, {1 << log_n}) exact; kernel "
+                f"{kernel_ms:.4f} ms{plain}, bound {bound_ms:.4f} ms ({bound_by})")
+            del x, factor, got, want
     torch.cuda.empty_cache()
+    dif_variants = time_dif_variants(f=get_field("babybear"), dev=dev, rand=rand, K=K, smi=smi)
+    log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
     log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
     msm_rows = check_msm_kernels(dev, gen, smi)
 
@@ -743,6 +817,12 @@ def main() -> None:
                 f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
             for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
                 log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:90]}")
+            # the four-step is two dif_rows launches and no other kernel
+            if (any("dif_rows" not in e.key for e in kernels)
+                    or sum(e.count for e in kernels) != 2):
+                raise AssertionError(f"2^{logn} {direction.value} NTT ran device kernels "
+                                     f"other than two dif_rows launches: "
+                                     f"{[(e.key, e.count) for e in kernels]}")
         del x, y
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -764,7 +844,7 @@ def main() -> None:
     def per_path(kname: str) -> dict:
         return {path: counts[kname] for path, counts in launches.items()}
 
-    main_pair = [r for r in shape_rows if r["role"].startswith("2^26 fwd")]
+    main_pair = [r for r in shape_rows if r["role"].startswith("2^26 fwd") and r["main_path"]]
     entry = {
         "name": "dif_rows",
         "route": "cuda",
@@ -774,13 +854,15 @@ def main() -> None:
         "launches": launches[NTT_MAIN]["dif_rows"],
         "launches_per_path": per_path("dif_rows"),
         "max_abs_err": max(r["max_abs_diff"] for r in shape_rows),
-        # ms, plain_ms, bound_ms: the two launches of one babybear 2^26 forward NTT
+        # ms, plain_ms, bound_ms: the two launches of one babybear 2^26 forward
+        # NTT, each in its layout there (pass A columns, pass B rows>cols)
         "ms": sum(r["kernel_ms"] for r in main_pair),
         "plain_ms": sum(r["plain_ms"] for r in main_pair),
         "bound_ms": sum(r["bound_ms"] for r in main_pair),
         "bound_by": main_pair[1]["bound_by"],
         "library_ms": None,  # no PyTorch call computes a prime-field NTT
         "shapes": shape_rows,
+        "variants": dif_variants,
         "card": smi,
     }
 

@@ -119,21 +119,28 @@ def get_domain(f: Field, logn: int, device=None) -> NttDomain:
     return ntt_init_domain(f, logn, device)
 
 
-def twiddle_matrix(f: Field, n1: int, n2: int, dir: NTTDir, device) -> torch.Tensor:
+def twiddle_matrix(f: Field, n1: int, n2: int, dir: NTTDir, device,
+                   scale_n_inv: bool = False) -> torch.Tensor:
     """The four-step inter-pass twiddles T[k1, j2] = w_n^(k1*j2), n = n1*n2,
     in Montgomery form, as an (n1, n2) int32 tensor; cached per (field, n1,
-    n2, dir, device). Ported from icicle_tpu/parallel/ntt_sharded.py:43-62
-    (`_twiddle_matrix`); the rest of `parallel/` is not ported yet."""
+    n2, dir, device, scale_n_inv). Ported from
+    icicle_tpu/parallel/ntt_sharded.py:43-62 (`_twiddle_matrix`); the rest of
+    `parallel/` is not ported yet. `scale_n_inv`: T * n^-1, for an inverse
+    that folds its 1/n scale into the twiddles (the CUDA four-step); the
+    unscaled matrix is built for it but kept only if it was cached already."""
     device = resolve(device)
-    key = (f.name, n1, n2, dir, device)
+    key = (f.name, n1, n2, dir, device, scale_n_inv)
     if key not in _tw_matrices:
         n = n1 * n2
         dom = get_domain(f, n.bit_length() - 1, device)
-        w = dom.w_int if dir == NTTDir.FORWARD else dom.w_inv_int
-        table = _powers_mont(f, w, n, device)
-        k1 = torch.arange(n1, dtype=torch.int64, device=device)[:, None]
-        j2 = torch.arange(n2, dtype=torch.int64, device=device)[None, :]
-        _tw_matrices[key] = table[(k1 * j2) & (n - 1)]
+        m = _tw_matrices.get(key[:-1] + (False,))
+        if m is None:
+            w = dom.w_int if dir == NTTDir.FORWARD else dom.w_inv_int
+            table = _powers_mont(f, w, n, device)
+            k1 = torch.arange(n1, dtype=torch.int64, device=device)[:, None]
+            j2 = torch.arange(n2, dtype=torch.int64, device=device)[None, :]
+            m = table[(k1 * j2) & (n - 1)]
+        _tw_matrices[key] = f.mul_mont(m, dom.n_inv_mont) if scale_n_inv else m
     return _tw_matrices[key]
 
 
