@@ -28,7 +28,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                points where the depth is at most 128; then each kernel is
                timed alone at full depth, B3 and B4 also at other segment
                counts. Median ms from CUDA events beside the plain
-               version's ms and the bound;
+               version's ms and the bound; then poseidon2 (the Poseidon2
+               hash, no Pallas counterpart) against `hash_fields_ref` at
+               batch 2^16 (babybear every width, its sponge and a domain
+               tag; koalabear, m31) and 2^12 (bn254_scalar every width,
+               bls12_377_scalar, stark252), and timed alone at the 2^29
+               tree's leaf layer (babybear t = 2, batch 2^28);
   4. NTT     -- the NTT main path through icicle_tpu_torch.ntt on CUDA
                tensors: babybear 2^26, koalabear 2^24, babybear 2^16,
                forward and inverse. Forward must equal the kernel-free
@@ -53,12 +58,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (P_i = (i+1) P against (sum (i+1) s_i) P); torch.profiler
                breakdowns of one 2^24 MSM of the u32, r12 and v2 routes
                and one 2^20 MSM of the v1 route;
-  6. the main paths' JSON line (per-path launches, times, profiles);
-  7. the kernels JSON line; 8. the result JSON line, last.
+  6. Merkle  -- the Poseidon2 Merkle main path: MerkleTree([Poseidon2(babybear,
+               2)] * 29) over bench.py's 2^29 leaves (bench.py:226-276),
+               uploaded once; 29 poseidon2 launches a build and no other
+               device kernel (counted and profiled); leaves/s on the host
+               clock from build() to get_root() returning, median of 3
+               after a warm-up; every layer checked at 4096 sampled
+               parents against the plain version on the card; pruned and
+               full proofs of 10 leaves verify, and fail with the leaf
+               flipped; then 2^22 leaves (binary), 2^20 (Poseidon2 t = 4,
+               arity 4) and a 2^12-leaf bn254_scalar tree, each equal,
+               root and every layer, to the same build with backend
+               "torch" (the plain version) on the card;
+  7. the main paths' JSON line (per-path launches, times, profiles,
+     seconds a phase);
+  8. the kernels JSON line; 9. the result JSON line, last.
 
 Launch counts: every kernel's count is set to 0 just before each checked
-main-path call (one NTT forward + inverse, one MSM) and read just after it;
-timing and profiling calls are not counted.
+main-path call (one NTT forward + inverse, one MSM, one Merkle build) and
+read just after it; timing and profiling calls are not counted. A profile
+counts its kernels from the host's launch calls, which it always records;
+the device activities it keeps give the breakdown by kernel and can miss
+some (see device_profile).
 
 Bounds: the least time for the same work is the larger of the bytes the
 call must move (each input read once, each output written once) over
@@ -74,7 +95,12 @@ grumpkin: -51), as in the kernels and the Pallas bodies, else two more
 Montgomery multiplies. B6's slot is one of each, as its Pallas body
 computes. B5 computes B3's function, so its bound is B3's; its own radix-12
 multiply count (11 multiplies of 2 nw^2 + nw = 990 at nw = 22, plus 2 nw for
-the two by b3) is printed beside it.
+the two by b3) is printed beside it. A Poseidon2 hash counts the Montgomery
+multiplies of the plain version (and of the JAX body): t^2 for the first
+M_ext, per full round t S-boxes and t^2 for M_ext, per partial round one
+S-box and t for M_int (an S-box x^alpha is 2, 3, 4, 4, 5 multiplies for
+alpha 3, 5, 7, 9, 11), once a sponge block, plus one a word in and one out
+of Montgomery form: babybear t = 2 is 292 + 3, 885 integer multiplies.
 """
 
 from __future__ import annotations
@@ -94,6 +120,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 132 * 64 * 1.98e9
 MULS_PER_MONT = 3
 REPS = 10
+PROFILE_PAD_S = 1.0  # idle seconds before and after a profiled call, doubled a retry
+PROFILE_TRIES = 3
+PROFILE_KEPT = 0.99  # share of the launch calls a profile must keep, else retried
 MADD_MONTS = 11   # RCB15 Alg 8, not counting its two multiplies by b3
 PADD_MONTS = 12   # RCB15 Alg 7, likewise
 
@@ -179,6 +208,30 @@ def bucket_accum_bound(W: int, K: int, C: int, curve) -> tuple[float, str]:
                  W * K * C * add_muls(curve, MADD_MONTS))
 
 
+SBOX_MONTS = {3: 2, 5: 3, 7: 4, 9: 4, 11: 5}
+
+
+def poseidon2_monts(h, n: int) -> int:
+    """Montgomery multiplies of one hash of n inputs by the Poseidon2 hasher h
+    (the plain version's count; see the module docstring)."""
+    t, sbox = h.t, SBOX_MONTS[h.alpha]
+    perm = t * t + 2 * h.half_full * (t * sbox + t * t) + h.partial_rounds * (sbox + t)
+    tagged = h.domain_tag is not None
+    perms = 1 if n == t - tagged else max(1, -(-(n - 1 + tagged) // (t - 1)))
+    return perms * perm + n + 1
+
+
+def poseidon2_bound(h, batch: int, n: int) -> tuple[float, str]:
+    """Rows in and digests out once, the Montgomery-form constants once, at
+    3 (one word) or 4 L^2 + L (L limbs) integer multiplies a multiply."""
+    nl = h.field.nlimbs
+    c = h.constants("cpu")
+    const_words = (c.rc.numel() + c.mds.numel() + c.diag_m1.numel()) // nl
+    nbytes = (batch * (n + 1) + const_words) * nl * 4
+    per_mont = MULS_PER_MONT if nl == 1 else big_mont_muls(nl)
+    return bound(nbytes, batch * poseidon2_monts(h, n) * per_mont)
+
+
 def r12_madd_muls(nw: int) -> int:
     """32-bit multiplies of one radix-12 mixed add: 11 Montgomery multiplies
     of 2 nw^2 + nw and two wordwise multiplies by b3."""
@@ -193,9 +246,10 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import msm_scan as TS
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
     from icicle_tpu_torch.kernels import ntt_kernel as K
+    from icicle_tpu_torch.kernels import poseidon2_kernel as PK
     return {"dif_rows": K.dif_rows, "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
             "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
-            "bucket_accum": TK.bucket_accum}
+            "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2}
 
 
 def counted(path: str, fn, launches: dict):
@@ -219,6 +273,8 @@ V2_16 = "msm v2 bn254 2^16 (distinct points)"
 V1_20 = "msm v1 bn254 2^20 (repeated point)"
 V1_16 = "msm v1 bn254 2^16 (distinct points)"
 NTT_MAIN = "ntt babybear 2^26 fwd+inv"
+MERKLE_LOG = 29
+MERKLE_MAIN = f"merkle babybear poseidon2 t=2 2^{MERKLE_LOG}"
 
 
 def bench_scalars(rng, n: int) -> np.ndarray:
@@ -553,25 +609,10 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
         return scal, px, py, ec_mul(P, total, mod)
 
     def profile(label: str, call, want) -> dict:
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            got = call()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        got, prof = device_profile(label, call, smi)
         if got != want:
             raise AssertionError(f"profiled {label}: {got} != oracle {want}")
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        log(f"  profile, one {label}: wall {wall_ms:.1f} ms (profiled), device busy "
-            f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f} [{smi}]")
-        top = []
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
-            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-            top.append({"kernel": e.key[:120], "ms": e.self_device_time_total / 1e3,
-                        "count": e.count})
-        return {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+        return prof
 
     out = {}
     # 2^24 with bench.py's inputs: v3 "u32", v3 "r12", v2
@@ -613,6 +654,228 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     torch.cuda.empty_cache()
     out["profiles"] = profiles
     return out
+
+
+def field_elements(f, shape: tuple, gen, dev) -> torch.Tensor:
+    """Random canonical elements on the card: int32 values below p, or (...,
+    L) limbs whose top limb is below p's."""
+    if f.limb_shape == ():
+        return torch.randint(0, f.modulus, shape, generator=gen, device=dev, dtype=torch.int32)
+    nl = f.nlimbs
+    a = torch.randint(0, 1 << 32, shape + (nl,), generator=gen, device=dev, dtype=torch.int64)
+    a[..., nl - 1] = torch.randint(0, f.modulus >> (32 * (nl - 1)), shape, generator=gen,
+                                   device=dev, dtype=torch.int64)
+    return a.to(torch.int32)
+
+
+# (field, t, domain tag, n inputs a row, batch, role)
+POSEIDON2_CHECKS = (
+    [("babybear", t, None, t, 1 << 16, f"babybear t={t}") for t in (2, 3, 4, 8, 12, 16, 20, 24)]
+    + [("babybear", t, None, n, 1 << 16, f"babybear t={t} sponge n={n}")
+       for t in (3, 8) for n in (1, 2 * (t - 1) + 1)]
+    + [("babybear", 4, 1234567, 3, 1 << 16, "babybear t=4 domain tag"),
+       ("koalabear", 2, None, 2, 1 << 16, "koalabear t=2 (alpha 3)"),
+       ("koalabear", 16, None, 16, 1 << 16, "koalabear t=16 (alpha 3)"),
+       ("m31", 8, None, 8, 1 << 16, "m31 t=8 (alpha 5)")]
+    + [("bn254_scalar", t, None, t, 1 << 12, f"bn254_scalar t={t}") for t in (2, 3, 4, 8)]
+    + [("bls12_377_scalar", 2, None, 2, 1 << 12, "bls12_377_scalar t=2 (alpha 11)"),
+       ("stark252", 4, None, 4, 1 << 12, "stark252 t=4")])
+POSEIDON2_TIMED = 1 << (MERKLE_LOG - 1)  # the 2^29 tree's leaf layer
+# (field, width, log2 leaves): trees held against the torch backend's build
+MERKLE_SMALLER = (("babybear", 2, 22), ("babybear", 4, 20), ("bn254_scalar", 2, 12))
+
+
+def check_poseidon2_kernel(dev, gen, smi: str) -> list:
+    """poseidon2 against Poseidon2.hash_fields_ref on the card at every
+    POSEIDON2_CHECKS shape, bit for bit, both timed (median CUDA-event ms
+    after a warm-up); then the kernel timed alone at babybear t = 2, batch
+    2^28."""
+    from icicle_tpu_torch import Poseidon2, get_field
+    from icicle_tpu_torch.kernels import poseidon2_kernel as PK
+
+    rows = []
+    for fname, t, tag, n, batch, role in POSEIDON2_CHECKS:
+        h = Poseidon2(fname, t, domain_tag=tag)
+        x = field_elements(get_field(fname), (batch, n), gen, dev)
+        got = PK.poseidon2(h, x)
+        want = h.hash_fields_ref(x)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"poseidon2 != hash_fields_ref at {role}: max abs err {err}")
+        kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
+        plain_ms = cuda_ms(lambda: h.hash_fields_ref(x), reps=3)
+        bound_ms, bound_by = poseidon2_bound(h, batch, n)
+        rows.append({"role": role, "field": fname, "t": t, "n": n, "batch": batch,
+                     "domain_tag": tag, "checked": True, "max_abs_diff": err,
+                     "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        log(f"  poseidon2 {role:34s} ({batch}, {n}) exact; kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del x, got, want
+    h = Poseidon2("babybear", 2)
+    x = field_elements(get_field("babybear"), (POSEIDON2_TIMED, 2), gen, dev)
+    kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
+    bound_ms, bound_by = poseidon2_bound(h, POSEIDON2_TIMED, 2)
+    rows.append({"role": "babybear t=2, the 2^29 tree's leaf layer", "field": "babybear",
+                 "t": 2, "n": 2, "batch": POSEIDON2_TIMED, "domain_tag": None,
+                 "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+    log(f"  poseidon2 babybear t=2 ({POSEIDON2_TIMED}, 2): kernel {kernel_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x, "
+        f"{POSEIDON2_TIMED / (kernel_ms * 1e-3):.4g} hashes/s [{smi}]")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def device_profile(label: str, fn, smi: str):
+    """fn() under torch.profiler: (its result, {wall_ms, busy_ms, launch_calls,
+    copy_calls, kernels: [(name, count, ms)], copies: [(name, count, ms)],
+    complete, tries}); copies are memcpy and memset activities, kernels every
+    other device activity, launch_calls and copy_calls the host's calls that
+    start them.
+
+    The host's calls are always in the profile, its device activities not:
+    on the H100 machines the profiler drops the first kernels of a profiled
+    call, more of them the longer the process has run (none at its start, the
+    first 16 of a 2^29 build's 29 kernels eight minutes in). So what a caller
+    checks is counted from the host's calls, and a profile that kept fewer
+    device activities than PROFILE_KEPT of those calls started is taken again,
+    with a longer idle pad before and after the call, up to PROFILE_TRIES
+    times; `complete` says whether the last one kept them all, and busy_ms is
+    its kept time."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for tries in range(1, PROFILE_TRIES + 1):
+        pad_s = PROFILE_PAD_S * 2 ** (tries - 1)
+        with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(pad_s)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(pad_s)
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU]
+        launch_calls = sum(e.count for e in calls if "LaunchKernel" in e.key)
+        copy_calls = sum(e.count for e in calls
+                         if e.key.startswith(("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")))
+        split = {"kernels": [], "copies": []}
+        for e in sorted(events, key=lambda e: -e.self_device_time_total):
+            kind = "copies" if e.key.startswith(("Memcpy", "Memset")) else "kernels"
+            split[kind].append((e.key[:120], e.count, e.self_device_time_total / 1e3))
+        kept = sum(c for _, c, _ in split["kernels"])
+        kept_copies = sum(c for _, c, _ in split["copies"])
+        complete = kept >= launch_calls and kept_copies >= copy_calls
+        if complete:
+            break
+        log(f"  profile, one {label} (pad {pad_s:g} s): the profiler kept {kept} kernels of "
+            f"{launch_calls} launch calls, {kept_copies} copies of {copy_calls} copy calls")
+        if kept >= PROFILE_KEPT * launch_calls and kept_copies >= PROFILE_KEPT * copy_calls:
+            break
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profile, one {label}: wall {wall_ms:.1f} ms (profiled), {launch_calls} launch "
+        f"calls, {copy_calls} copy calls; device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}{'' if complete else ' (of the kept activities only)'} "
+        f"[{smi}]")
+    for kind in ("kernels", "copies"):
+        for key, count, ms in split[kind]:
+            log(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return out, dict(wall_ms=wall_ms, busy_ms=busy_ms, launch_calls=launch_calls,
+                     copy_calls=copy_calls, complete=complete, tries=tries, **split)
+
+
+def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
+    """The Poseidon2 Merkle main path on CUDA tensors (bench.py's
+    _bench_merkle); records the checked builds' launches in `launches`."""
+    from icicle_tpu_torch import MerkleTree, MerkleTreeConfig, Poseidon2, get_field
+    from icicle_tpu_torch.ops.merkle import MerkleProof
+
+    f = get_field("babybear")
+    n = 1 << MERKLE_LOG
+    h = Poseidon2(f, 2)
+    tree = MerkleTree([h] * MERKLE_LOG, leaf_words=1)
+    rng = np.random.default_rng(0)
+    leaves = torch.from_numpy(rng.integers(0, f.modulus, size=(n,), dtype=np.uint32)
+                              .view(np.int32)).to(dev)   # one upload, outside the timing
+    torch.cuda.synchronize()
+
+    def expect(count: int) -> dict:
+        return dict(dict.fromkeys(kernel_counters(), 0), poseidon2=count)
+
+    main_root = counted(MERKLE_MAIN, lambda: tree.build(leaves), launches)
+    if launches[MERKLE_MAIN] != expect(MERKLE_LOG):
+        raise AssertionError(f"{MERKLE_MAIN}: launched {launches[MERKLE_MAIN]}, expected "
+                             f"{MERKLE_LOG} poseidon2 and nothing else")
+    ms, last = host_ms(lambda: tree.build(leaves), reps=3)
+    if not np.array_equal(last, main_root):
+        raise AssertionError(f"{MERKLE_MAIN}: timed root {last} != {main_root}")
+    hashes = n - 1
+    nbytes = 4 * (n + 2 * (n - 2) + 1)  # leaves, internal layers out and in, root
+    bound_ms, bound_by = bound(nbytes, hashes * poseidon2_monts(h, 2) * MULS_PER_MONT)
+    log(f"  {MERKLE_MAIN}: {MERKLE_LOG} poseidon2 launches and nothing else; build "
+        f"{ms:.3f} ms, {n / (ms * 1e-3):.4g} leaves/s; bound {bound_ms:.3f} ms ({bound_by}) "
+        f"[{smi}]")
+    _, prof = device_profile(f"2^{MERKLE_LOG} build", lambda: tree.build(leaves), smi)
+    if (any("poseidon2" not in k for k, _, _ in prof["kernels"])
+            or prof["launch_calls"] != MERKLE_LOG):
+        raise AssertionError(f"the 2^{MERKLE_LOG} build ran device kernels other than "
+                             f"{MERKLE_LOG} poseidon2 launches: {prof['launch_calls']} launch "
+                             f"calls, kept kernels {prof['kernels']}")
+
+    # every layer: 4096 sampled parents against the plain version on the card
+    for i in range(1, MERKLE_LOG + 1):
+        below, layer = tree.layers[i - 1], tree.layers[i]
+        m = layer.shape[0]
+        pick = torch.randint(0, m, (min(m, 4096),), generator=gen, device=dev)
+        want = h.hash_fields_ref(below.reshape(m, 2)[pick])
+        if not torch.equal(layer[pick, 0], want):
+            raise AssertionError(f"2^{MERKLE_LOG} tree, layer {i}: sampled parents != "
+                                 "hash_fields_ref of their children")
+    proved = [0, n - 1] + [int(i) for i in rng.integers(0, n, size=8)]
+    for idx in proved:
+        for pruned in (True, False):
+            proof = tree.get_merkle_proof(leaves, idx, pruned=pruned)
+            bad = MerkleProof(proof.leaf ^ 1, idx, proof.root, proof.path, pruned)
+            if not tree.verify(proof) or tree.verify(bad):
+                raise AssertionError(f"2^{MERKLE_LOG} tree: the proof of leaf {idx} (pruned "
+                                     f"{pruned}) does not verify, or verifies flipped")
+    log(f"  2^{MERKLE_LOG} tree: every layer == hash_fields_ref at 4096 sampled parents; "
+        f"pruned and full proofs of leaves {proved} verify, and fail flipped; root "
+        f"{int(main_root[0])}")
+    del leaves
+    tree.layers = []
+    torch.cuda.empty_cache()
+
+    # smaller trees against the same build by the plain version on the card
+    smaller = []
+    for fname, t, log_n in MERKLE_SMALLER:
+        g = get_field(fname)
+        ht = Poseidon2(g, t)
+        depth = log_n if t == 2 else log_n // 2
+        lw = 1 if g.limb_shape == () else g.nlimbs
+        x = field_elements(g, (1 << log_n,), gen, dev).reshape(1 << log_n, lw)
+        label = f"merkle {fname} poseidon2 t={t} 2^{log_n}"
+        kernel_tree = MerkleTree([ht] * depth, leaf_words=lw)
+        plain_tree = MerkleTree([ht] * depth, leaf_words=lw)
+        root = counted(label, lambda: kernel_tree.build(x), launches)
+        if launches[label] != expect(depth):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected {depth}")
+        t0 = time.perf_counter()
+        plain_root = plain_tree.build(x, MerkleTreeConfig(backend="torch"))
+        plain_s = time.perf_counter() - t0
+        if not np.array_equal(root, plain_root) or not all(
+                torch.equal(a, b) for a, b in zip(kernel_tree.layers, plain_tree.layers)):
+            raise AssertionError(f"{label}: kernel tree != the torch backend's tree")
+        smaller.append({"label": label, "layers": depth, "root": [int(w) for w in root],
+                        "plain_s": plain_s})
+        log(f"  {label}: root and all {depth} layers == backend 'torch' on the card "
+            f"({plain_s:.1f} s), {depth} launches")
+        del x, kernel_tree, plain_tree
+    torch.cuda.empty_cache()
+    return {"leaves": n, "build_ms": ms, "leaves_per_s": n / (ms * 1e-3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "root": int(main_root[0]),
+            "profile": prof, "proved_leaves": proved, "smaller": smaller, "card": smi}
 
 
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
@@ -689,6 +952,15 @@ def main() -> None:
     log(f"torch: {name}, {torch.cuda.device_count()} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    # seconds each phase took, from the start of the build
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     # -- 2. build ------------------------------------------------------------
     log("== build")
     t0 = time.perf_counter()
@@ -701,6 +973,7 @@ def main() -> None:
                     or "spill" in line:
                 log(f"  lib{lib}: {line.strip()}")
 
+    phase_done("build")
     # -- 3. kernel versus plain ----------------------------------------------
     log("== kernels: dif_rows against dif_rows_ref on the card, every layout")
     # (field, rows, log_n, forward, factor, role on the main path); each pass
@@ -757,9 +1030,13 @@ def main() -> None:
             del x, factor, got, want
     torch.cuda.empty_cache()
     dif_variants = time_dif_variants(f=get_field("babybear"), dev=dev, rand=rand, K=K, smi=smi)
-    log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
+    phase_done("kernels: dif_rows")
     log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
     msm_rows = check_msm_kernels(dev, gen, smi)
+    phase_done("kernels: B3-B7")
+    log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
+    p2_rows = check_poseidon2_kernel(dev, gen, smi)
+    phase_done("kernels: poseidon2")
 
     # -- 4. NTT main path -----------------------------------------------------
     log("== main path: icicle_tpu_torch.ntt on CUDA tensors")
@@ -798,49 +1075,47 @@ def main() -> None:
 
     # -- where the time goes: device time by kernel -------------------------
     log("== profile: device time by kernel, one forward and one inverse babybear NTT")
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     f = get_field("babybear")
     for logn in (26, 16):
         x = rand(f, (1 << logn,))
         y = ntt(f, x, NTTDir.FORWARD)
         torch.cuda.synchronize()
         for direction, v in ((NTTDir.FORWARD, x), (NTTDir.INVERSE, y)):
-            with torch.profiler.profile(activities=activities) as prof:
-                t0 = time.perf_counter()
-                ntt(f, v, direction)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            log(f"  2^{logn} {direction.value}: wall {wall_ms:.3f} ms (profiled), device busy "
-                f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-            for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-                log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:90]}")
-            # the four-step is two dif_rows launches and no other kernel
-            if (any("dif_rows" not in e.key for e in kernels)
-                    or sum(e.count for e in kernels) != 2):
-                raise AssertionError(f"2^{logn} {direction.value} NTT ran device kernels "
-                                     f"other than two dif_rows launches: "
-                                     f"{[(e.key, e.count) for e in kernels]}")
+            _, prof = device_profile(f"2^{logn} {direction.value} NTT",
+                                     lambda: ntt(f, v, direction), smi)
+            # the four-step is two dif_rows launches and no other device work
+            if (prof["copies"] or prof["copy_calls"] or prof["launch_calls"] != 2
+                    or any("dif_rows" not in k for k, _, _ in prof["kernels"])):
+                raise AssertionError(f"2^{logn} {direction.value} NTT ran device work other "
+                                     f"than two dif_rows launches: {prof}")
         del x, y
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    phase_done("main path: ntt")
 
     # -- 5. MSM main paths ----------------------------------------------------
     log("== main paths: the MSM routes (msm_affine, its r12 engine and v2 pipeline, msm_tpu) "
         "on CUDA tensors")
     msm = msm_main_paths(dev, smi, launches)
+    phase_done("main path: msm")
 
-    # -- 6. main paths line ---------------------------------------------------
-    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "launches": launches,
+    # -- 6. Merkle main path --------------------------------------------------
+    log("== main path: the babybear Poseidon2 Merkle tree (MerkleTree.build) on CUDA tensors")
+    merkle = merkle_main_path(dev, gen, smi, launches)
+    phase_done("main path: merkle")
+    log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+
+    # -- 7. main paths line ---------------------------------------------------
+    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle,
+                                     "launches": launches, "phase_s": phase_s,
                                      "card": smi}}))
 
-    # -- 7. kernels line ------------------------------------------------------
+    # -- 8. kernels line ------------------------------------------------------
     # launches: the kernel's count in the checked run of its headline main
     # path (one babybear 2^26 NTT forward + inverse; one bn254 2^24 MSM of
-    # its route, 2^20 for v1); launches_per_path: its count in every main
-    # path's checked run
+    # its route, 2^20 for v1; one 2^29 Merkle build); launches_per_path: its
+    # count in every main path's checked run
     def per_path(kname: str) -> dict:
         return {path: counts[kname] for path, counts in launches.items()}
 
@@ -906,6 +1181,24 @@ def main() -> None:
                   "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)",
                   "B7 at full depth (2 per v1 2^20 MSM)", V1_20),
     ]
+    # ms and bound_ms: one launch at the 2^29 tree's leaf layer; plain_ms: the
+    # plain version at babybear t = 2, batch 2^16, where it was checked, beside
+    # the kernel's ms there ("checked_ms")
+    p2_main, p2_checked = p2_rows[-1], p2_rows[0]
+    entries.append({
+        "name": "poseidon2", "route": "cuda",
+        "source": "icicle_tpu_torch/kernels/csrc/poseidon2.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/hash/poseidon2.py:211 permute_mont",
+        "launches": launches[MERKLE_MAIN]["poseidon2"], "headline_path": MERKLE_MAIN,
+        "launches_per_path": per_path("poseidon2"),
+        "max_abs_err": max(r["max_abs_diff"] for r in p2_rows if r["checked"]),
+        "ms": p2_main["kernel_ms"], "plain_ms": p2_checked["plain_ms"],
+        "bound_ms": p2_main["bound_ms"], "bound_by": p2_main["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a Poseidon2 permutation
+        "shape": [p2_main["batch"], p2_main["n"]],
+        "plain_shape": [p2_checked["batch"], p2_checked["n"]],
+        "checked_ms": p2_checked["kernel_ms"], "shapes": p2_rows, "card": smi,
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,21 +15,28 @@ NTT, whose four-step row passes run in a hand-written Hopper kernel
 pipeline, whose scan and EC reductions run in two more
 (kernels/csrc/msm_scan.cu, ec_reduce.cu) or, with the radix-12 engine, a
 third (msm_scan_r12.cu); the v2 suffix-fold pipeline (msm_fold2.cu); the
-v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu).
+v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu); and the
+Poseidon2 hash with the Merkle tree over it, whose hashing runs in one more
+(poseidon2.cu).
 
     fields:   get_field
     curves:   get_curve
-    ops:      ntt, NTTConfig, NTTDir, Ordering, msm_affine, MSMConfig
+    ops:      ntt, NTTConfig, NTTDir, Ordering, msm_affine, MSMConfig,
+              Poseidon2, HashConfig, MerkleTree, MerkleProof, MerkleTreeConfig
     runtime:  set_device
 """
 
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.field import get_field
+from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
+from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
 from icicle_tpu_torch.ops.msm import MSMConfig, msm_affine
 from icicle_tpu_torch.ops.ntt import ntt
 from icicle_tpu_torch.runtime import registry as _registry  # noqa: F401
-from icicle_tpu_torch.runtime.config import NTTConfig, NTTDir, Ordering
+from icicle_tpu_torch.runtime.config import (HashConfig, MerkleTreeConfig, NTTConfig, NTTDir,
+                                             Ordering)
 from icicle_tpu_torch.runtime.device import set_device
 
 __all__ = ["get_curve", "get_field", "ntt", "NTTConfig", "NTTDir", "Ordering",
-           "msm_affine", "MSMConfig", "set_device"]
+           "msm_affine", "MSMConfig", "Poseidon2", "HashConfig", "MerkleTree",
+           "MerkleProof", "MerkleTreeConfig", "set_device"]

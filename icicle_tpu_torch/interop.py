@@ -4,8 +4,8 @@ The JAX package (icicle_tpu) keeps field elements as uint32 arrays; the port
 keeps them as int32 tensors holding the same bits: a single-limb element's
 canonical value (< 2^31, never negative), a multi-limb element's (..., L)
 little-endian uint32 limbs, where a limb >= 2^31 reads as negative in int32.
-`.view(np.int32)` and back is exact both ways. These functions take and give
-numpy arrays only: the port imports nothing of JAX, and a caller that holds
+`.view(np.int32)` and back is exact both ways. These functions take numpy
+arrays and give numpy arrays or the port's objects: the port imports nothing of JAX, and a caller that holds
 a jax.Array passes `np.asarray(array)`.
 """
 
@@ -16,6 +16,7 @@ import torch
 
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.field import Field
+from icicle_tpu_torch.ops.merkle import MerkleTree
 from icicle_tpu_torch.ops.msm import signed_table
 from icicle_tpu_torch.ops.msm_tpu3 import ENGINES
 from icicle_tpu_torch.ops.ntt import NttDomain
@@ -92,3 +93,35 @@ def domain_from_numpy(f: Field, logn: int, twiddles_u32, twiddles_inv_u32,
     return NttDomain(f, logn, w, pow(w, -1, f.modulus),
                      elements_from_numpy(f, twiddles_u32, device),
                      elements_from_numpy(f, twiddles_inv_u32, device))
+
+
+def merkle_tree_from_numpy(layer_hashes, leaf_words: int, layers,
+                           output_store_min_layer: int = 0, device=None) -> MerkleTree:
+    """A built JAX `MerkleTree`'s stored layers -> the port's `MerkleTree` on
+    `device`, whose root, proofs and `verify` are the JAX tree's.
+
+    `layer_hashes` are the port's hashers for the JAX tree's (for Poseidon2,
+    the same field and width: the constants are the other half of the
+    state, and are the JAX package's); `layers` is
+    `[np.asarray(l) if l is not None else None for l in jtree.layers]`,
+    uint32 words: the leaves, then each layer's digests, None where the JAX
+    tree dropped a layer below `output_store_min_layer`. Each layer's words
+    must be canonical elements of the field of the hasher that reads it (the
+    leaves: the first layer's)."""
+    tree = MerkleTree(layer_hashes, leaf_words, output_store_min_layer)
+    if len(layers) != len(tree.hashers) + 1 or layers[0] is None or layers[-1] is None:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                               f"expected {len(tree.hashers) + 1} layers with the leaves "
+                               f"and the root stored, got {len(layers)}")
+    readers = [tree.hashers[0]] + tree.hashers
+    out = []
+    for words, h in zip(layers, readers):
+        if words is None:
+            out.append(None)
+            continue
+        a = np.asarray(words)
+        f = h.field
+        elems = a.reshape(a.shape[0], -1, f.nlimbs) if f.limb_shape else a
+        out.append(elements_from_numpy(f, elems, device).reshape(a.shape))
+    tree.layers = out
+    return tree
