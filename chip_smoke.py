@@ -18,16 +18,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (8192, 2^13), and pass A's column reads against the
                transpose they replace), prefix_scan (MSM B3, C = 4096 lanes), ec_reduce (B4,
                2048, 3072 and 24 lanes; v2's 3712 and 29), prefix_scan_r12 (B5, 4096 lanes),
-               suffix_fold (B6, 8192 lanes, dummy slots and run ends inside
-               K) and bucket_accum (B7, 12 windows x 1024 lanes). The MSM
-               kernels' serial depth is cut for the comparison (K = 64,
-               R = 64), since their plain versions are Python loops over it;
-               B3 and B4, which split that axis into segments, are also
-               compared at full depth, at a ragged depth (61), and against
-               their serial plain version (segments=1) as projective
-               points where the depth is at most 128; then each kernel is
-               timed alone at full depth, B3 and B4 also at other segment
-               counts. Median ms from CUDA events beside the plain
+               suffix_fold (B6, 8192 lanes: random flags with dummy slots
+               and run ends inside K, and v2's stream of sorted keys with a
+               dummy slot a key) and bucket_accum (B7,
+               12 windows x 1024 lanes). The MSM kernels' serial depth is
+               cut for the comparison (K = 64, R = 64), since their plain
+               versions are Python loops over it; B3-B6, which split that
+               axis into segments, are also compared at a ragged depth
+               (61) and against their serial plain version (segments=1) as
+               projective points, B3 and B4 at full depth; then each
+               kernel is timed alone at full depth, B3-B6 also at other
+               segment counts, and B5 and B6
+               at their plan are held against themselves at _segments=1 as
+               projective points. Median ms from CUDA events beside the plain
                version's ms and the bound; then poseidon2 (the Poseidon2
                hash, no Pallas counterpart) against `hash_fields_ref` at
                batch 2^16 (babybear every width, its sponge and a domain
@@ -46,7 +49,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                its entry point: the v3 pipeline (msm_affine; engine "u32",
                B3 + B4), v3 with engine "r12" (msm_affine under
                ICICLE_TPU_MSM_ENGINE=r12; B5 + B4), the v2 pipeline
-               (msm_affine under ICICLE_TPU_MSM_PIPELINE=v2; B6 + B4) at
+               (msm_affine under ICICLE_TPU_MSM_PIPELINE=v2; B6, which
+               calls B4 once, + B4) at
                2^24 with bench.py's inputs (one repeated point, so the
                answer is (sum of scalars) * P), and the v1 pipeline
                (msm_tpu, 1024 lanes; B7) at 2^20 with the same kind of
@@ -92,8 +96,11 @@ L = 8. A mixed add (B3's slot, B7's slot) is 11 such multiplies and a
 projective add (B4's row) 12, plus two multiplies by b3 = 3b each: add
 chains with no integer multiply where b3 is a small integer (bn254: 9,
 grumpkin: -51), as in the kernels and the Pallas bodies, else two more
-Montgomery multiplies. B6's slot is one of each, as its Pallas body
-computes. B5 computes B3's function, so its bound is B3's; its own radix-12
+Montgomery multiplies. B6 counts its own work on the run's flags: a
+mixed add per real slot and a projective add per run end, the real slots'
+points and every flag read (the Pallas body's both adds on every slot, the
+figure before the split, is printed beside it). B5 computes B3's function, so
+its bound is B3's; its own radix-12
 multiply count (11 multiplies of 2 nw^2 + nw = 990 at nw = 22, plus 2 nw for
 the two by b3) is printed beside it. A Poseidon2 hash counts the Montgomery
 multiplies of the plain version (and of the JAX body): t^2 for the first
@@ -197,7 +204,21 @@ def ec_reduce_bound(R: int, C: int, curve) -> tuple[float, str]:
     return bound((R + 1) * C * 3 * curve.fq.nlimbs * 4, R * C * add_muls(curve, PADD_MONTS))
 
 
-def suffix_fold_bound(K: int, C: int, curve) -> tuple[float, str]:
+def suffix_fold_bound(flags: torch.Tensor, curve) -> tuple[float, str]:
+    """B6's own work on these flags: a mixed add per real slot (bit 0) and a
+    projective add per run end (bit 1); the real slots' points and every
+    flag read, D written."""
+    nl = curve.fq.nlimbs
+    K, C = flags.shape
+    real = int(((flags & 1) != 0).sum())
+    ends = int(((flags & 2) != 0).sum())
+    return bound((real * 2 * nl + K * C + 3 * nl * C) * 4,
+                 real * add_muls(curve, MADD_MONTS) + ends * add_muls(curve, PADD_MONTS))
+
+
+def suffix_fold_bound_all_slots(K: int, C: int, curve) -> tuple[float, str]:
+    """The bound of the Pallas body's work, both adds on every slot (the
+    figure before the split, kept for continuity)."""
     nl = curve.fq.nlimbs
     return bound((K * (2 * nl + 1) + 3 * nl) * C * 4,
                  K * C * (add_muls(curve, MADD_MONTS) + add_muls(curve, PADD_MONTS)))
@@ -288,29 +309,40 @@ def bench_scalars(rng, n: int) -> np.ndarray:
     return scal
 
 
-# (kernel, depth, lanes, role); the plain side runs every one, once (its
-# time from CUDA events around that call); B3's and B4's serial plain
-# version, a Python loop over the whole depth, runs where the depth is at
-# most SERIAL_DEPTH
+# (kernel, depth, lanes, role, options); the plain side runs every one,
+# once (its time from CUDA events around that call); the serial plain
+# version (segments=1) of the split kernels, a Python loop over the whole
+# depth, runs where the depth is at most SERIAL_DEPTH. Options: "stream"
+# (B6's flags: "random", or "v2", v2's sorted keys with M dummy slots),
+# "M", and the wrapper's keyword runs.
 SERIAL_DEPTH = 128
+V2_CUT = {"stream": "v2", "M": 16}   # v2's stream at a cut depth: 16 keys a lane
 MSM_CHECKS = [
-    ("prefix_scan", 64, 4096, "B3, one 2^24 window group, K cut from 8192"),
-    ("prefix_scan", 61, 4096, "B3, K 61: ragged last segment"),
-    ("prefix_scan", 8192, 64, "B3, one 2^16 window group at full depth"),
-    ("prefix_scan", 8192, 4096, "B3, one 2^24 window group at full depth"),
-    ("ec_reduce", 64, 2048, "B4, 2^24 cross-tile fold, R cut from 2048"),
-    ("ec_reduce", 61, 2048, "B4, R 61: ragged and empty segments"),
-    ("ec_reduce", 8, 3072, "B4, 2^24 bucket pass 1"),
-    ("ec_reduce", 128, 24, "B4, 2^24 bucket pass 2"),
-    ("ec_reduce", 64, 3712, "B4, v2 2^24 cross-tile pass 1"),
-    ("ec_reduce", 128, 29, "B4, v2 2^24 cross-tile pass 2"),
-    ("ec_reduce", 2048, 2048, "B4, 2^24 cross-tile fold at full depth"),
-    ("prefix_scan_r12", 64, 4096, "B5, one r12 2^24 window group, K cut from 8192"),
-    ("suffix_fold", 64, 8192, "B6, one v2 2^24 window, K cut from 2304"),
-    ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024"),
+    ("prefix_scan", 64, 4096, "B3, one 2^24 window group, K cut from 8192", {}),
+    ("prefix_scan", 61, 4096, "B3, K 61: ragged last segment", {}),
+    ("prefix_scan", 8192, 64, "B3, one 2^16 window group at full depth", {}),
+    ("prefix_scan", 8192, 4096, "B3, one 2^24 window group at full depth", {}),
+    ("ec_reduce", 64, 2048, "B4, 2^24 cross-tile fold, R cut from 2048", {}),
+    ("ec_reduce", 61, 2048, "B4, R 61: ragged and empty segments", {}),
+    ("ec_reduce", 8, 3072, "B4, 2^24 bucket pass 1", {}),
+    ("ec_reduce", 128, 24, "B4, 2^24 bucket pass 2", {}),
+    ("ec_reduce", 64, 3712, "B4, v2 2^24 cross-tile pass 1", {}),
+    ("ec_reduce", 128, 29, "B4, v2 2^24 cross-tile pass 2", {}),
+    ("ec_reduce", 2048, 2048, "B4, 2^24 cross-tile fold at full depth", {}),
+    ("prefix_scan_r12", 64, 4096, "B5, one r12 2^24 window group, K cut from 8192", {}),
+    ("prefix_scan_r12", 61, 4096, "B5, K 61: ragged last segment", {}),
+    ("suffix_fold", 64, 8192, "B6, one v2 2^24 window, K cut from 2304, random flags",
+     {"stream": "random"}),
+    ("suffix_fold", 61, 8192, "B6, K 61: ragged, random flags", {"stream": "random"}),
+    ("suffix_fold", 64, 8192, "B6, K 64: v2's stream, M 16", dict(V2_CUT, runs=16)),
+    ("suffix_fold", 61, 8192, "B6, K 61: v2's stream, M 16", dict(V2_CUT, runs=16)),
+    ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024", {}),
 ]
-# (kernel, depth, lanes, role, keyword arguments): timed only; `_segments`
-# times B3 and B4 at another split than their plan's
+# (kernel, depth, lanes, role, options): timed only; `_segments` times the
+# split kernels at another split than their plan's;
+# "serial": also the kernel at _segments=1, compared with the plan's
+# output as projective points
+V2_FULL = {"stream": "v2", "M": 256, "runs": 256}   # v2 2^24: T 2048 + M 256 slots
 MSM_FULL = [
     ("prefix_scan", 8192, 4096, "B3 at full depth (12 per 2^24 MSM)", {}),
     ("prefix_scan", 8192, 4096, "B3 variant", {"_segments": 8}),
@@ -318,18 +350,28 @@ MSM_FULL = [
     ("ec_reduce", 2048, 2048, "B4 cross-tile at full depth (12 per 2^24 MSM)", {}),
     ("ec_reduce", 2048, 2048, "B4 variant", {"_segments": 8}),
     ("ec_reduce", 2048, 2048, "B4 variant", {"_segments": 16}),
-    ("prefix_scan_r12", 8192, 4096, "B5 at full depth (12 per r12 2^24 MSM)", {}),
-    ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)", {}),
+    ("prefix_scan_r12", 8192, 4096, "B5 at full depth (12 per r12 2^24 MSM)",
+     {"serial": True}),
+    *[("prefix_scan_r12", 8192, 4096, "B5 variant", {"_segments": S}) for S in (4, 16, 32)],
+    ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)",
+     dict(V2_FULL, serial=True)),
+    *[("suffix_fold", 2304, 8192, "B6 variant", dict(V2_FULL, _segments=S)) for S in (8, 16, 32)],
     ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)", {}),
 ]
+SAME_POINTS_ROWS = 256   # rows of a (K, 3L, C) output compared at a time
 
 
 def same_points(curve, a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a, b (..., 3L, C) projective Montgomery limbs on the card: equal as
-    projective points (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1, X1 Y2 = X2 Y1 by the
-    port's BigField) and neither (0, 0, 0)."""
+    """a, b (..., 3L, C) projective limbs on the card, Montgomery in any
+    domain, values below 4p: equal as projective points (X1 Z2 = X2 Z1,
+    Y1 Z2 = Y2 Z1, X1 Y2 = X2 Y1 by the port's BigField, whose multiply
+    gives canonical products of such values) and neither (0, 0, 0). A
+    (K, 3L, C) pair is compared SAME_POINTS_ROWS rows at a time."""
     from icicle_tpu_torch.curves.group import get_group
     from icicle_tpu_torch.kernels.msm_lib import split_point
+    if a.dim() == 3 and a.shape[0] > SAME_POINTS_ROWS:
+        return all(same_points(curve, a[i:i + SAME_POINTS_ROWS], b[i:i + SAME_POINTS_ROWS])
+                   for i in range(0, a.shape[0], SAME_POINTS_ROWS))
     m = get_group(curve.name).f.mul_mont
     nl = curve.fq.nlimbs
     (x1, y1, z1), (x2, y2, z2) = (split_point(t.transpose(-1, -2), nl) for t in (a, b))
@@ -342,15 +384,17 @@ def same_points(curve, a: torch.Tensor, b: torch.Tensor) -> bool:
 def check_msm_kernels(dev, gen, smi: str) -> dict:
     """B3-B7 against their plain versions on the card at the MSM routes'
     lane widths (serial depth cut for the plain side), then timed alone at
-    full depth. B3 and B4 take curve points (a pool of 64 multiples of the
+    full depth. B3-B6 take curve points (a pool of 64 multiples of the
     generator and their negatives; B4's projective, sums of two, with one
-    row of identities) and are held bit-exact against their plain versions
-    at the plan's segment count, and against the serial plain version
-    (segments=1) as projective points; at full depth the split's variants
-    are timed beside the plan's. B5-B7 take random canonical bn254
-    base-field limbs (any such value is a valid Montgomery form, in R or
-    R'), sorted random keys (B7), random flags with dummy slots and run ends
-    (B6)."""
+    row of identities; B5's in the R' domain) and are held bit-exact
+    against their plain versions at the plan's segment count, and against
+    the serial plain version (segments=1) as projective points; at full
+    depth the kernel at its plan against itself at _segments=1, as points,
+    and the split's variants timed beside the plan's. B6 takes random flags
+    with dummy slots and run ends, a lane with none and a lane with one at
+    every slot, or v2's stream (sorted keys, one dummy slot a key, as
+    ops/msm_tpu2.py builds it). B7 takes random canonical bn254 base-field
+    limbs and sorted random keys."""
     from icicle_tpu_torch.curves.group import Affine, Projective, get_group
     from icicle_tpu_torch.curves.host_ec import ec_mul
     from icicle_tpu_torch.curves.params import get_curve
@@ -380,6 +424,11 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     pool_x = fq.to_mont(fq.from_ints([p[0] for p in pool] * 2, dev))
     pool_y = fq.to_mont(fq.from_ints([p[1] for p in pool], dev))
     pool_y = torch.cat([pool_y, fq.neg(pool_y)])                  # P and -P
+    # the same points in B5's R' = 2^(12 nw) domain, canonical
+    rp = TS12.r12_engine("bn254").R % fq.modulus
+    r12_x = fq.from_ints([p[0] * rp % fq.modulus for p in pool] * 2, dev)
+    r12_y = fq.from_ints([p[1] * rp % fq.modulus for p in pool], dev)
+    r12_y = torch.cat([r12_y, fq.neg(r12_y)])
     pair = torch.randint(0, 128, (2, 128), generator=gen, device=dev)
     one = g.one_mont(dev).expand(128, nl)
     pool_proj = torch.cat(list(g.madd(Projective(pool_x[pair[0]], pool_y[pair[0]], one),
@@ -389,10 +438,10 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         """(D, C, rows) -> (D, rows, C) contiguous."""
         return t.transpose(1, 2).contiguous()
 
-    def curve_affine(depth: int, lanes: int) -> torch.Tensor:
+    def curve_affine(depth: int, lanes: int, xs=pool_x, ys=pool_y) -> torch.Tensor:
         """(depth, 2L, lanes) Montgomery x || y of pool points."""
         i = torch.randint(0, 128, (depth, lanes), generator=gen, device=dev)
-        return lane_major(torch.cat([pool_x[i], pool_y[i]], -1))
+        return lane_major(torch.cat([xs[i], ys[i]], -1))
 
     def curve_proj(depth: int, lanes: int) -> torch.Tensor:
         """(depth, 3L, lanes) projective pool points, Z != 1, row 2 the
@@ -409,48 +458,71 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         real = rand(depth, lanes) < 0.9                  # ~10% dummy slots
         dacc = rand(depth, lanes) < 0.12                 # ~1 run end in 8
         dacc[-1] = True
+        dacc[:, 0] = False                               # a lane with no run end
+        dacc[:, 1] = True                                # one ending a run every slot
         return (real.to(torch.int32) * TF.IS_REAL) | (dacc.to(torch.int32) * TF.IS_DACC)
+
+    def v2_flags(depth: int, lanes: int, M: int) -> torch.Tensor:
+        """v2's stream (ops/msm_tpu2.py group_fn): a lane's depth - M digits
+        |d| in [0, M] and one dummy slot for each key 1..M, sorted by key
+        descending, each key's dummy last; bit 0 on the digits, bit 1 at the
+        last slot of each key >= 1: exactly M run ends a lane."""
+        T = depth - M
+        key = torch.cat([torch.randint(0, M + 1, (lanes, T), generator=gen, device=dev),
+                         torch.arange(1, M + 1, device=dev).expand(lanes, M)], 1)
+        dummy = torch.arange(depth, device=dev).expand(lanes, depth) >= T
+        order = torch.sort(((M - key) << 1) | dummy.to(torch.int64), dim=1).indices
+        skey, sdummy = key.gather(1, order), dummy.gather(1, order)
+        nxt = torch.cat([skey[:, 1:], skey.new_full((lanes, 1), -1)], 1)
+        flags = ((~sdummy).to(torch.int32) * TF.IS_REAL
+                 | ((skey != nxt) & (skey >= 1)).to(torch.int32) * TF.IS_DACC)
+        return flags.T.contiguous()
+
+    def fold_inputs(d, c, stream="random", M=None):
+        flags = fold_flags(d, c) if stream == "random" else v2_flags(d, c, M)
+        return curve_affine(d, c), flags
 
     def sorted_keys(depth: int, lanes: int) -> torch.Tensor:
         k = torch.randint(0, 24, (W1, depth, lanes), generator=gen, device=dev)
         return k.sort(dim=1).values.to(torch.int32).contiguous()
 
-    # name -> (kernel, plain version, inputs(depth, lanes), bound(depth, lanes),
-    # segment plan or None)
+    # name -> (kernel, plain version, inputs(depth, lanes, **options),
+    # bound(depth, lanes, inputs), segment plan or None)
     kernels = {
         "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
                         lambda d, c: (curve_affine(d, c),),
-                        lambda d, c: prefix_scan_bound(d, c, curve), TS.scan_segments),
+                        lambda d, c, a: prefix_scan_bound(d, c, curve), TS.scan_segments),
         "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
                       lambda d, c: (curve_proj(d, c),),
-                      lambda d, c: ec_reduce_bound(d, c, curve), TR.reduce_segments),
+                      lambda d, c, a: ec_reduce_bound(d, c, curve), TR.reduce_segments),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
-                            lambda d, c: (points(d, coords=2, lanes=c),),
-                            lambda d, c: prefix_scan_bound(d, c, curve), None),
-        "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref,
-                        lambda d, c: (points(d, coords=2, lanes=c), fold_flags(d, c)),
-                        lambda d, c: suffix_fold_bound(d, c, curve), None),
+                            lambda d, c: (curve_affine(d, c, r12_x, r12_y),),
+                            lambda d, c, a: prefix_scan_bound(d, c, curve), TS12.r12_segments),
+        "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref, fold_inputs,
+                        lambda d, c, a: suffix_fold_bound(a[1], curve), TF.fold_segments),
         "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref,
                          lambda d, c: (sorted_keys(d, c), points(W1, d, coords=2, lanes=c)),
-                         lambda d, c: bucket_accum_bound(W1, d, c, curve), None),
+                         lambda d, c, a: bucket_accum_bound(W1, d, c, curve), None),
     }
+    input_opts = ("stream", "M")
     r12_nw = TS12.r12_engine("bn254").nw
     rows = {name: [] for name in kernels}
-    for name, depth, lanes, role in MSM_CHECKS:
+    for name, depth, lanes, role, opts in MSM_CHECKS:
         fn, ref, make, bnd, plan = kernels[name]
-        args = make(depth, lanes)
-        got = fn(curve, *args)
+        args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
+        kw = {k: v for k, v in opts.items() if k not in input_opts}
+        got = fn(curve, *args, **kw)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = ref(curve, *args)
+        want = ref(curve, *args, **kw)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
-        row = {"role": role, "depth": depth, "lanes": lanes, "checked": True,
+        row = {"role": role, "depth": depth, "lanes": lanes, "options": opts, "checked": True,
                "max_abs_diff": err}
         extra = ""
         if plan is not None:
@@ -458,36 +530,49 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             extra = f", S {row['segments']}"
             if depth <= SERIAL_DEPTH:
                 # the kernel's association against the serial fold, as points
-                if not same_points(curve, got, ref(curve, *args, segments=1)):
+                if not same_points(curve, got, ref(curve, *args, segments=1, **kw)):
                     raise AssertionError(f"{name} != its serial plain version (segments=1) "
                                          f"as projective points at {role}")
                 row["serial_equal_as_points"] = True
                 extra += ", == serial as points"
-        kernel_ms = cuda_ms(lambda: fn(curve, *args))
-        bound_ms, bound_by = bnd(depth, lanes)
+        kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw))
+        bound_ms, bound_by = bnd(depth, lanes, args)
         row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[-1].shape)} exact{extra}; kernel {kernel_ms:.4f} ms, "
+        log(f"  {name:15s} {tuple(args[0].shape)} exact{extra}; kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
         del args, got, want
-    for name, depth, lanes, role, kw in MSM_FULL:
+    for name, depth, lanes, role, opts in MSM_FULL:
         fn, _, make, bnd, plan = kernels[name]
-        args = make(depth, lanes)
+        args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
+        kw = {k: v for k, v in opts.items() if k not in input_opts + ("serial",)}
         kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw), reps=3)
-        bound_ms, bound_by = bnd(depth, lanes)
-        row = {"role": role, "depth": depth, "lanes": lanes, "checked": False,
+        bound_ms, bound_by = bnd(depth, lanes, args)
+        row = {"role": role, "depth": depth, "lanes": lanes, "options": opts, "checked": False,
                "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         extra = ""
         if plan is not None:
             row["segments"] = kw.get("_segments", plan(depth, lanes))
             extra = f", S {row['segments']}"
+        if opts.get("serial"):
+            # the plan's split against the serial kernel (the JAX order), as points
+            if not same_points(curve, fn(curve, *args, **kw),
+                               fn(curve, *args, **dict(kw, _segments=1))):
+                raise AssertionError(f"{name} at its plan != itself at _segments=1 as "
+                                     f"projective points at {role}")
+            row["serial_equal_as_points"] = True
+            extra += ", == _segments=1 as points"
         if name == "prefix_scan_r12":
             # its own arithmetic: radix-12 multiplies at the integer rate
             row["r12_muls"] = depth * lanes * r12_madd_muls(r12_nw)
             row["r12_muls_ms"] = row["r12_muls"] / INT_MULS_PER_S * 1e3
-            extra = f", its radix-12 multiplies alone {row['r12_muls_ms']:.3f} ms"
+            extra += f", its radix-12 multiplies alone {row['r12_muls_ms']:.3f} ms"
+        if name == "suffix_fold":
+            row["bound_all_slots_ms"] = suffix_fold_bound_all_slots(depth, lanes, curve)[0]
+            extra += (f"; both adds on every slot (the Pallas body) "
+                      f"{row['bound_all_slots_ms']:.3f} ms")
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[-1].shape)} kernel {kernel_ms:.3f} ms, bound "
+        log(f"  {name:15s} {tuple(args[0].shape)} kernel {kernel_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.1f}x{extra}  [{role}] [{smi}]")
         del args
     torch.cuda.empty_cache()
@@ -525,7 +610,8 @@ def expected_launches(route: str, n: int) -> dict:
     elif route == "v2":
         _, _, _, tiles, n_windows, wg = V2._plan2(n, None, nbits, None)
         counts["suffix_fold"] = -(-n_windows // wg)
-        counts["ec_reduce"] = 2 if tiles > 128 else 1
+        # B6 sums its run ends with one B4 a call, then the cross-tile fold
+        counts["ec_reduce"] = counts["suffix_fold"] + (2 if tiles > 128 else 1)
     else:
         _, n_windows, _, _ = V1._plan(n, None, nbits, 1024)
         per_chunk = V1._auto_wchunk(n, n_windows, 8) or n_windows

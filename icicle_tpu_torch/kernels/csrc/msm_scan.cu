@@ -34,27 +34,19 @@
 //      carry_s and writes every E_k.
 // A warp takes 32 consecutive lanes of one segment, so reads and
 // writes stay 128 contiguous bytes per limb row. Blocks are kSplitThreads,
-// one resident per SM (ec_field.cuh).
+// one resident per SM (ec_field.cuh). The slot loop and the carry scan are
+// msm_split.cuh's, shared with the suffix fold (msm_fold2.cu, B6).
 // The plain version (prefix_scan_ref) repeats this association of adds, so
 // the two agree bit for bit; segment 0 and S = 1 give the serial fold's bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ec_field.cuh"
+#include "msm_split.cuh"
 
 namespace {
 
 using namespace icicle_ec;
-
-// Slot k's affine point: x then y rows.
-template <int L>
-__device__ __forceinline__ void load_slot(const uint32_t* in, int k, int lane, size_t row,
-                                          Fp<L>& x, Fp<L>& y) {
-  const uint32_t* src = in + static_cast<size_t>(k) * 2 * L * row + lane;
-  x = load_fp<L>(src, row);
-  y = load_fp<L>(src + L * row, row);
-}
 
 template <int L>
 __device__ __forceinline__ uint32_t* slot_out(uint32_t* out, int k, int lane, size_t row) {
@@ -71,31 +63,14 @@ scan_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   if (lane >= C) return;
   const size_t row = static_cast<size_t>(C);
   const int seg = blockIdx.y;
-  const int k0 = min(K, seg * n);
-  const int k1 = min(K, k0 + n);
-  Point<L> e = identity<L>(c);
-  for (int k = k0; k < k1; ++k) {
-    Fp<L> x, y;
-    load_slot<L>(in, k, lane, row, x, y);
-    e = madd<L>(e, x, y, c);
-    if (seg == 0) store_point<L>(slot_out<L>(out, k, lane, row), row, e);
-  }
+  int k0, k1;
+  segment_slots(seg, n, K, k0, k1);
+  const Point<L> e = fold_slots<L, false>(
+      in, nullptr, k0, k1, lane, row, identity<L>(c), c,
+      [&](int k, int32_t, const Point<L>& acc) {
+        if (seg == 0) store_point<L>(slot_out<L>(out, k, lane, row), row, acc);
+      });
   if (seg < S - 1) store_point<L>(carries + static_cast<size_t>(seg) * 3 * L * row + lane, row, e);
-}
-
-// Pass 2: one thread per lane over the S - 1 totals.
-template <int L>
-__global__ void __launch_bounds__(kLaneThreads)
-carry_scan_kernel(uint32_t* __restrict__ carries, int C, int S, const CurveConsts<L> c) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= C) return;
-  const size_t row = static_cast<size_t>(C);
-  Point<L> carry = identity<L>(c);
-  for (int s = 0; s < S - 1; ++s) {
-    uint32_t* p = carries + static_cast<size_t>(s) * 3 * L * row + lane;
-    carry = padd<L>(carry, load_point<L>(p, row), c);
-    store_point<L>(p, row, carry);
-  }
 }
 
 // Pass 3: blockIdx.y + 1 is the segment.
@@ -108,15 +83,14 @@ rescan_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   if (lane >= C) return;
   const size_t row = static_cast<size_t>(C);
   const int seg = blockIdx.y + 1;
-  const int k0 = min(K, seg * n);
-  const int k1 = min(K, k0 + n);
-  Point<L> e = load_point<L>(carries + static_cast<size_t>(seg - 1) * 3 * L * row + lane, row);
-  for (int k = k0; k < k1; ++k) {
-    Fp<L> x, y;
-    load_slot<L>(in, k, lane, row, x, y);
-    e = madd<L>(e, x, y, c);
-    store_point<L>(slot_out<L>(out, k, lane, row), row, e);
-  }
+  int k0, k1;
+  segment_slots(seg, n, K, k0, k1);
+  fold_slots<L, false>(
+      in, nullptr, k0, k1, lane, row,
+      load_point<L>(carries + static_cast<size_t>(seg - 1) * 3 * L * row + lane, row), c,
+      [&](int k, int32_t, const Point<L>& acc) {
+        store_point<L>(slot_out<L>(out, k, lane, row), row, acc);
+      });
 }
 
 }  // namespace
@@ -144,9 +118,7 @@ int icicle_msm_prefix_scan(const void* in, void* out, void* carries, int K, int 
   scan_reduce_kernel<8><<<grid1, kSplitThreads, 0, st>>>(src, dst, car, K, C, S, n, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  carry_scan_kernel<8><<<(C + kLaneThreads - 1) / kLaneThreads, kLaneThreads, 0, st>>>(
-      car, C, S, c);
-  err = cudaGetLastError();
+  err = launch_carry_scan<8>(car, C, S, c, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   rescan_kernel<8><<<dim3(lane_blocks, S - 1), kSplitThreads, 0, st>>>(src, dst, car, K, C, n,
                                                                        c);

@@ -30,14 +30,17 @@ KERNEL_LIMBS = 8
 # arguments, number of int dimensions before L)
 KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 3, 3),
            "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 3),
-           "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 2, 2),
-           "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 3, 2),
+           "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 3, 3),
+           "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 5, 4),
            "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 3, 3)}
 
 
 # threads the split of B3's and B4's serial axis aims to run: about two
 # waves of one resident 256-thread block on each of the H100's 132 SMs
 TARGET_THREADS = 1 << 16
+# B5's and B6's: one such wave (128 of the 132 SMs); on the card the scan
+# and fold ran no faster at twice these threads and half as fast at half
+ONE_WAVE_THREADS = 1 << 15
 
 
 def as_curve(curve) -> Curve:

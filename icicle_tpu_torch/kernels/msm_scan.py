@@ -33,20 +33,22 @@ from icicle_tpu_torch.kernels import msm_lib
 MAX_SEGMENTS = 65535   # the CUDA grid's y extent: one block row per segment
 
 
-def scan_segments(K: int, C: int) -> int:
+def scan_segments(K: int, C: int, target: int = msm_lib.TARGET_THREADS) -> int:
     """Segments per lane for a (K, ., C) scan: the smallest power of two S
-    with S * C >= msm_lib.TARGET_THREADS, but no more than S * S <= K, so
-    that the carry scan's S - 1 serial adds stay below a segment's K / S."""
+    with S * C >= `target` threads, but no more than S * S <= K, so that
+    the carry scan's S - 1 serial adds stay below a segment's K / S."""
     S = 1
-    while S * C < msm_lib.TARGET_THREADS and 4 * S * S <= K:
+    while S * C < target and 4 * S * S <= K:
         S *= 2
     return S
 
 
-def _check_segments(K: int, C: int, segments) -> int:
-    S = scan_segments(K, C) if segments is None else segments
+def check_segments(kernel: str, segments, planned: int) -> int:
+    """`segments`, or the plan's `planned` where it is None, as an int in
+    [1, MAX_SEGMENTS] (the split scans B3, B5 and B6); raises otherwise."""
+    S = planned if segments is None else segments
     if not isinstance(S, int) or not 1 <= S <= MAX_SEGMENTS:
-        raise msm_lib.invalid("prefix_scan", f"segments must be an int in [1, "
+        raise msm_lib.invalid(kernel, f"segments must be an int in [1, "
                               f"{MAX_SEGMENTS}], got {segments!r}")
     return S
 
@@ -64,7 +66,7 @@ def prefix_scan(curve, plimbs: torch.Tensor, *, _segments: int | None = None) ->
     nl = curve.fq.nlimbs
     msm_lib.check_points("prefix_scan", plimbs, 2 * nl)
     K, _, C = plimbs.shape
-    S = _check_segments(K, C, _segments)
+    S = check_segments("prefix_scan", _segments, scan_segments(K, C))
     if not plimbs.is_cuda:
         return prefix_scan_ref(curve, plimbs, S)
     out = torch.empty((K, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
@@ -86,7 +88,7 @@ def prefix_scan_ref(curve, plimbs: torch.Tensor, segments: int | None = None) ->
     g = get_group(curve.name)
     nl = curve.fq.nlimbs
     K, _, C = plimbs.shape
-    S = _check_segments(K, C, segments)
+    S = check_segments("prefix_scan", segments, scan_segments(K, C))
     dev = plimbs.device
     n = -(-K // S)
     steps = msm_lib.segment_rows(plimbs, S)            # (n, S, C, 2L)

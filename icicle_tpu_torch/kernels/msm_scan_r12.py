@@ -20,10 +20,27 @@ Layout as B3's: in (K, 2L, C) int32 limbs, x rows then (sign-applied) y
 rows; out (K, 3L, C), x / y / z rows; the Pallas kernel's n_groups axis
 folded into C.
 
+The kernel splits each lane's K slots into S segments (`r12_segments`)
+as B3 does (kernels/msm_scan.py): segment s covers slots [s * ceil(K/S),
+min(K, (s + 1) * ceil(K/S))).
+  1. reduce: each segment folds its slots from the identity (`_madd_r12`);
+  2. carry scan: carry_0 = identity, carry_{s+1} = `_padd_r12`(carry_s,
+     total_s), the complete projective add (RCB15 Alg 7) on the same words;
+  3. rescan: each segment s >= 1 re-runs its madds from carry_s and writes
+     every E_k (segment 0's pass-1 values are already final).
+Totals and carries stay lazy radix-12 words ((S - 1, 3 nw, C) int32 in the
+kernel), so no lazy bit is lost between passes. The plain version computes
+the same association, so the two agree bit for bit at a given S; at
+segments=1 both are the serial fold of the JAX XLA twin
+`make_prefix_scan_r12_xla`. Other S give other representatives in [0, 4p)
+of other projective coordinates of the same points; the MSM's extraction
+and unshift (ops/msm_tpu3.py) take any value below 4p.
+
 The kernel is instantiated for bn254 only (nw = 22, L = 8, b3 = 9 as a
 small integer): the audit decides the normalisations from static bounds,
-so for one curve they are a fixed schedule, `KERNEL_SCHEDULE`, which the
-CUDA source hard-codes. The wrapper raises for any other curve.
+so for one curve they are a fixed schedule, `KERNEL_SCHEDULE` for the
+mixed add and `PADD_SCHEDULE` for the projective add, which the CUDA
+source hard-codes. The wrapper raises for any other curve.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import functools
 import torch
 
 from icicle_tpu_torch.kernels import msm_lib
+from icicle_tpu_torch.kernels.msm_scan import check_segments, scan_segments
 from icicle_tpu_torch.math.radix12 import MASK, Radix12, int_to_words
 
 KERNEL_CURVE = "bn254"
@@ -46,6 +64,16 @@ KERNEL_CURVE = "bn254"
 KERNEL_SCHEDULE = ("mul", "mul", "norm", "mul", "mul", "mul", "mul_small", "norm",
                    "mul_small", "norm", "norm", "norm", "mul", "mul", "mul", "mul",
                    "mul", "mul")
+
+# The operations of one `_padd_r12` on bn254 from two lazy points (words
+# <= 2 * 4095, the carry scan's operands), in order, as the CUDA kernel
+# performs them (msm_scan_r12.cu `padd_r12`). Here every "norm" but the two
+# after "mul_small" is one the audit puts into a multiply: of the first
+# operand of the three (a + b)(c + d) products, of t3 before t3 * t1, of t4
+# before z3 * t4 and of t0 before t0 * t3.
+PADD_SCHEDULE = ("mul", "mul", "mul", "norm", "mul", "norm", "mul", "norm", "mul",
+                 "mul_small", "norm", "mul_small", "norm", "norm", "mul", "mul", "mul",
+                 "mul", "norm", "mul", "norm", "mul")
 
 
 class _BVal:
@@ -122,6 +150,38 @@ def _madd_r12(f: _R12Field, X1, Y1, Z1, x2, y2, b3):
     return x3, y3, z3
 
 
+def _padd_r12(f: _R12Field, X1, Y1, Z1, X2, Y2, Z2, b3):
+    """Complete projective add (RCB15 Alg 7, a = 0) over bound-tracked
+    radix-12 values, as curves/group.py `add`. Both points may be lazy
+    (words <= 2 * 4095): a segment total and a running carry. Output
+    coordinates are lazy (words <= 2 * 4095), a valid state for
+    `_madd_r12`. The audit in `f.mul` normalises operands where a column
+    could overflow (bn254: `PADD_SCHEDULE`). b3 as in `_madd_r12`."""
+    m, add, sub = f.mul, f.add, f.sub
+    mb3 = (lambda v: f.mul_small(v, b3)) if isinstance(b3, int) else (lambda v: m(v, b3))
+    t0 = m(X1, X2)
+    t1 = m(Y1, Y2)
+    t2 = m(Z1, Z2)
+    t3 = sub(m(add(X1, Y1), add(X2, Y2)), add(t0, t1))
+    t4 = sub(m(add(Y1, Z1), add(Y2, Z2)), add(t1, t2))
+    y3 = sub(m(add(X1, Z1), add(X2, Z2)), add(t0, t2))
+    t0 = add(add(t0, t0), t0)
+    t2 = mb3(t2)
+    z3 = add(t1, t2)
+    t1 = sub(t1, t2)
+    y3 = mb3(y3)
+    x3 = sub(m(t3, t1), m(t4, y3))
+    y3 = add(m(t1, z3), m(y3, t0))
+    z3 = add(m(z3, t4), m(t0, t3))
+    return x3, y3, z3
+
+
+def r12_segments(K: int, C: int) -> int:
+    """Segments per lane for a (K, ., C) radix-12 scan: B3's rule
+    (`scan_segments`) for one wave of blocks (msm_lib.ONE_WAVE_THREADS)."""
+    return scan_segments(K, C, msm_lib.ONE_WAVE_THREADS)
+
+
 @functools.lru_cache(maxsize=None)
 def r12_engine(curve_name: str) -> Radix12:
     return Radix12(msm_lib.as_curve(curve_name).fq.modulus)
@@ -131,22 +191,27 @@ def _words_const(eng: Radix12, value: int, like: torch.Tensor):
     return [torch.full_like(like, w) for w in int_to_words(value, eng.nw)]
 
 
-def prefix_scan_r12(curve, plimbs: torch.Tensor) -> torch.Tensor:
-    """(K, 2L, C) int32 R'-domain points -> (K, 3L, C) E-stream in [0, 4p).
+def prefix_scan_r12(curve, plimbs: torch.Tensor, *, _segments: int | None = None) -> torch.Tensor:
+    """(K, 2L, C) int32 R'-domain points -> (K, 3L, C) E-stream in [0, 4p),
+    split into `r12_segments(K, C)` segments a lane (`_segments` overrides
+    the plan, to time other splits).
 
-    On a CUDA tensor this launches the kernel on the current stream (no
-    synchronisation), counts the launch in `prefix_scan_r12.launches` and
-    raises if the launch is refused or the curve is not bn254. On a CPU
-    tensor it computes `prefix_scan_r12_ref`."""
+    On a CUDA tensor this launches the kernel's passes on the current stream
+    (no synchronisation), counts one launch in `prefix_scan_r12.launches`
+    per call and raises if a launch is refused or the curve is not bn254.
+    On a CPU tensor it computes `prefix_scan_r12_ref`."""
     curve = msm_lib.as_curve(curve)
     nl = curve.fq.nlimbs
     msm_lib.check_points("prefix_scan_r12", plimbs, 2 * nl)
-    if not plimbs.is_cuda:
-        return prefix_scan_r12_ref(curve, plimbs)
-    consts = kernel_consts(curve)
     K, _, C = plimbs.shape
+    S = check_segments("prefix_scan_r12", _segments, r12_segments(K, C))
+    if not plimbs.is_cuda:
+        return prefix_scan_r12_ref(curve, plimbs, S)
+    consts = kernel_consts(curve)
+    nw = r12_engine(curve.name).nw
     out = torch.empty((K, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
-    msm_lib.launch("prefix_scan_r12", curve, [plimbs, out], [K, C], consts)
+    carries = torch.empty((S - 1, 3 * nw, C), dtype=torch.int32, device=plimbs.device)
+    msm_lib.launch("prefix_scan_r12", curve, [plimbs, out, carries], [K, C, S], consts)
     prefix_scan_r12.launches += 1
     return out
 
@@ -174,26 +239,59 @@ def _consts(curve_name: str):
     return (ctypes.c_uint32 * len(values))(*values)
 
 
-def prefix_scan_r12_ref(curve, plimbs: torch.Tensor) -> torch.Tensor:
-    """`prefix_scan_r12` in plain torch: a Python loop over the K slots."""
+def prefix_scan_r12_ref(curve, plimbs: torch.Tensor, segments: int | None = None) -> torch.Tensor:
+    """`prefix_scan_r12` in plain torch, with the kernel's association of
+    adds at S = `segments` (None: the plan's): a Python loop over ceil(K/S)
+    steps of all S * C (segment, lane) pairs, the S - 1 carry adds
+    (`_padd_r12` on lazy words), then the rescan. segments=1 is the serial
+    fold."""
     curve = msm_lib.as_curve(curve)
     eng = r12_engine(curve.name)
     f = _R12Field(eng)
     nl = curve.fq.nlimbs
     K, _, C = plimbs.shape
+    S = check_segments("prefix_scan_r12", segments, r12_segments(K, C))
+    dev = plimbs.device
+    n = -(-K // S)
+    steps = msm_lib.segment_rows(plimbs, S)            # (n, S, C, 2L)
     lazy = 2 * f.NORM
     b3 = msm_lib.b3_small(curve)
     lane = plimbs[0, 0]
     if b3 is None:
         b3 = _BVal(_words_const(eng, curve.b3 * eng.R % eng.p, lane), f.NORM)
-    zero = _words_const(eng, 0, lane)
-    ex, ey, ez = zero, _words_const(eng, eng.R % eng.p, lane), zero
-    out = torch.empty((K, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
-    for k in range(K):
-        x2 = _BVal(eng.from_u32([plimbs[k, i] for i in range(nl)]), f.NORM)
-        y2 = _BVal(eng.from_u32([plimbs[k, nl + i] for i in range(nl)]), f.NORM)
-        e = _madd_r12(f, _BVal(ex, lazy), _BVal(ey, lazy), _BVal(ez, lazy), x2, y2, b3)
-        out[k] = torch.stack([limb for v in e
-                              for limb in eng.to_u32(eng.norm(eng.canon_nonneg(v.w)), nl)])
-        ex, ey, ez = (v.w for v in e)
-    return out
+
+    def identity(like):
+        zero = _words_const(eng, 0, like)
+        return [zero, _words_const(eng, eng.R % eng.p, like), zero]
+
+    def lazy_point(words):
+        return [_BVal(w, lazy) for w in words]
+
+    def scan(state, out):
+        """state: x, y, z lists of nw (S, C) words; out: None or (n, S, C, 3L)."""
+        for j in range(n):
+            x2 = _BVal(eng.from_u32([steps[j, ..., i] for i in range(nl)]), f.NORM)
+            y2 = _BVal(eng.from_u32([steps[j, ..., nl + i] for i in range(nl)]), f.NORM)
+            new = [v.w for v in _madd_r12(f, *lazy_point(state), x2, y2, b3)]
+            mask = msm_lib.step_mask(j, n, K, S, dev)
+            state = new if mask is None else [[torch.where(mask, a, b) for a, b in zip(nv, ov)]
+                                              for nv, ov in zip(new, state)]
+            if out is not None:
+                out[j] = torch.stack([limb for v in state for limb in
+                                      eng.to_u32(eng.norm(eng.canon_nonneg(v)), nl)], -1)
+        return state
+
+    state = identity(steps[0, ..., 0])
+    if S > 1:
+        totals = scan(state, None)
+        carries = [identity(lane)]
+        for s in range(S - 1):
+            total = [[w[s] for w in coord] for coord in totals]
+            carries.append([v.w for v in _padd_r12(f, *lazy_point(carries[-1]),
+                                                    *lazy_point(total), b3)])
+        state = [[torch.stack([c[i][k] for c in carries]) for k in range(eng.nw)]
+                 for i in range(3)]                   # (S, C) words
+    local = torch.empty((n, S, C, 3 * nl), dtype=torch.int32, device=dev)
+    scan(state, local)
+    # (n, S, C, 3L) -> (S * n, 3L, C), cut to K
+    return local.permute(1, 0, 3, 2).reshape(S * n, 3 * nl, C)[:K].contiguous()

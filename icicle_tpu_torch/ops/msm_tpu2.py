@@ -16,7 +16,8 @@ scalars' device:
      `point_table`); a dummy gathers its tile's last row, which its
      is_real = 0 leaves unused -> (K, 2L, C), lane = tile * wg + window;
   5. B6 `suffix_fold`: E += P, D += E at run ends -> each tile's weighted
-     window sum (3L, C);
+     window sum (3L, C); every lane ends exactly M runs (one dummy a key),
+     which the call passes as `runs`;
   6. the cross-tile sum per window by B4 `ec_reduce`, windows riding the
      lanes: two passes at 8192 tiles (`fold_rows`, as v3's bucket passes).
      The JAX package sums the tiles with a log-depth roll-scan of adds
@@ -37,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from icicle_tpu_torch.curves.params import get_curve
+from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 from icicle_tpu_torch.kernels.ec_reduce import ec_reduce, ec_reduce_ref
 from icicle_tpu_torch.kernels.msm_fold2 import IS_DACC, IS_REAL, suffix_fold, suffix_fold_ref
 from icicle_tpu_torch.ops.msm import (_limb_tensor, _signed_digits_t, fold_rows, horner,
@@ -89,6 +91,11 @@ def msm_tpu2(curve_name: str, scalars, points_x, points_y,
     scalars = _limb_tensor(scalars, None)
     px = _limb_tensor(points_x, scalars.device)
     py = _limb_tensor(points_y, scalars.device)
+    if px.shape[0] != scalars.shape[0] or py.shape[0] != scalars.shape[0]:
+        # the JAX package fails there too (a broadcast of its padded copy)
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu2: {scalars.shape[0]} scalars but {px.shape[0]} x "
+                              f"and {py.shape[0]} y coordinates")
     cuda = resolve_backend(backend, scalars, "msm_tpu2")
     fold, reduce = (suffix_fold, ec_reduce) if cuda else (suffix_fold_ref, ec_reduce_ref)
     curve = get_curve(curve_name)
@@ -126,7 +133,7 @@ def msm_tpu2(curve_name: str, scalars, points_x, points_y,
         src = sidx.clamp(max=T - 1).to(torch.int64) + tile_base + sneg * n_pad
         src = src.permute(2, 1, 0).reshape(K * C)               # slot-major lanes
         perm = table.index_select(0, src).view(K, C, 2 * nl).transpose(1, 2).contiguous()
-        return fold(curve, perm, flags)
+        return fold(curve, perm, flags, runs=M)             # M run ends a lane
 
     s_t = torch.zeros((scalars.shape[1], n_pad), dtype=torch.int32, device=dev)
     s_t[:, :n] = scalars.T

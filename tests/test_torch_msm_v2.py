@@ -83,11 +83,13 @@ def test_suffix_fold_ref_matches_xla_twin():
     ys = np.where(neg[..., None], yneg, y)
     plimbs = np.ascontiguousarray(np.concatenate([x, ys], -1).transpose(0, 2, 1))
     tflags = torch.from_numpy((real * TF.IS_REAL + dacc * TF.IS_DACC).astype(np.int32))
-    got = TF.suffix_fold_ref(CURVE, _i32(plimbs), tflags)
+    # the serial fold (no split of the slots, a serial B4 over the run ends)
+    got = TF.suffix_fold_ref(CURVE, _i32(plimbs), tflags, segments=1, reduce_segments=1)
     assert got.shape == (3 * NL, C) and got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), want)
     TF.suffix_fold.launches = 0
-    assert torch.equal(TF.suffix_fold(CURVE, _i32(plimbs), tflags), got)
+    assert torch.equal(TF.suffix_fold(CURVE, _i32(plimbs), tflags),
+                       TF.suffix_fold_ref(CURVE, _i32(plimbs), tflags))
     assert TF.suffix_fold.launches == 0
 
 
