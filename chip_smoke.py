@@ -33,10 +33,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                projective points. Median ms from CUDA events beside the plain
                version's ms and the bound; then poseidon2 (the Poseidon2
                hash, no Pallas counterpart) against `hash_fields_ref` at
-               batch 2^16 (babybear every width, its sponge and a domain
-               tag; koalabear, m31) and 2^12 (bn254_scalar every width,
-               bls12_377_scalar, stark252), and timed alone at the 2^29
-               tree's leaf layer (babybear t = 2, batch 2^28);
+               every compiled instance, with rows of 0 and p - 1: batch
+               2^16 for babybear, koalabear and m31 at every width, their
+               sponge and a domain tag; 2^12 for the 8-limb fields
+               (bn254_scalar, bls12_377_scalar, stark252 every width,
+               grumpkin_scalar, bls12_381_scalar); then timed alone at the
+               2^29 tree's leaf layer (babybear t = 2, batch 2^28);
   4. NTT     -- the NTT main path through icicle_tpu_torch.ntt on CUDA
                tensors: babybear 2^26, koalabear 2^24, babybear 2^16,
                forward and inverse. Forward must equal the kernel-free
@@ -102,12 +104,22 @@ points and every flag read (the Pallas body's both adds on every slot, the
 figure before the split, is printed beside it). B5 computes B3's function, so
 its bound is B3's; its own radix-12
 multiply count (11 multiplies of 2 nw^2 + nw = 990 at nw = 22, plus 2 nw for
-the two by b3) is printed beside it. A Poseidon2 hash counts the Montgomery
-multiplies of the plain version (and of the JAX body): t^2 for the first
-M_ext, per full round t S-boxes and t^2 for M_ext, per partial round one
-S-box and t for M_int (an S-box x^alpha is 2, 3, 4, 4, 5 multiplies for
-alpha 3, 5, 7, 9, 11), once a sponge block, plus one a word in and one out
-of Montgomery form: babybear t = 2 is 292 + 3, 885 integer multiplies.
+the two by b3) is printed beside it. B7 counts its own work on the run's
+keys: a mixed add per slot that continues a run, every key and point read
+and the rows it writes. A Poseidon2 hash counts the Montgomery multiplies
+it needs (poseidon2_kernel.needed_monts): the S-boxes (x^alpha is 2, 3, 4,
+4, 5 multiplies for alpha 3, 5, 7, 9, 11), the multiplies by constants of
+M_ext and M_int that are not small integers (none in M_ext, t a partial
+round in M_int at t >= 4), once a sponge block, plus one a word in and
+one out of Montgomery form: babybear t = 2 is 192 + 3, 585 integer
+multiplies. Beside it, the earlier bound, the plain version's
+multiplies (its matrix products, the JAX body's): t^2 for the first M_ext,
+per full round t S-boxes and t^2 for M_ext, per partial round one S-box
+and t for M_int: babybear t = 2 is 292 + 3, 885 integer multiplies.
+
+The build report also gives the SASS instruction counts of the babybear
+t = 2 single-permutation Poseidon2 kernel (kernels/sass.py over cuobjdump
+-sass), its count per hash: the kernel has no loop.
 """
 
 from __future__ import annotations
@@ -224,17 +236,25 @@ def suffix_fold_bound_all_slots(K: int, C: int, curve) -> tuple[float, str]:
                  K * C * (add_muls(curve, MADD_MONTS) + add_muls(curve, PADD_MONTS)))
 
 
-def bucket_accum_bound(W: int, K: int, C: int, curve) -> tuple[float, str]:
-    return bound(W * K * C * (1 + 5 * curve.fq.nlimbs) * 4,
-                 W * K * C * add_muls(curve, MADD_MONTS))
+def bucket_accum_bound(keys: torch.Tensor, curve) -> tuple[float, str]:
+    """B7's own work on these keys: a mixed add per slot that continues a
+    run (a slot that starts one takes its point as it is); every key and
+    point read, and the rows B7 writes (run ends and lane ends)."""
+    from icicle_tpu_torch.kernels.msm_kernel import contract_rows
+    nl = curve.fq.nlimbs
+    slots = keys.numel()
+    adds = int((keys[:, 1:] == keys[:, :-1]).sum())
+    rows = int(contract_rows(keys).sum())
+    return bound((slots * (1 + 2 * nl) + rows * 3 * nl) * 4, adds * add_muls(curve, MADD_MONTS))
 
 
 SBOX_MONTS = {3: 2, 5: 3, 7: 4, 9: 4, 11: 5}
 
 
-def poseidon2_monts(h, n: int) -> int:
-    """Montgomery multiplies of one hash of n inputs by the Poseidon2 hasher h
-    (the plain version's count; see the module docstring)."""
+def poseidon2_plain_monts(h, n: int) -> int:
+    """Montgomery multiplies of one hash of n inputs as the plain version
+    (and the JAX body) compute it: with M_ext and M_int as matrix products
+    (the earlier bound; see the module docstring)."""
     t, sbox = h.t, SBOX_MONTS[h.alpha]
     perm = t * t + 2 * h.half_full * (t * sbox + t * t) + h.partial_rounds * (sbox + t)
     tagged = h.domain_tag is not None
@@ -242,15 +262,19 @@ def poseidon2_monts(h, n: int) -> int:
     return perms * perm + n + 1
 
 
-def poseidon2_bound(h, batch: int, n: int) -> tuple[float, str]:
+def poseidon2_bound(h, batch: int, n: int, plain: bool = False) -> tuple[float, str]:
     """Rows in and digests out once, the Montgomery-form constants once, at
-    3 (one word) or 4 L^2 + L (L limbs) integer multiplies a multiply."""
+    3 (one word) or 4 L^2 + L (L limbs) integer multiplies a multiply; the
+    multiplies the hash needs (poseidon2_kernel.needed_monts), or with
+    `plain` the plain version's."""
+    from icicle_tpu_torch.kernels.poseidon2_kernel import needed_monts
     nl = h.field.nlimbs
     c = h.constants("cpu")
-    const_words = (c.rc.numel() + c.mds.numel() + c.diag_m1.numel()) // nl
+    const_words = (c.rc.numel() + c.diag_m1.numel() + (c.mds.numel() if plain else 0)) // nl
     nbytes = (batch * (n + 1) + const_words) * nl * 4
     per_mont = MULS_PER_MONT if nl == 1 else big_mont_muls(nl)
-    return bound(nbytes, batch * poseidon2_monts(h, n) * per_mont)
+    monts = poseidon2_plain_monts(h, n) if plain else needed_monts(h, n)
+    return bound(nbytes, batch * monts * per_mont)
 
 
 def r12_madd_muls(nw: int) -> int:
@@ -337,6 +361,7 @@ MSM_CHECKS = [
     ("suffix_fold", 64, 8192, "B6, K 64: v2's stream, M 16", dict(V2_CUT, runs=16)),
     ("suffix_fold", 61, 8192, "B6, K 61: v2's stream, M 16", dict(V2_CUT, runs=16)),
     ("bucket_accum", 64, 1024, "B7, one v1 2^20 chunk of 12 windows, K cut from 1024", {}),
+    ("bucket_accum", 61, 1024, "B7, K 61: ragged last segment", {}),
 ]
 # (kernel, depth, lanes, role, options): timed only; `_segments` times the
 # split kernels at another split than their plan's;
@@ -356,7 +381,8 @@ MSM_FULL = [
     ("suffix_fold", 2304, 8192, "B6 at full depth (29 per v2 2^24 MSM)",
      dict(V2_FULL, serial=True)),
     *[("suffix_fold", 2304, 8192, "B6 variant", dict(V2_FULL, _segments=S)) for S in (8, 16, 32)],
-    ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)", {}),
+    ("bucket_accum", 1024, 1024, "B7 at full depth (2 per v1 2^20 MSM)", {"serial": True}),
+    *[("bucket_accum", 1024, 1024, "B7 variant", {"_segments": S}) for S in (1, 2, 8)],
 ]
 SAME_POINTS_ROWS = 256   # rows of a (K, 3L, C) output compared at a time
 
@@ -393,8 +419,10 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     and the split's variants timed beside the plan's. B6 takes random flags
     with dummy slots and run ends, a lane with none and a lane with one at
     every slot, or v2's stream (sorted keys, one dummy slot a key, as
-    ops/msm_tpu2.py builds it). B7 takes random canonical bn254 base-field
-    limbs and sorted random keys."""
+    ops/msm_tpu2.py builds it). B7 takes pool points and keys sorted along
+    each lane (a lane with one run over every slot, a lane that restarts at
+    every slot; at full depth v1 2^20's layout of sorted keys), and is
+    compared at the rows it promises (run ends and lane ends)."""
     from icicle_tpu_torch.curves.group import Affine, Projective, get_group
     from icicle_tpu_torch.curves.host_ec import ec_mul
     from icicle_tpu_torch.curves.params import get_curve
@@ -408,17 +436,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     fq = curve.fq
     g = get_group("bn254")
     nl = fq.nlimbs
-    top = fq.modulus >> (32 * (nl - 1))
     W1 = 12   # windows per B7 launch at the v1 2^20 shape
-
-    def points(*lead, coords: int, lanes: int) -> torch.Tensor:
-        """(*lead, coords * L, lanes) int32 canonical limbs, lane-minor."""
-        a = torch.randint(0, 1 << 32, (*lead, coords, lanes, nl), generator=gen,
-                          device=dev, dtype=torch.int64)
-        a[..., nl - 1] = torch.randint(0, top, (*lead, coords, lanes), generator=gen,
-                                       device=dev, dtype=torch.int64)
-        a = a.to(torch.int32).transpose(-1, -2)          # (*lead, coords, L, lanes)
-        return a.reshape(*lead, coords * nl, lanes).contiguous()
 
     pool = [ec_mul((curve.gen_x, curve.gen_y), 0x5EED + 977 * i, fq.modulus) for i in range(64)]
     pool_x = fq.to_mont(fq.from_ints([p[0] for p in pool] * 2, dev))
@@ -483,11 +501,33 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         return curve_affine(d, c), flags
 
     def sorted_keys(depth: int, lanes: int) -> torch.Tensor:
+        """(W1, depth, lanes) keys: at a cut depth random in [0, 24), sorted
+        along each lane, window 0's lane 0 one run over every slot and its
+        lane 1 a new key at every slot; at full depth as v1 2^20 lays them
+        out (the window's depth * lanes keys in [0, 2048] sorted, lane c
+        holding positions c depth .. (c + 1) depth - 1)."""
+        if depth == 1024:
+            k = torch.randint(0, 2049, (W1, depth * lanes), generator=gen, device=dev)
+            k = k.sort(dim=1).values.view(W1, lanes, depth).transpose(1, 2)
+            return k.to(torch.int32).contiguous()
         k = torch.randint(0, 24, (W1, depth, lanes), generator=gen, device=dev)
-        return k.sort(dim=1).values.to(torch.int32).contiguous()
+        k = k.sort(dim=1).values.to(torch.int32)
+        k[0, :, 0] = 7
+        k[0, :, 1] = torch.arange(depth, device=dev, dtype=torch.int32)
+        return k.contiguous()
+
+    def accum_inputs(depth: int, lanes: int):
+        """B7's keys and (W1, depth, 2L, lanes) curve points."""
+        return sorted_keys(depth, lanes), torch.stack([curve_affine(depth, lanes)
+                                                       for _ in range(W1)])
+
+    def contract(out: torch.Tensor, args) -> torch.Tensor:
+        """B7's output at the rows it promises, as (3L, rows)."""
+        return out.transpose(2, 3)[TK.contract_rows(args[0])].T.contiguous()
 
     # name -> (kernel, plain version, inputs(depth, lanes, **options),
-    # bound(depth, lanes, inputs), segment plan or None)
+    # bound(depth, lanes, inputs), segment plan or None[, the compared part
+    # of an output: view(out, inputs)])
     kernels = {
         "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
                         lambda d, c: (curve_affine(d, c),),
@@ -500,18 +540,19 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
                             lambda d, c, a: prefix_scan_bound(d, c, curve), TS12.r12_segments),
         "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref, fold_inputs,
                         lambda d, c, a: suffix_fold_bound(a[1], curve), TF.fold_segments),
-        "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref,
-                         lambda d, c: (sorted_keys(d, c), points(W1, d, coords=2, lanes=c)),
-                         lambda d, c, a: bucket_accum_bound(W1, d, c, curve), None),
+        "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref, accum_inputs,
+                         lambda d, c, a: bucket_accum_bound(a[0], curve),
+                         lambda d, c: TK.accum_segments(d, W1 * c), contract),
     }
     input_opts = ("stream", "M")
     r12_nw = TS12.r12_engine("bn254").nw
     rows = {name: [] for name in kernels}
     for name, depth, lanes, role, opts in MSM_CHECKS:
-        fn, ref, make, bnd, plan = kernels[name]
+        fn, ref, make, bnd, plan, *part = kernels[name]
+        view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
         kw = {k: v for k, v in opts.items() if k not in input_opts}
-        got = fn(curve, *args, **kw)
+        got = view(fn(curve, *args, **kw), args)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -519,6 +560,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
+        want = view(want, args)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
@@ -530,7 +572,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             extra = f", S {row['segments']}"
             if depth <= SERIAL_DEPTH:
                 # the kernel's association against the serial fold, as points
-                if not same_points(curve, got, ref(curve, *args, segments=1, **kw)):
+                if not same_points(curve, got, view(ref(curve, *args, segments=1, **kw), args)):
                     raise AssertionError(f"{name} != its serial plain version (segments=1) "
                                          f"as projective points at {role}")
                 row["serial_equal_as_points"] = True
@@ -543,7 +585,8 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
         del args, got, want
     for name, depth, lanes, role, opts in MSM_FULL:
-        fn, _, make, bnd, plan = kernels[name]
+        fn, _, make, bnd, plan, *part = kernels[name]
+        view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
         kw = {k: v for k, v in opts.items() if k not in input_opts + ("serial",)}
         kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw), reps=3)
@@ -556,8 +599,8 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             extra = f", S {row['segments']}"
         if opts.get("serial"):
             # the plan's split against the serial kernel (the JAX order), as points
-            if not same_points(curve, fn(curve, *args, **kw),
-                               fn(curve, *args, **dict(kw, _segments=1))):
+            if not same_points(curve, view(fn(curve, *args, **kw), args),
+                               view(fn(curve, *args, **dict(kw, _segments=1)), args)):
                 raise AssertionError(f"{name} at its plan != itself at _segments=1 as "
                                      f"projective points at {role}")
             row["serial_equal_as_points"] = True
@@ -754,60 +797,77 @@ def field_elements(f, shape: tuple, gen, dev) -> torch.Tensor:
     return a.to(torch.int32)
 
 
-# (field, t, domain tag, n inputs a row, batch, role)
+# (field, t, domain tag, n inputs a row, batch, role): every compiled
+# instance (the single-word fields at every width, each 8-limb round count
+# at every width), one permutation and the sponge
+P2_WIDTHS = (2, 3, 4, 8, 12, 16, 20, 24)
 POSEIDON2_CHECKS = (
-    [("babybear", t, None, t, 1 << 16, f"babybear t={t}") for t in (2, 3, 4, 8, 12, 16, 20, 24)]
+    [(f, t, None, t, 1 << 16, f"{f} t={t}") for f in ("babybear", "koalabear", "m31")
+     for t in P2_WIDTHS]
     + [("babybear", t, None, n, 1 << 16, f"babybear t={t} sponge n={n}")
        for t in (3, 8) for n in (1, 2 * (t - 1) + 1)]
     + [("babybear", 4, 1234567, 3, 1 << 16, "babybear t=4 domain tag"),
-       ("koalabear", 2, None, 2, 1 << 16, "koalabear t=2 (alpha 3)"),
-       ("koalabear", 16, None, 16, 1 << 16, "koalabear t=16 (alpha 3)"),
-       ("m31", 8, None, 8, 1 << 16, "m31 t=8 (alpha 5)")]
-    + [("bn254_scalar", t, None, t, 1 << 12, f"bn254_scalar t={t}") for t in (2, 3, 4, 8)]
-    + [("bls12_377_scalar", 2, None, 2, 1 << 12, "bls12_377_scalar t=2 (alpha 11)"),
-       ("stark252", 4, None, 4, 1 << 12, "stark252 t=4")])
+       ("babybear", 4, 1234567, 7, 1 << 16, "babybear t=4 domain tag, sponge n=7"),
+       ("koalabear", 4, None, 5, 1 << 16, "koalabear t=4 sponge n=5"),
+       ("m31", 16, None, 40, 1 << 16, "m31 t=16 sponge n=40")]
+    + [(f, t, None, t, 1 << 12, f"{f} t={t}") for f in ("bn254_scalar", "bls12_377_scalar",
+                                                       "stark252") for t in (2, 3, 4, 8)]
+    + [("grumpkin_scalar", 3, None, 3, 1 << 12, "grumpkin_scalar t=3"),
+       ("bls12_381_scalar", 8, None, 8, 1 << 12, "bls12_381_scalar t=8"),
+       ("bn254_scalar", 3, None, 5, 1 << 12, "bn254_scalar t=3 sponge n=5")])
 POSEIDON2_TIMED = 1 << (MERKLE_LOG - 1)  # the 2^29 tree's leaf layer
+P2_SASS_KERNEL = "babybear_t2ELb0E"  # poseidon2_kernel<babybear_t2, false>
 # (field, width, log2 leaves): trees held against the torch backend's build
 MERKLE_SMALLER = (("babybear", 2, 22), ("babybear", 4, 20), ("bn254_scalar", 2, 12))
 
 
 def check_poseidon2_kernel(dev, gen, smi: str) -> list:
     """poseidon2 against Poseidon2.hash_fields_ref on the card at every
-    POSEIDON2_CHECKS shape, bit for bit, both timed (median CUDA-event ms
-    after a warm-up); then the kernel timed alone at babybear t = 2, batch
-    2^28."""
+    POSEIDON2_CHECKS shape, bit for bit, the kernel timed (median CUDA-event
+    ms after a warm-up) and the plain version at the first shape; then the
+    kernel timed alone at babybear t = 2, batch 2^28."""
     from icicle_tpu_torch import Poseidon2, get_field
     from icicle_tpu_torch.kernels import poseidon2_kernel as PK
 
     rows = []
     for fname, t, tag, n, batch, role in POSEIDON2_CHECKS:
         h = Poseidon2(fname, t, domain_tag=tag)
-        x = field_elements(get_field(fname), (batch, n), gen, dev)
+        f = get_field(fname)
+        x = field_elements(f, (batch, n), gen, dev)
+        x[0] = f.zeros((n,), dev)                                  # edge rows: 0 and p - 1
+        x[1] = f.from_ints([f.modulus - 1] * n, dev)
         got = PK.poseidon2(h, x)
         want = h.hash_fields_ref(x)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"poseidon2 != hash_fields_ref at {role}: max abs err {err}")
         kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
-        plain_ms = cuda_ms(lambda: h.hash_fields_ref(x), reps=3)
+        # the plain version is timed once, at the first shape (the kernels line's)
+        plain_ms = cuda_ms(lambda: h.hash_fields_ref(x), reps=3) if not rows else None
         bound_ms, bound_by = poseidon2_bound(h, batch, n)
+        plain_bound_ms = poseidon2_bound(h, batch, n, plain=True)[0]
         rows.append({"role": role, "field": fname, "t": t, "n": n, "batch": batch,
-                     "domain_tag": tag, "checked": True, "max_abs_diff": err,
-                     "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
-        log(f"  poseidon2 {role:34s} ({batch}, {n}) exact; kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                     "domain_tag": tag, "checked": True, "edge_rows": True,
+                     "max_abs_diff": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_plain_monts_ms": plain_bound_ms})
+        plain = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
+        log(f"  poseidon2 {role:34s} ({batch}, {n}) exact, edge rows too; kernel "
+            f"{kernel_ms:.4f} ms{plain}, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"the plain version's multiplies: {plain_bound_ms:.4f})")
         del x, got, want
     h = Poseidon2("babybear", 2)
     x = field_elements(get_field("babybear"), (POSEIDON2_TIMED, 2), gen, dev)
     kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
     bound_ms, bound_by = poseidon2_bound(h, POSEIDON2_TIMED, 2)
+    plain_bound_ms = poseidon2_bound(h, POSEIDON2_TIMED, 2, plain=True)[0]
     rows.append({"role": "babybear t=2, the 2^29 tree's leaf layer", "field": "babybear",
                  "t": 2, "n": 2, "batch": POSEIDON2_TIMED, "domain_tag": None,
                  "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by})
+                 "bound_by": bound_by, "bound_plain_monts_ms": plain_bound_ms})
     log(f"  poseidon2 babybear t=2 ({POSEIDON2_TIMED}, 2): kernel {kernel_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x, "
+        f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x; against the plain "
+        f"version's multiplies {plain_bound_ms:.3f} ms; "
         f"{POSEIDON2_TIMED / (kernel_ms * 1e-3):.4g} hashes/s [{smi}]")
     del x
     torch.cuda.empty_cache()
@@ -875,6 +935,7 @@ def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
     """The Poseidon2 Merkle main path on CUDA tensors (bench.py's
     _bench_merkle); records the checked builds' launches in `launches`."""
     from icicle_tpu_torch import MerkleTree, MerkleTreeConfig, Poseidon2, get_field
+    from icicle_tpu_torch.kernels.poseidon2_kernel import needed_monts
     from icicle_tpu_torch.ops.merkle import MerkleProof
 
     f = get_field("babybear")
@@ -898,10 +959,11 @@ def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
         raise AssertionError(f"{MERKLE_MAIN}: timed root {last} != {main_root}")
     hashes = n - 1
     nbytes = 4 * (n + 2 * (n - 2) + 1)  # leaves, internal layers out and in, root
-    bound_ms, bound_by = bound(nbytes, hashes * poseidon2_monts(h, 2) * MULS_PER_MONT)
+    bound_ms, bound_by = bound(nbytes, hashes * needed_monts(h, 2) * MULS_PER_MONT)
+    plain_bound_ms = bound(nbytes, hashes * poseidon2_plain_monts(h, 2) * MULS_PER_MONT)[0]
     log(f"  {MERKLE_MAIN}: {MERKLE_LOG} poseidon2 launches and nothing else; build "
-        f"{ms:.3f} ms, {n / (ms * 1e-3):.4g} leaves/s; bound {bound_ms:.3f} ms ({bound_by}) "
-        f"[{smi}]")
+        f"{ms:.3f} ms, {n / (ms * 1e-3):.4g} leaves/s; bound {bound_ms:.3f} ms ({bound_by}; "
+        f"the plain version's multiplies: {plain_bound_ms:.3f}) [{smi}]")
     _, prof = device_profile(f"2^{MERKLE_LOG} build", lambda: tree.build(leaves), smi)
     if (any("poseidon2" not in k for k, _, _ in prof["kernels"])
             or prof["launch_calls"] != MERKLE_LOG):
@@ -960,7 +1022,8 @@ def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
         del x, kernel_tree, plain_tree
     torch.cuda.empty_cache()
     return {"leaves": n, "build_ms": ms, "leaves_per_s": n / (ms * 1e-3),
-            "bound_ms": bound_ms, "bound_by": bound_by, "root": int(main_root[0]),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_plain_monts_ms": plain_bound_ms, "root": int(main_root[0]),
             "profile": prof, "proved_leaves": proved, "smaller": smaller, "card": smi}
 
 
@@ -1016,7 +1079,7 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from icicle_tpu_torch import NTTConfig, NTTDir, get_field, ntt
-    from icicle_tpu_torch.kernels import build
+    from icicle_tpu_torch.kernels import build, sass
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.ops import ntt as N
 
@@ -1056,8 +1119,13 @@ def main() -> None:
     for lib, text in reports.items():
         for line in text.splitlines():
             if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
-                    or "spill" in line:
+                    or "spill" in line or line.startswith("nvcc: "):
                 log(f"  lib{lib}: {line.strip()}")
+    p2_sass = sass.kernel_counts(build.lib_path("poseidon2"), P2_SASS_KERNEL)
+    if len(p2_sass) != 1:
+        raise AssertionError(f"libposeidon2: {len(p2_sass)} kernels match {P2_SASS_KERNEL}")
+    p2_sass = next(iter(p2_sass.values()))["counts"]
+    log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
 
     phase_done("build")
     # -- 3. kernel versus plain ----------------------------------------------
@@ -1283,7 +1351,9 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes a Poseidon2 permutation
         "shape": [p2_main["batch"], p2_main["n"]],
         "plain_shape": [p2_checked["batch"], p2_checked["n"]],
-        "checked_ms": p2_checked["kernel_ms"], "shapes": p2_rows, "card": smi,
+        "bound_plain_monts_ms": p2_main["bound_plain_monts_ms"],
+        "checked_ms": p2_checked["kernel_ms"], "sass_per_hash": p2_sass, "shapes": p2_rows,
+        "card": smi,
     })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
@@ -30,7 +31,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIBRARIES = {"ntt": ["ntt_dif.cu"], "msm_scan": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "msm_scan_r12": ["msm_scan_r12.cu"],
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
-             "poseidon2": ["poseidon2.cu"]}
+             "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"]}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,8 +72,9 @@ def _stale(name: str) -> bool:
 
 def build_all(names=None) -> dict[str, str]:
     """Compile every stale library among `names` (default: all), in
-    parallel. Returns each compiled library's compiler output; raises with
-    that output when a compile fails."""
+    parallel. Returns each compiled library's compiler output, ending in a
+    line "nvcc: <seconds> s" (its wall time from the start of the build);
+    raises with that output when a compile fails."""
     names = list(LIBRARIES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
@@ -84,7 +86,18 @@ def build_all(names=None) -> dict[str, str]:
                *(os.path.join(CSRC, s) for s in LIBRARIES[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True), tmp)
-    reports = {name: proc.communicate()[0] for name, (proc, _) in jobs.items()}
+    start = time.perf_counter()
+    reports = {}
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
+        out = proc.communicate()[0]
+        reports[name] = f"{out}nvcc: {time.perf_counter() - start:.1f} s\n"
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, (proc, _) in jobs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = [name for name, (proc, _) in jobs.items() if proc.returncode != 0]
     if failed:
         raise IcicleException(

@@ -32,7 +32,7 @@ KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 3, 3),
            "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 3),
            "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 3, 3),
            "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 5, 4),
-           "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 3, 3)}
+           "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 6, 4)}
 
 
 # threads the split of B3's and B4's serial axis aims to run: about two

@@ -10,7 +10,7 @@ scalars' device:
      the digit's sign; lane c owns sorted positions c K .. c K + K - 1;
   3. B7 `bucket_accum`: per (window, lane) the inclusive segmented fold
      over its K slots, a fresh sum at every new key;
-  4. `_bucket_phase`: each key's run-end value scattered into its bucket;
+  4. `_bucket_phase`: each key's run-end value gathered into its bucket;
      a run that crosses lanes leaves its earlier part in the lanes' last
      slots, which a segmented scan over the lanes stitches and adds in;
   5. the weighted bucket sum sum_k k B_k by two inclusive prefix scans over
@@ -67,6 +67,21 @@ def _scatter_rows(group, idx: torch.Tensor, vals: torch.Tensor, M: int) -> torch
     return ident.scatter(1, idx.unsqueeze(-1).expand(-1, -1, width), vals)[:, :M + 1]
 
 
+def _run_end_rows(group, out: torch.Tensor, k_sorted: torch.Tensor, M: int) -> torch.Tensor:
+    """Each key 1..M's value at its last sorted position (the global run
+    end; position = lane * K + slot), gathered from B7's output (W, K, 3L,
+    C), with the identity for key 0 and for keys absent: (W, M + 1, 3L)."""
+    W, K, width, _ = out.shape
+    dev = out.device
+    keys = torch.arange(1, M + 1, dtype=k_sorted.dtype, device=dev).expand(W, M).contiguous()
+    last = (torch.searchsorted(k_sorted, keys, right=True) - 1).clamp(min=0)    # (W, M)
+    present = k_sorted.gather(1, last) == keys
+    w = torch.arange(W, device=dev).view(W, 1)
+    rows = out[w, last % K, :, last // K]                                      # (W, M, 3L)
+    ident = torch.cat(list(group.identity((W, M + 1), dev)), dim=-1)
+    return torch.cat([ident[:, :1], torch.where(present.unsqueeze(-1), rows, ident[:, 1:])], 1)
+
+
 def _split(rows: torch.Tensor, nl: int) -> Projective:
     return Projective(rows[..., :nl], rows[..., nl:2 * nl], rows[..., 2 * nl:])
 
@@ -74,16 +89,15 @@ def _split(rows: torch.Tensor, nl: int) -> Projective:
 def _bucket_phase(group, out: torch.Tensor, k_sorted: torch.Tensor,
                   lane_keys: torch.Tensor, M: int) -> torch.Tensor:
     """B7's output (W, K, 3L, C), the sorted keys (W, n) and the lane keys
-    (W, K, C) -> the window sums sum_k k B_k as (W, 3L)."""
+    (W, K, C) -> the window sums sum_k k B_k as (W, 3L). Reads B7's output
+    only at its contract's rows (msm_kernel.contract_rows): the global run
+    ends, which are lane run ends or lane ends, and each lane's last slot."""
     W, K, width, C = out.shape
     nl = width // 3
     ones = torch.ones((W, 1), dtype=torch.bool, device=out.device)
 
-    # global run ends -> buckets0 (position = lane * K + slot)
-    vals = out.permute(0, 3, 1, 2).reshape(W, C * K, width)
-    last = torch.cat([k_sorted[:, 1:] != k_sorted[:, :-1], ones], dim=1)
-    idx = torch.where(last & (k_sorted > 0), k_sorted, M + 1).to(torch.int64)
-    buckets0 = _split(_scatter_rows(group, idx, vals, M), nl)
+    # global run ends -> buckets0
+    buckets0 = _split(_run_end_rows(group, out, k_sorted, M), nl)
 
     # cross-lane tail stitching
     final_keys = lane_keys[:, -1, :]                            # (W, C)

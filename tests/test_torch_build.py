@@ -66,3 +66,24 @@ def test_every_library_source_and_header_exists():
             assert os.path.exists(f), f
     for name in ("msm_scan", "ec_reduce"):
         assert "ec_field.cuh" in {os.path.basename(f) for f in build._inputs(name)}
+
+
+def test_build_all_runs_nvcc_per_library_and_reports_its_time(tree, tmp_path, monkeypatch):
+    """build_all starts one compiler process per stale library, moves each
+    output into place, and ends each report with the process's wall time;
+    a stand-in nvcc writes the -o file."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nprev=""\nfor a in "$@"; do\n'
+                    '  if [ "$prev" = "-o" ]; then : > "$a"; fi\n  prev="$a"\ndone\n'
+                    'echo "ptxas info    : Used 32 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    names = ["poseidon2", "poseidon2_limbs"]
+    reports = build.build_all(names)
+    assert sorted(reports) == names
+    for name in names:
+        lines = reports[name].splitlines()
+        assert lines[0].startswith("ptxas info") and lines[-1].startswith("nvcc: ")
+        assert float(lines[-1].split()[1]) >= 0
+        assert os.path.exists(build.lib_path(name)) and not build._stale(name)
+    assert build.build_all(names) == {}                  # nothing stale: nothing built

@@ -1,6 +1,7 @@
 """The port's v1 bucket-accumulation MSM on the CPU: kernel B7's plain
 version `bucket_accum_ref` against the JAX package's XLA twin
-`make_bucket_accum_xla` (after a layout transpose), the wrapper's checks,
+`make_bucket_accum_xla` (after a layout transpose) at the rows B7 writes,
+the wrapper's checks,
 `_plan`, `_auto_c` and `_auto_wchunk` against JAX's, the roll-scans
 `_segmented_scan_add` and `_prefix_scan_add` against JAX's, and `msm_tpu`
 on the cases of tests/test_msm_tpu.py (and window chunks) against the
@@ -66,7 +67,8 @@ def _want(scalars, pts):
 
 def test_bucket_accum_ref_matches_xla_twin():
     """Key runs that restart inside a lane, a doubling (the same point twice
-    in a run), W = 2 windows."""
+    in a run), W = 2 windows; compared at the rows B7 promises, with the
+    serial fold (segments=1), the twin's order."""
     W, K, C = 2, 6, 8
     pts = _points(W * K * C, 1)
     pts[C] = pts[0]                                  # window 0, lane 0: P then P
@@ -78,11 +80,15 @@ def test_bucket_accum_ref_matches_xla_twin():
                                                        jnp.asarray(py))
     want = np.concatenate([np.asarray(v) for v in (vx, vy, vz)], -1)        # (W, K, C, 3L)
     plimbs = np.ascontiguousarray(np.concatenate([px, py], -1).transpose(0, 1, 3, 2))
-    got = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(plimbs))
+    got = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(plimbs), segments=1)
     assert got.shape == (W, K, 3 * NL, C) and got.dtype == torch.int32
-    assert np.array_equal(_u32(got.transpose(2, 3)), want)
+    # the contract: run ends and each lane's last slot, the rest zero
+    rows = TK.contract_rows(torch.from_numpy(keys)).numpy()               # (W, K, C)
+    assert np.array_equal(_u32(got.transpose(2, 3))[rows], want[rows])
+    assert not _u32(got.transpose(2, 3))[~rows].any()
     TK.bucket_accum.launches = 0
-    assert torch.equal(TK.bucket_accum(CURVE, torch.from_numpy(keys), _i32(plimbs)), got)
+    assert torch.equal(TK.bucket_accum(CURVE, torch.from_numpy(keys), _i32(plimbs), _segments=1),
+                       got)
     assert TK.bucket_accum.launches == 0
 
 
