@@ -76,12 +76,41 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                arity 4) and a 2^12-leaf bn254_scalar tree, each equal,
                root and every layer, to the same build with backend
                "torch" (the plain version) on the card;
-  7. the main paths' JSON line (per-path launches, times, profiles,
+  7. FRI     -- fri_prove over 2^22 babybear evaluations (the port's forward
+               NTT of a degree < 2^20 polynomial from default_rng(0)) with
+               the reference's defaults and Keccak-256 layers: exactly 22
+               fri_fold and 275 keccak launches, the proof verifies and a
+               flipped leaf word is refused, every round's fold equals
+               fri_fold_ref on the card, round 0's root the keccak_ref
+               tree's; host-clock ms of the commit phase, the proof of work
+               and the query phase (median of 3 after a warm-up), the
+               proof's bytes, a profile; at 2^16 the serialized proof
+               equals the one made with every kernel's plain version;
+  8. sumcheck -- sumcheck_prove of AB_MINUS_C over 3 MLEs of 2^24 and of
+               EQ_X_AB_MINUS_C over 4 of 2^22 (default_rng(0)), the claimed
+               sum from execute_program (K4) and vector_sum, held to numpy:
+               one program launch and two sumcheck_round launches a round
+               (the round pass and the reduction of its partials), the proof
+               verifies and a tampered round is refused, every round
+               polynomial equals the plain path's; host-clock ms, a profile;
+  9. the main paths' JSON line (per-path launches, times, profiles,
      seconds a phase);
-  8. the kernels JSON line; 9. the result JSON line, last.
+  10. the kernels JSON line; 11. the result JSON line, last.
+
+Phase 3 also holds the protocol kernels to their plain versions, bit for
+bit: keccak (all four variants, hash_words of 1, 8, 16, 34 and 35 words
+at 2^16 rows, hash_bytes of 0-300 bytes against the host library and
+hashlib; timed at the FRI round-0 leaf and compress layers), fri_fold
+(babybear, koalabear, 2^22 -> 2^21 and a strided round, with 0 and p - 1
+among the inputs), sumcheck_round and program (babybear, koalabear, m31
+at 2^20: AB_MINUS_C, EQ_X_AB_MINUS_C, a lambda with a constant and an
+inverse, zero inputs, with and without the fold; a program whose outputs
+are not the tail parameters), both also checked and timed at the 2^24
+prove's shapes (rounds 0 and 1, and the claimed sum's program).
 
 Launch counts: every kernel's count is set to 0 just before each checked
-main-path call (one NTT forward + inverse, one MSM, one Merkle build) and
+main-path call (one NTT forward + inverse, one MSM, one Merkle build, one
+FRI prove, one claimed sum and sumcheck prove) and
 read just after it; timing and profiling calls are not counted. A profile
 counts its kernels from the host's launch calls, which it always records;
 the device activities it keeps give the breakdown by kernel and can miss
@@ -117,9 +146,21 @@ multiplies (its matrix products, the JAX body's): t^2 for the first M_ext,
 per full round t S-boxes and t^2 for M_ext, per partial round one S-box
 and t for M_int: babybear t = 2 is 292 + 3, 885 integer multiplies.
 
+keccak is bound by the ALU pipe: keccak_kernel.PERMUTATION_OPS (4,309
+three-input logic and shift instructions a permutation, counted from the
+spec) a block, and an XOR a word absorbed into every block after the
+first (the first is absorbed into a zero state, so it needs none), at 64
+lanes a clock an SM x 132 SMs at nvidia-smi's max SM clock. fri_fold: n
+words in, n / 2 twiddles, n / 2 out, two Montgomery multiplies an output. sumcheck_round: the MLEs in
+(and the folded ones out), the fold's multiplies and deg + 1 combine
+evaluations a pair at the program's multiplies (an inverse is 32
+squarings and a multiply a set bit of p - 2); program: the parameters it
+reads and its outputs, its multiplies an element.
+
 The build report also gives the SASS instruction counts of the babybear
 t = 2 single-permutation Poseidon2 kernel (kernels/sass.py over cuobjdump
--sass), its count per hash: the kernel has no loop.
+-sass), its count per hash: the kernel has no loop; and those of the
+Keccak-256 word-row kernel (one block's path and the loop around it).
 """
 
 from __future__ import annotations
@@ -291,10 +332,16 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import msm_scan as TS
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
     from icicle_tpu_torch.kernels import ntt_kernel as K
+    from icicle_tpu_torch.kernels import fri_kernel as FK
+    from icicle_tpu_torch.kernels import keccak_kernel as KK
     from icicle_tpu_torch.kernels import poseidon2_kernel as PK
+    from icicle_tpu_torch.kernels import program_kernel as PGK
+    from icicle_tpu_torch.kernels import sumcheck_kernel as SK
     return {"dif_rows": K.dif_rows, "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
             "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
-            "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2}
+            "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2, "keccak": KK.keccak,
+            "fri_fold": FK.fri_fold, "sumcheck_round": SK.sumcheck_round,
+            "program": PGK.execute_program_kernel}
 
 
 def counted(path: str, fn, launches: dict):
@@ -817,6 +864,7 @@ POSEIDON2_CHECKS = (
        ("bn254_scalar", 3, None, 5, 1 << 12, "bn254_scalar t=3 sponge n=5")])
 POSEIDON2_TIMED = 1 << (MERKLE_LOG - 1)  # the 2^29 tree's leaf layer
 P2_SASS_KERNEL = "babybear_t2ELb0E"  # poseidon2_kernel<babybear_t2, false>
+KECCAK_SASS_KERNEL = "keccak_kernelILi34ELj1ELi8ELb0E"  # keccak_kernel<34, 0x01, 8, false>
 # (field, width, log2 leaves): trees held against the torch backend's build
 MERKLE_SMALLER = (("babybear", 2, 22), ("babybear", 4, 20), ("bn254_scalar", 2, 12))
 
@@ -1027,6 +1075,399 @@ def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
             "profile": prof, "proved_leaves": proved, "smaller": smaller, "card": smi}
 
 
+# -- the protocol layer: K1-K4, FRI and sumcheck ---------------------------------
+
+FRI_LOG = 22
+FRI_MAIN = f"fri babybear 2^{FRI_LOG}"
+FRI_SMALL_LOG = 16
+SUMCHECK_LOG = 24
+SUMCHECK_MAIN = f"sumcheck babybear AB_MINUS_C 2^{SUMCHECK_LOG}"
+SUMCHECK_EQ_LOG = 22
+SUMCHECK_EQ = f"sumcheck babybear EQ_X_AB_MINUS_C 2^{SUMCHECK_EQ_LOG}"
+KECCAK_WORDS = (1, 8, 16, 34, 35)          # hash_words row widths checked
+KECCAK_CHECK_BATCH = 1 << 16               # their rows
+PROTOCOL_CHECK_LOG = 20                    # K3's and K4's checked vectors
+KECCAK_BYTES = (0, 1, 135, 136, 137, 300)  # hash_bytes lengths checked
+PROTOCOL_FIELDS = ("babybear", "koalabear", "m31")
+
+
+def alu_ops_per_s(clock_mhz: float) -> float:
+    """32-bit logic and shift instructions a second: the ALU pipe's 64
+    lanes a clock an SM, 132 SMs, at the SM clock nvidia-smi reports."""
+    return 132 * 64 * clock_mhz * 1e6
+
+
+def keccak_bound(h, batch: int, in_words: int, clock_mhz: float,
+                 padded: bool = False) -> tuple[float, str]:
+    """Rows in and digests out once, against the permutations' logic and
+    shift instructions (keccak_kernel.PERMUTATION_OPS a block, plus an XOR
+    a word absorbed into each block after the first: the first block is
+    absorbed into a zero state) on the ALU pipe."""
+    from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS, nof_blocks
+    rate_words = h.rate_bytes // 4
+    blocks = nof_blocks(in_words, rate_words, padded)
+    byte_ms = batch * (in_words + h.digest_words) * 4 / HBM_BYTES_PER_S * 1e3
+    ops = blocks * PERMUTATION_OPS + (blocks - 1) * rate_words
+    op_ms = batch * ops / alu_ops_per_s(clock_mhz) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def fold_bound(n: int) -> tuple[float, str]:
+    """n words in, n / 2 twiddles, n / 2 out; two Montgomery multiplies an
+    output."""
+    return bound((n + n // 2 + n // 2) * 4, n // 2 * 2 * MULS_PER_MONT)
+
+
+def sumcheck_bound(f, program, npolys: int, n: int, fold: bool) -> tuple[float, str]:
+    """The MLEs in once (and the folded ones out), against the fold's
+    Montgomery multiplies and deg + 1 combine evaluations a pair."""
+    from icicle_tpu_torch.kernels.program_kernel import program_monts
+    pairs = n // (4 if fold else 2)
+    nbytes = npolys * n * 4 + (npolys * n // 2 * 4 if fold else 0)
+    monts = (npolys * 2 * pairs if fold else 0) + pairs * (program.poly_degree + 1) * \
+        program_monts(f, program)
+    return bound(nbytes, monts * MULS_PER_MONT)
+
+
+def program_bound(f, program, n: int) -> tuple[float, str]:
+    """The parameters the program reads and its outputs, once each, against
+    its Montgomery multiplies an element."""
+    from icicle_tpu_torch.kernels.program_kernel import make_code, program_monts
+    _, code, reads = make_code("program", f, program)
+    n_out = 1 if program.predef is not None else code.n_out
+    return bound((len(reads) + n_out) * n * 4, n * program_monts(f, program) * MULS_PER_MONT)
+
+
+def _exact(label: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+    if got.shape != want.shape or err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel != plain version, max abs err {err}")
+    return err
+
+
+def _combines():
+    """(name, program, MLEs) of the combines the kernels are held to."""
+    from icicle_tpu_torch.ops.program import PreDefined, ReturningValueProgram
+    return (("AB_MINUS_C", ReturningValueProgram(PreDefined.AB_MINUS_C), 3),
+            ("EQ_X_AB_MINUS_C", ReturningValueProgram(PreDefined.EQ_X_AB_MINUS_C), 4),
+            ("lambda const+inv", ReturningValueProgram(
+                lambda v: v[0] * v[1].inverse() + 7 - v[2] * 3, nof_inputs=3), 3))
+
+
+def check_protocol_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
+    """K1-K4 against their plain versions on the card, bit for bit, at
+    Section 4's shapes; each timed (median CUDA-event ms after a warm-up) at
+    the main paths' widest launch, its plain version once."""
+    import hashlib
+
+    from icicle_tpu_torch import Keccak256, Keccak512, Sha3_256, Sha3_512, get_field
+    from icicle_tpu_torch.kernels import fri_kernel as FK
+    from icicle_tpu_torch.kernels import keccak_kernel as KK
+    from icicle_tpu_torch.kernels import program_kernel as PK
+    from icicle_tpu_torch.kernels import sumcheck_kernel as SK
+    from icicle_tpu_torch.ops.ntt import ntt_init_domain
+    from icicle_tpu_torch.ops.program import PreDefined, Program
+    from icicle_tpu_torch.utils import native
+
+    rows = {"keccak": [], "fri_fold": [], "sumcheck_round": [], "program": []}
+
+    # K1: hash_words and hash_bytes of all four variants
+    for H in (Keccak256, Keccak512, Sha3_256, Sha3_512):
+        h = H()
+        for w in KECCAK_WORDS:
+            x = torch.randint(-2 ** 31, 2 ** 31, (KECCAK_CHECK_BATCH, w), generator=gen, device=dev,
+                              dtype=torch.int32)
+            err = _exact(f"keccak {H.__name__} ({KECCAK_CHECK_BATCH}, {w})", KK.keccak(h, x),
+                         KK.keccak_ref(h, x))
+            rows["keccak"].append({"role": f"{H.__name__} hash_words", "batch": KECCAK_CHECK_BATCH,
+                                   "in_words": w, "max_abs_diff": err, "checked": True})
+        kind = {Keccak256: "keccak_256", Keccak512: "keccak_512", Sha3_256: "sha3_256",
+                Sha3_512: "sha3_512"}[H]
+        for nb in KECCAK_BYTES:
+            chunks = [bytes(np.random.default_rng(nb + i).integers(0, 256, nb, dtype=np.uint8))
+                      for i in range(4)]
+            got = h.hash_bytes(b"".join(chunks), batch=4)
+            want = b"".join(native.host_hash(kind, c) for c in chunks)
+            if kind.startswith("sha3"):
+                assert want == b"".join(hashlib.new(kind, c).digest() for c in chunks)
+            if got != want:
+                raise AssertionError(f"keccak {H.__name__} hash_bytes of {nb} bytes != the "
+                                     "host library")
+        log(f"  keccak {H.__name__}: hash_words of {KECCAK_WORDS} words x {KECCAK_CHECK_BATCH} rows == "
+            f"keccak_ref on the card; hash_bytes of {KECCAK_BYTES} bytes == the host library"
+            f"{' and hashlib' if H in (Sha3_256, Sha3_512) else ''}")
+    h = Keccak256()
+    for role, batch, w in ((f"FRI 2^{FRI_LOG} leaf layer", 1 << FRI_LOG, 1),
+                           (f"FRI 2^{FRI_LOG} compress layer", 1 << (FRI_LOG - 1), 16)):
+        x = torch.randint(-2 ** 31, 2 ** 31, (batch, w), generator=gen, device=dev,
+                          dtype=torch.int32)
+        err = _exact(f"keccak {role}", KK.keccak(h, x), KK.keccak_ref(h, x))
+        kernel_ms = cuda_ms(lambda: KK.keccak(h, x))
+        plain_ms = cuda_ms(lambda: KK.keccak_ref(h, x), reps=3) if w == 1 else None
+        bound_ms, bound_by = keccak_bound(h, batch, w, clock_mhz)
+        rows["keccak"].append({"role": role, "batch": batch, "in_words": w,
+                               "max_abs_diff": err, "checked": True, "kernel_ms": kernel_ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by})
+        plain = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
+        log(f"  keccak {role} ({batch}, {w}) exact; kernel {kernel_ms:.4f} ms{plain}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x [{smi}]")
+        del x
+    torch.cuda.empty_cache()
+
+    # K2: a fold at round 0 (stride 1) and at round 6 (stride 64)
+    for fname in ("babybear", "koalabear"):
+        f = get_field(fname)
+        tw = ntt_init_domain(f, FRI_LOG, dev).twiddles_inv
+        for log_n, stride in ((FRI_LOG, 1), (FRI_LOG - 6, 64)):
+            e = field_elements(f, (1 << log_n,), gen, dev)
+            e[:2] = 0
+            e[2:4] = f.modulus - 1
+            alpha = int(torch.randint(0, f.modulus, (1,), generator=gen, device=dev))
+            err = _exact(f"fri_fold {fname} 2^{log_n}", FK.fri_fold(f, e, alpha, tw, stride),
+                         FK.fri_fold_ref(f, e, alpha, tw, stride))
+            row = {"role": f"{fname} 2^{log_n} -> 2^{log_n - 1}, stride {stride}",
+                   "field": fname, "n": 1 << log_n, "max_abs_diff": err, "checked": True}
+            if log_n == FRI_LOG:
+                row["kernel_ms"] = cuda_ms(lambda: FK.fri_fold(f, e, alpha, tw, stride))
+                row["plain_ms"] = cuda_ms(lambda: FK.fri_fold_ref(f, e, alpha, tw, stride),
+                                          reps=3)
+                row["bound_ms"], row["bound_by"] = fold_bound(1 << log_n)
+                log(f"  fri_fold {row['role']} exact (0 and p - 1 among the inputs); kernel "
+                    f"{row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+            rows["fri_fold"].append(row)
+            del e
+
+    # K3 and K4 at 2^PROTOCOL_CHECK_LOG, every field, the three combines, zero inputs included
+    for fname in PROTOCOL_FIELDS:
+        f = get_field(fname)
+        for cname, prog, npolys in _combines():
+            m = field_elements(f, (npolys, 1 << PROTOCOL_CHECK_LOG), gen, dev)
+            m[:, :5] = 0
+            alpha = int(torch.randint(0, f.modulus, (1,), generator=gen, device=dev))
+            for fold in (False, True):
+                rp, mf = SK.sumcheck_round(f, prog, prog.poly_degree, m, alpha, fold)
+                rp_ref, mf_ref = SK.sumcheck_round_ref(f, prog, prog.poly_degree, m, alpha, fold)
+                label = f"sumcheck_round {fname} {cname} fold={fold}"
+                err = max(_exact(label, rp, rp_ref), _exact(label + " folded", mf, mf_ref))
+                rows["sumcheck_round"].append({"role": label, "n": 1 << PROTOCOL_CHECK_LOG, "npolys": npolys,
+                                               "max_abs_diff": err, "checked": True})
+            pp = prog if prog.predef is None else Program(PreDefined(int(prog.predef)))
+            data = [m[i] for i in range(npolys)] + [torch.zeros_like(m[0])]
+            data = data[:pp.nof_parameters]
+            err = max(_exact(f"program {fname} {cname}", a, b) for a, b in zip(
+                PK.execute_program_kernel(f, pp, data), PK.execute_program_ref(f, pp, data)))
+            rows["program"].append({"role": f"program {fname} {cname}", "n": 1 << PROTOCOL_CHECK_LOG,
+                                    "max_abs_diff": err, "checked": True})
+            del m, data
+
+        def non_tail(v):
+            v[0] = v[1] * v[2] + 5
+            v[2] = v[1]
+
+        pp = Program(non_tail, 3)
+        data = [field_elements(f, (1 << PROTOCOL_CHECK_LOG,), gen, dev) for _ in range(3)]
+        err = max(_exact(f"program {fname} non-tail", a, b) for a, b in zip(
+            PK.execute_program_kernel(f, pp, data), PK.execute_program_ref(f, pp, data)))
+        rows["program"].append({"role": f"program {fname} non-tail outputs", "n": 1 << PROTOCOL_CHECK_LOG,
+                                "max_abs_diff": err, "checked": True})
+        log(f"  sumcheck_round and program {fname} at 2^{PROTOCOL_CHECK_LOG}: {', '.join(c for c, _, _ in _combines())}"
+            " (with and without the fold), a non-tail program: exact")
+        del data
+    # checked and timed at the main paths' widest launches: sumcheck rounds 0
+    # and 1 and the claimed sum's program over 3 MLEs of 2^24
+    f = get_field("babybear")
+    _, prog, _ = _combines()[0]
+    m = field_elements(f, (3, 1 << SUMCHECK_LOG), gen, dev)
+    for fold in (False, True):
+        label = f"sumcheck_round AB_MINUS_C 3 x 2^{SUMCHECK_LOG} fold={fold}"
+        rp, mf = SK.sumcheck_round(f, prog, 2, m, 5, fold)
+        rp_ref, mf_ref = SK.sumcheck_round_ref(f, prog, 2, m, 5, fold)
+        err = max(_exact(label, rp, rp_ref), _exact(label + " folded", mf, mf_ref))
+        del rp, mf, rp_ref, mf_ref
+        row = {"role": f"AB_MINUS_C 3 x 2^{SUMCHECK_LOG}, round {int(fold)}", "n": 1 << SUMCHECK_LOG,
+               "npolys": 3, "fold": fold, "max_abs_diff": err, "checked": True,
+               "kernel_ms": cuda_ms(lambda: SK.sumcheck_round(f, prog, 2, m, 5, fold)),
+               "plain_ms": cuda_ms(lambda: SK.sumcheck_round_ref(f, prog, 2, m, 5, fold), reps=3)}
+        row["bound_ms"], row["bound_by"] = sumcheck_bound(f, prog, 3, 1 << SUMCHECK_LOG, fold)
+        rows["sumcheck_round"].append(row)
+        log(f"  sumcheck_round {row['role']}: exact; kernel {row['kernel_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+    pp = Program(PreDefined.AB_MINUS_C)
+    data = [m[0], m[1], m[2], torch.zeros_like(m[0])]
+    err = max(_exact(f"program AB_MINUS_C 2^{SUMCHECK_LOG}", a, b) for a, b in zip(
+        PK.execute_program_kernel(f, pp, data), PK.execute_program_ref(f, pp, data)))
+    row = {"role": f"AB_MINUS_C over 2^{SUMCHECK_LOG} (the claimed sum)", "n": 1 << SUMCHECK_LOG,
+           "max_abs_diff": err, "checked": True,
+           "kernel_ms": cuda_ms(lambda: PK.execute_program_kernel(f, pp, data)),
+           "plain_ms": cuda_ms(lambda: PK.execute_program_ref(f, pp, data), reps=3)}
+    row["bound_ms"], row["bound_by"] = program_bound(f, pp, 1 << SUMCHECK_LOG)
+    rows["program"].append(row)
+    log(f"  program {row['role']}: exact; kernel {row['kernel_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+    del m, data
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fri_main_path(dev, smi: str, launches: dict) -> dict:
+    """The FRI prover on the card: 2^22 babybear evaluations (a degree < 2^20
+    polynomial at blow-up 4, the port's forward NTT), the reference's
+    defaults, Keccak-256 layers (capi_shim._fri_setup)."""
+    from icicle_tpu_torch import (FriConfig, FriTranscriptConfig, Keccak256, MerkleTreeConfig,
+                                  fri_prove, fri_verify, get_field, ntt)
+    from icicle_tpu_torch.kernels import fri_kernel as FK
+    from icicle_tpu_torch.ops import fri as F
+    from icicle_tpu_torch.ops.ntt import ntt_init_domain
+
+    f = get_field("babybear")
+    h = Keccak256()
+    cfg, tcfg = FriConfig(), FriTranscriptConfig()
+
+    def evals_of(log_n: int) -> torch.Tensor:
+        rng = np.random.default_rng(0)
+        coeffs = np.zeros(1 << log_n, dtype=np.uint32)
+        coeffs[:1 << (log_n - 2)] = rng.integers(0, f.modulus, size=1 << (log_n - 2),
+                                                  dtype=np.uint32)
+        return ntt(f, torch.from_numpy(coeffs.view(np.int32)).to(dev))
+
+    evals = evals_of(FRI_LOG)
+    torch.cuda.synchronize()
+    phases = {}
+    proof = counted(FRI_MAIN, lambda: fri_prove(f, evals, cfg, tcfg, h, h, timings=phases),
+                    launches)
+    want = dict(dict.fromkeys(kernel_counters(), 0), fri_fold=FRI_LOG,
+                keccak=sum(FRI_LOG + 1 - r for r in range(FRI_LOG)))
+    if launches[FRI_MAIN] != want:
+        raise AssertionError(f"{FRI_MAIN}: launched {launches[FRI_MAIN]}, expected {want}")
+    if not fri_verify(f, proof, cfg, tcfg, h, h):
+        raise AssertionError(f"{FRI_MAIN}: the proof does not verify")
+    bad = F.FriProof.deserialize(f, proof.serialize(f))
+    bad.query_proofs[0][0][0].leaf[0] ^= 1
+    if fri_verify(f, bad, cfg, tcfg, h, h):
+        raise AssertionError(f"{FRI_MAIN}: a proof with a leaf word flipped verifies")
+    size = len(proof.serialize(f))
+
+    # each round's fold against the plain version on the card, replaying the
+    # transcript's challenges from the proof's roots; the last equals the
+    # final polynomial
+    tr = F.FriTranscript(f, tcfg, FRI_LOG)
+    tw = ntt_init_domain(f, FRI_LOG, dev).twiddles_inv
+    cur = evals
+    for r in range(FRI_LOG):
+        alpha = tr.get_alpha(proof.round_root(r).astype("<u4").tobytes(), r == 0)
+        nxt = FK.fri_fold(f, cur, alpha, tw, 1 << r)
+        _exact(f"{FRI_MAIN} round {r} fold", nxt, FK.fri_fold_ref(f, cur, alpha, tw, 1 << r))
+        cur = nxt
+    if [int(v) for v in f.to_ints(cur)] != proof.final_poly:
+        raise AssertionError(f"{FRI_MAIN}: the replayed folds end away from the final polynomial")
+    plain_tree = F._make_round_trees(h, h, 1, FRI_LOG)[0]
+    plain_root = plain_tree.build(evals.reshape(-1, 1), MerkleTreeConfig(backend="torch"))
+    if not np.array_equal(plain_root, proof.round_root(0)):
+        raise AssertionError(f"{FRI_MAIN}: round 0's root != the keccak_ref tree's root")
+    del plain_tree, cur, nxt
+    torch.cuda.empty_cache()
+
+    runs = []
+    for i in range(4):   # a warm-up, then 3 timed
+        t = {}
+        t0 = time.perf_counter()
+        again = fri_prove(f, evals, cfg, tcfg, h, h, timings=t)
+        torch.cuda.synchronize()
+        t["total_ms"] = (time.perf_counter() - t0) * 1e3
+        if i:
+            runs.append(t)
+        if again.serialize(f) != proof.serialize(f):
+            raise AssertionError(f"{FRI_MAIN}: a timed proof differs from the checked one")
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    log(f"  {FRI_MAIN}: {want['fri_fold']} fri_fold and {want['keccak']} keccak launches in the "
+        f"commit phase and nothing else of ours; verifies, "
+        f"refuses a flipped leaf; every round's fold == fri_fold_ref, round 0's root == "
+        f"keccak_ref's; proof {size} bytes; prove {med['total_ms']:.2f} ms (commit "
+        f"{med['commit_ms']:.2f}, pow {med['pow_ms']:.2f}, queries {med['query_ms']:.2f}) "
+        f"[{smi}]")
+    _, prof = device_profile(f"2^{FRI_LOG} FRI prove", lambda: fri_prove(f, evals, cfg, tcfg,
+                                                                        h, h), smi)
+
+    small = evals_of(FRI_SMALL_LOG)
+    t0 = time.perf_counter()
+    kernel_proof = fri_prove(f, small, cfg, tcfg, h, h)
+    plain_proof = fri_prove(f, small, FriConfig(backend="torch"), tcfg, h, h)
+    if kernel_proof.serialize(f) != plain_proof.serialize(f):
+        raise AssertionError(f"fri 2^{FRI_SMALL_LOG}: the proof != the plain path's")
+    log(f"  fri 2^{FRI_SMALL_LOG}: proof byte-identical to the plain versions' "
+        f"({len(plain_proof.serialize(f))} bytes, {time.perf_counter() - t0:.1f} s)")
+    del evals, small
+    torch.cuda.empty_cache()
+    return {"log_n": FRI_LOG, "proof_bytes": size, "ms": med, "runs": runs, "profile": prof,
+            "small_identical": True, "card": smi}
+
+
+def sumcheck_main_path(dev, smi: str, launches: dict) -> dict:
+    """The sumcheck prover on the card: AB_MINUS_C over 3 MLEs of 2^24
+    (capi_shim.sumcheck_prove_abc) and EQ_X_AB_MINUS_C over 4 of 2^22, each
+    claimed sum from execute_program (K4) and vector_sum."""
+    from icicle_tpu_torch import (Program, PreDefined, ReturningValueProgram, SumcheckConfig,
+                                  execute_program, get_field, sumcheck_prove, sumcheck_verify)
+    from icicle_tpu_torch.ops import sumcheck as S
+    from icicle_tpu_torch.ops.vec_ops import vector_sum
+
+    f = get_field("babybear")
+    p = f.modulus
+    out = {"card": smi}
+    for label, pre, log_n, npolys in ((SUMCHECK_MAIN, PreDefined.AB_MINUS_C, SUMCHECK_LOG, 3),
+                                      (SUMCHECK_EQ, PreDefined.EQ_X_AB_MINUS_C, SUMCHECK_EQ_LOG,
+                                       4)):
+        rng = np.random.default_rng(0)
+        host = rng.integers(0, p, size=(npolys, 1 << log_n), dtype=np.uint32)
+        mles = torch.from_numpy(host.view(np.int32)).to(dev)
+        polys = [mles[i] for i in range(npolys)]
+        prog, combine = Program(pre), ReturningValueProgram(pre)
+
+        def prove():
+            data = polys + [torch.zeros_like(polys[0])]
+            claimed = int(vector_sum(f, execute_program(f, prog, data)[-1]))
+            return claimed, sumcheck_prove(f, polys, claimed, combine)
+
+        claimed, (proof, _) = counted(label, prove, launches)
+        # each round is the round pass and the reduction of its partials
+        want = dict(dict.fromkeys(kernel_counters(), 0), sumcheck_round=2 * log_n, program=1)
+        if launches[label] != want:
+            raise AssertionError(f"{label}: launched {launches[label]}, expected {want}")
+        a = host.astype(np.int64)
+        terms = (a[0] * a[1] % p - a[2]) % p
+        if npolys == 4:
+            terms = terms * a[3] % p
+        if claimed != int(terms.sum() % p):
+            raise AssertionError(f"{label}: claimed sum {claimed} != numpy's")
+        if not sumcheck_verify(f, proof, claimed):
+            raise AssertionError(f"{label}: the proof does not verify")
+        bad = S.SumcheckProof([list(rp) for rp in proof.round_polys])
+        bad.round_polys[3][0] = (bad.round_polys[3][0] + 1) % p
+        if sumcheck_verify(f, bad, claimed):
+            raise AssertionError(f"{label}: a tampered round polynomial verifies")
+        plain, _ = sumcheck_prove(f, polys, claimed, combine, cfg=SumcheckConfig(backend="torch"))
+        if plain.round_polys != proof.round_polys:
+            raise AssertionError(f"{label}: round polynomials != the plain path's")
+        prove_ms, _ = host_ms(lambda: sumcheck_prove(f, polys, claimed, combine), reps=3)
+        sum_ms, _ = host_ms(lambda: int(vector_sum(f, execute_program(
+            f, prog, polys + [torch.zeros_like(polys[0])])[-1])), reps=3)
+        log(f"  {label}: {2 * log_n} sumcheck_round launches ({log_n} rounds) and 1 program; "
+            f"claimed sum == numpy's; "
+            f"verifies, refuses a tampered round; every round == the plain path's; prove "
+            f"{prove_ms:.3f} ms, claimed sum {sum_ms:.3f} ms [{smi}]")
+        entry = {"log_n": log_n, "npolys": npolys, "prove_ms": prove_ms,
+                 "claimed_sum_ms": sum_ms, "rounds": len(proof.round_polys)}
+        if label == SUMCHECK_MAIN:
+            _, entry["profile"] = device_profile(f"2^{log_n} sumcheck prove", lambda: sumcheck_prove(
+                f, polys, claimed, combine), smi)
+        out[label] = entry
+        del mles, polys, host, a, terms
+        torch.cuda.empty_cache()
+    return out
+
+
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
@@ -1080,6 +1521,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from icicle_tpu_torch import NTTConfig, NTTDir, get_field, ntt
     from icicle_tpu_torch.kernels import build, sass
+    from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.ops import ntt as N
 
@@ -1097,6 +1539,10 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     log("== card")
     log(smi)
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    log(f"max SM clock {sm_clock_mhz:g} MHz (the ALU-pipe bound's clock)")
     name = torch.cuda.get_device_name(0)
     log(f"torch: {name}, {torch.cuda.device_count()} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -1126,6 +1572,12 @@ def main() -> None:
         raise AssertionError(f"libposeidon2: {len(p2_sass)} kernels match {P2_SASS_KERNEL}")
     p2_sass = next(iter(p2_sass.values()))["counts"]
     log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
+    keccak_sass = sass.kernel_counts(build.lib_path("keccak"), KECCAK_SASS_KERNEL)
+    if len(keccak_sass) != 1:
+        raise AssertionError(f"libkeccak: {len(keccak_sass)} kernels match {KECCAK_SASS_KERNEL}")
+    keccak_sass = next(iter(keccak_sass.values()))["counts"]
+    log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
+        f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
 
     phase_done("build")
     # -- 3. kernel versus plain ----------------------------------------------
@@ -1191,6 +1643,10 @@ def main() -> None:
     log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
     p2_rows = check_poseidon2_kernel(dev, gen, smi)
     phase_done("kernels: poseidon2")
+    log("== kernels: keccak, fri_fold, sumcheck_round, program against their plain versions "
+        "on the card")
+    protocol_rows = check_protocol_kernels(dev, gen, smi, sm_clock_mhz)
+    phase_done("kernels: keccak, fri_fold, sumcheck_round, program")
 
     # -- 4. NTT main path -----------------------------------------------------
     log("== main path: icicle_tpu_torch.ntt on CUDA tensors")
@@ -1258,10 +1714,19 @@ def main() -> None:
     log("== main path: the babybear Poseidon2 Merkle tree (MerkleTree.build) on CUDA tensors")
     merkle = merkle_main_path(dev, gen, smi, launches)
     phase_done("main path: merkle")
+
+    # -- 7. FRI and sumcheck main paths -----------------------------------------
+    log(f"== main path: the FRI prover (fri_prove) at babybear 2^{FRI_LOG} on CUDA tensors")
+    fri = fri_main_path(dev, smi, launches)
+    phase_done("main path: fri")
+    log("== main path: the sumcheck prover (sumcheck_prove) on CUDA tensors")
+    sumcheck = sumcheck_main_path(dev, smi, launches)
+    phase_done("main path: sumcheck")
     log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 7. main paths line ---------------------------------------------------
-    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle,
+    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle, "fri": fri,
+                                     "sumcheck": sumcheck,
                                      "launches": launches, "phase_s": phase_s,
                                      "card": smi}}))
 
@@ -1355,6 +1820,39 @@ def main() -> None:
         "checked_ms": p2_checked["kernel_ms"], "sass_per_hash": p2_sass, "shapes": p2_rows,
         "card": smi,
     })
+    # K1-K4: ms and bound_ms at the main path's widest launch (keccak: the
+    # FRI round-0 leaf layer; fri_fold: round 0; sumcheck_round: round 1 of
+    # the 2^24 prove, the fold of 3 x 2^24; program: the claimed sum's), the
+    # plain version's ms there
+    def protocol_entry(kname: str, source: str, replaces: str, headline: str, main_role) -> dict:
+        rows = protocol_rows[kname]
+        main = next(r for r in rows if main_role(r))
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[headline][kname], "headline_path": headline,
+                "launches_per_path": per_path(kname),
+                "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
+                "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None,  # no PyTorch call computes it
+                "main_role": main["role"], "shapes": rows, "card": smi}
+
+    entries += [
+        dict(protocol_entry("keccak", "icicle_tpu_torch/kernels/csrc/keccak.cu",
+                            "none (XLA): icicle_tpu/ops/hash/keccak.py:90 keccak_f1600, "
+                            ":108 _absorb_padded, :148 hash_words", FRI_MAIN,
+                            lambda r: r["role"] == "FRI 2^22 leaf layer"),
+             sass=keccak_sass, permutation_ops=PERMUTATION_OPS, sm_clock_mhz=sm_clock_mhz),
+        protocol_entry("fri_fold", "icicle_tpu_torch/kernels/csrc/fri_fold.cu",
+                       "none (XLA): icicle_tpu/ops/fri.py:275 _fold_kernel", FRI_MAIN,
+                       lambda r: "kernel_ms" in r and r["field"] == "babybear"),
+        protocol_entry("sumcheck_round", "icicle_tpu_torch/kernels/csrc/sumcheck.cu",
+                       "none (XLA): icicle_tpu/ops/sumcheck.py:145 _round_pass", SUMCHECK_MAIN,
+                       lambda r: r.get("fold") is True),
+        protocol_entry("program", "icicle_tpu_torch/kernels/csrc/program.cu",
+                       "none (XLA): icicle_tpu/ops/vec_ops.py:258 execute_program over "
+                       "icicle_tpu/ops/program.py:149 Program.execute", SUMCHECK_MAIN,
+                       lambda r: "kernel_ms" in r),
+    ]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

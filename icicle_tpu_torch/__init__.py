@@ -17,26 +17,44 @@ pipeline, whose scan and EC reductions run in two more
 third (msm_scan_r12.cu); the v2 suffix-fold pipeline (msm_fold2.cu); the
 v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu); and the
 Poseidon2 hash with the Merkle tree over it, whose hashing runs in one more
-(poseidon2.cu).
+(poseidon2.cu); and the protocol layer: the Keccak / SHA-3 hashes
+(keccak.cu), field programs and the vector ops (program.cu), proof of
+work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
 
     fields:   get_field
     curves:   get_curve
     ops:      ntt, NTTConfig, NTTDir, Ordering, msm_affine, MSMConfig,
-              Poseidon2, HashConfig, MerkleTree, MerkleProof, MerkleTreeConfig
+              Poseidon2, Keccak256, Keccak512, Sha3_256, Sha3_512, HashConfig,
+              MerkleTree, MerkleProof, MerkleTreeConfig, Program,
+              ReturningValueProgram, PreDefined, execute_program, sumcheck_prove,
+              sumcheck_verify, fri_prove, fri_verify, FriConfig,
+              FriTranscriptConfig, SumcheckConfig, SumcheckTranscriptConfig,
+              proof_of_work, proof_of_work_verify
     runtime:  set_device
 """
 
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.field import get_field
+from icicle_tpu_torch.ops.fri import FriTranscriptConfig, fri_prove, fri_verify
+from icicle_tpu_torch.ops.hash.keccak import Keccak256, Keccak512, Sha3_256, Sha3_512
 from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
 from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
 from icicle_tpu_torch.ops.msm import MSMConfig, msm_affine
 from icicle_tpu_torch.ops.ntt import ntt
+from icicle_tpu_torch.ops.pow import proof_of_work, proof_of_work_verify
+from icicle_tpu_torch.ops.program import PreDefined, Program, ReturningValueProgram
+from icicle_tpu_torch.ops.sumcheck import (SumcheckTranscriptConfig, sumcheck_prove,
+                                           sumcheck_verify)
+from icicle_tpu_torch.ops.vec_ops import execute_program
 from icicle_tpu_torch.runtime import registry as _registry  # noqa: F401
-from icicle_tpu_torch.runtime.config import (HashConfig, MerkleTreeConfig, NTTConfig, NTTDir,
-                                             Ordering)
+from icicle_tpu_torch.runtime.config import (FriConfig, HashConfig, MerkleTreeConfig, NTTConfig,
+                                             NTTDir, Ordering, SumcheckConfig)
 from icicle_tpu_torch.runtime.device import set_device
 
 __all__ = ["get_curve", "get_field", "ntt", "NTTConfig", "NTTDir", "Ordering",
-           "msm_affine", "MSMConfig", "Poseidon2", "HashConfig", "MerkleTree",
-           "MerkleProof", "MerkleTreeConfig", "set_device"]
+           "msm_affine", "MSMConfig", "Poseidon2", "Keccak256", "Keccak512", "Sha3_256",
+           "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",
+           "Program", "ReturningValueProgram", "PreDefined", "execute_program",
+           "sumcheck_prove", "sumcheck_verify", "SumcheckConfig", "SumcheckTranscriptConfig",
+           "fri_prove", "fri_verify", "FriConfig", "FriTranscriptConfig", "proof_of_work",
+           "proof_of_work_verify", "set_device"]

@@ -102,12 +102,13 @@ def merkle_tree_from_numpy(layer_hashes, leaf_words: int, layers,
 
     `layer_hashes` are the port's hashers for the JAX tree's (for Poseidon2,
     the same field and width: the constants are the other half of the
-    state, and are the JAX package's); `layers` is
-    `[np.asarray(l) if l is not None else None for l in jtree.layers]`,
-    uint32 words: the leaves, then each layer's digests, None where the JAX
-    tree dropped a layer below `output_store_min_layer`. Each layer's words
-    must be canonical elements of the field of the hasher that reads it (the
-    leaves: the first layer's)."""
+    state, and are the JAX package's; for Keccak, the same variant);
+    `layers` is `[np.asarray(l) if l is not None else None for l in
+    jtree.layers]`, uint32 words: the leaves, then each layer's digests,
+    None where the JAX tree dropped a layer below `output_store_min_layer`.
+    Where the hasher that reads a layer has a field (Poseidon2), its words
+    must be canonical elements of it (the leaves: the first layer's); a
+    byte hash (Keccak) reads any words."""
     tree = MerkleTree(layer_hashes, leaf_words, output_store_min_layer)
     if len(layers) != len(tree.hashers) + 1 or layers[0] is None or layers[-1] is None:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
@@ -120,7 +121,10 @@ def merkle_tree_from_numpy(layer_hashes, leaf_words: int, layers,
             out.append(None)
             continue
         a = np.asarray(words)
-        f = h.field
+        f = getattr(h, "field", None)
+        if f is None:
+            out.append(torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(resolve(device)))
+            continue
         elems = a.reshape(a.shape[0], -1, f.nlimbs) if f.limb_shape else a
         out.append(elements_from_numpy(f, elems, device).reshape(a.shape))
     tree.layers = out

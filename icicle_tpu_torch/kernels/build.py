@@ -31,7 +31,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIBRARIES = {"ntt": ["ntt_dif.cu"], "msm_scan": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "msm_scan_r12": ["msm_scan_r12.cu"],
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
-             "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"]}
+             "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"],
+             "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
+             "program": ["program.cu"]}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

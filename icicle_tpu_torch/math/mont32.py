@@ -28,6 +28,13 @@ from icicle_tpu_torch.math.params import FieldParams
 I32 = torch.int32
 
 
+def _wide(b):
+    """b as int64: a 0-dim int64 operand does not promote an int32 tensor
+    (torch's promotion skips 0-dim tensors of the same kind), so a 0-dim
+    first operand, a program's constant, would leave the product int32."""
+    return b.to(torch.int64) if isinstance(b, torch.Tensor) else b
+
+
 class Mont32:
     """Elementwise modular arithmetic for a fixed single-limb prime field."""
 
@@ -40,11 +47,11 @@ class Mont32:
 
     def _mulmod(self, a, b):
         """(a * b) mod p for int32 tensors (or a Python int b) -> int32."""
-        return (a.to(torch.int64) * b % self.p).to(I32)
+        return (a.to(torch.int64) * _wide(b) % self.p).to(I32)
 
     # -- ring ops (canonical representatives in [0, p)) ---------------------
     def add(self, a, b):
-        s = a.to(torch.int64) + b
+        s = a.to(torch.int64) + _wide(b)
         return torch.where(s >= self.p, s - self.p, s).to(I32)
 
     def sub(self, a, b):

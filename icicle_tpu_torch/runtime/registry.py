@@ -3,12 +3,19 @@ reference include/icicle/backend/*.h REGISTER_* macros).
 
 Ops register their "torch" and "cuda" implementations with the dispatcher at
 their definition site; importing this module imports every op the port has.
-So far that is the NTT (ops/ntt.py), the MSM (ops/msm.py) and Poseidon2
-(ops/hash/poseidon2.py, api "poseidon2", which the Merkle tree hashes
-through); the rest of the JAX package's registration points arrive with the
-slices that port them (ROADMAP.md).
+So far that is the NTT (ops/ntt.py), the MSM (ops/msm.py), Poseidon2
+(ops/hash/poseidon2.py, api "poseidon2") and Keccak (ops/hash/keccak.py,
+api "keccak"), which the Merkle tree hashes through, the FRI fold
+(ops/fri.py, api "fri_fold"), the sumcheck round (ops/sumcheck.py, api
+"sumcheck_round") and program execution (ops/vec_ops.py, api
+"execute_program"). The rest of the JAX package's registration points
+arrive with the slices that port them (ROADMAP.md).
 """
 
+import icicle_tpu_torch.ops.fri  # noqa: F401
+import icicle_tpu_torch.ops.hash.keccak  # noqa: F401
 import icicle_tpu_torch.ops.hash.poseidon2  # noqa: F401
 import icicle_tpu_torch.ops.msm  # noqa: F401
 import icicle_tpu_torch.ops.ntt  # noqa: F401
+import icicle_tpu_torch.ops.sumcheck  # noqa: F401
+import icicle_tpu_torch.ops.vec_ops  # noqa: F401
