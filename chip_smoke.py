@@ -93,9 +93,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (the round pass and the reduction of its partials), the proof
                verifies and a tampered round is refused, every round
                polynomial equals the plain path's; host-clock ms, a profile;
-  9. the main paths' JSON line (per-path launches, times, profiles,
+  9. field layer -- the NTT over goldilocks and 8-limb fields through
+               icicle_tpu_torch.ntt on CUDA tensors: goldilocks 2^24
+               (forward, inverse, a coset forward), bn254_scalar 2^22,
+               stark252 and bls12_381_scalar 2^16; each NTT exactly two
+               dif_rows_wide launches (counted), the forward equal to
+               `_ntt_torch` on the card (at full size; bn254_scalar also at
+               2^18), the inverse giving the input back, host-clock ms and
+               butterflies/s, a profile of the two large forwards; then
+               MerkleTree([Poseidon2(goldilocks, 2)] * 28, leaf_words=2) over
+               2^28 leaves (2 GiB, the 2^29 babybear tree's bytes): 28
+               poseidon2 launches and no other device kernel (counted and
+               profiled), leaves/s, every layer at 4096 sampled parents
+               against the plain version, proofs verify and fail flipped;
+               then polynomials: a bn254_scalar Polynomial of 2^20
+               coefficients times another (three 2^21 NTTs, 6 dif_rows_wide
+               launches), a(r) b(r) == (ab)(r) at a random r by Python-int
+               Horner on the host, divide_by_vanishing of q (x^N - 1) giving
+               q back, eval_on_rou_domain of the product equal to the
+               factors' evaluations multiplied; and a babybear multiply of
+               2^21 x 2^21 (2^22 NTTs, 6 dif_rows launches), checked the
+               same way;
+  10. the main paths' JSON line (per-path launches, times, profiles,
      seconds a phase);
-  10. the kernels JSON line; 11. the result JSON line, last.
+  11. the kernels JSON line; 12. the result JSON line, last.
+
+Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks and
+8-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in both
+instances: the passes of the goldilocks 2^24 and bn254_scalar 2^22 NTTs
+in all four layouts, with and without the factor, 64 sampled rows (and
+rows 0, 1 and the last) of each full-length pass compared, 0 and p - 1
+among the inputs; and both passes of a whole 2^16 NTT for every 8-limb
+field; the goldilocks poseidon2 instances at every width (batch 2^16,
+one permutation, the sponge and a domain tag) against hash_fields_ref, and
+t = 2 timed at the 2^28 tree's leaf layer. A goldilocks multiply counts as
+8 integer multiplies (four 32 x 32 products, low and high words; no m p
+terms), and goldilocks converts nothing into or out of Montgomery form.
 
 Phase 3 also holds the protocol kernels to their plain versions, bit for
 bit: keccak (all four variants, hash_words of 1, 8, 16, 34 and 35 words
@@ -110,7 +143,8 @@ prove's shapes (rounds 0 and 1, and the claimed sum's program).
 
 Launch counts: every kernel's count is set to 0 just before each checked
 main-path call (one NTT forward + inverse, one MSM, one Merkle build, one
-FRI prove, one claimed sum and sumcheck prove) and
+FRI prove, one claimed sum and sumcheck prove; one limb-field NTT forward +
+inverse or coset forward, one goldilocks build, one polynomial product) and
 read just after it; timing and profiling calls are not counted. A profile
 counts its kernels from the host's launch calls, which it always records;
 the device activities it keeps give the breakdown by kernel and can miss
@@ -183,6 +217,7 @@ REPS = 10
 PROFILE_PAD_S = 1.0  # idle seconds before and after a profiled call, doubled a retry
 PROFILE_TRIES = 3
 PROFILE_KEPT = 0.99  # share of the launch calls a profile must keep, else retried
+GL64_MULS = 8     # a goldilocks multiply: four 32x32 products, low and high words
 MADD_MONTS = 11   # RCB15 Alg 8, not counting its two multiplies by b3
 PADD_MONTS = 12   # RCB15 Alg 7, likewise
 
@@ -295,12 +330,25 @@ SBOX_MONTS = {3: 2, 5: 3, 7: 4, 9: 4, 11: 5}
 def poseidon2_plain_monts(h, n: int) -> int:
     """Montgomery multiplies of one hash of n inputs as the plain version
     (and the JAX body) compute it: with M_ext and M_int as matrix products
-    (the earlier bound; see the module docstring)."""
+    (the earlier bound; see the module docstring); goldilocks converts
+    nothing."""
     t, sbox = h.t, SBOX_MONTS[h.alpha]
     perm = t * t + 2 * h.half_full * (t * sbox + t * t) + h.partial_rounds * (sbox + t)
     tagged = h.domain_tag is not None
     perms = 1 if n == t - tagged else max(1, -(-(n - 1 + tagged) // (t - 1)))
-    return perms * perm + n + 1
+    return perms * perm + (0 if is_goldilocks(h.field) else n + 1)
+
+
+def is_goldilocks(f) -> bool:
+    return f.modulus == (1 << 64) - (1 << 32) + 1
+
+
+def field_muls(f) -> int:
+    """32-bit integer multiplies of one field multiply: 3 for a one-word
+    Montgomery multiply, GL64_MULS for goldilocks, 4 L^2 + L for L limbs."""
+    if is_goldilocks(f):
+        return GL64_MULS
+    return MULS_PER_MONT if f.nlimbs == 1 else big_mont_muls(f.nlimbs)
 
 
 def poseidon2_bound(h, batch: int, n: int, plain: bool = False) -> tuple[float, str]:
@@ -313,9 +361,8 @@ def poseidon2_bound(h, batch: int, n: int, plain: bool = False) -> tuple[float, 
     c = h.constants("cpu")
     const_words = (c.rc.numel() + c.diag_m1.numel() + (c.mds.numel() if plain else 0)) // nl
     nbytes = (batch * (n + 1) + const_words) * nl * 4
-    per_mont = MULS_PER_MONT if nl == 1 else big_mont_muls(nl)
     monts = poseidon2_plain_monts(h, n) if plain else needed_monts(h, n)
-    return bound(nbytes, batch * monts * per_mont)
+    return bound(nbytes, batch * monts * field_muls(h.field))
 
 
 def r12_madd_muls(nw: int) -> int:
@@ -332,12 +379,14 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import msm_scan as TS
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
     from icicle_tpu_torch.kernels import ntt_kernel as K
+    from icicle_tpu_torch.kernels import ntt_wide as NW
     from icicle_tpu_torch.kernels import fri_kernel as FK
     from icicle_tpu_torch.kernels import keccak_kernel as KK
     from icicle_tpu_torch.kernels import poseidon2_kernel as PK
     from icicle_tpu_torch.kernels import program_kernel as PGK
     from icicle_tpu_torch.kernels import sumcheck_kernel as SK
-    return {"dif_rows": K.dif_rows, "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
+    return {"dif_rows": K.dif_rows, "dif_rows_wide": NW.dif_rows_wide,
+            "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
             "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
             "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2, "keccak": KK.keccak,
             "fri_fold": FK.fri_fold, "sumcheck_round": SK.sumcheck_round,
@@ -859,10 +908,17 @@ POSEIDON2_CHECKS = (
        ("m31", 16, None, 40, 1 << 16, "m31 t=16 sponge n=40")]
     + [(f, t, None, t, 1 << 12, f"{f} t={t}") for f in ("bn254_scalar", "bls12_377_scalar",
                                                        "stark252") for t in (2, 3, 4, 8)]
+    + [("goldilocks", t, None, t, 1 << 16, f"goldilocks t={t}") for t in (2, 3, 4, 8, 12)]
+    + [("goldilocks", 3, None, 7, 1 << 16, "goldilocks t=3 sponge n=7"),
+       ("goldilocks", 4, 99, 3, 1 << 16, "goldilocks t=4 domain tag"),
+       ("goldilocks", 8, 99, 20, 1 << 16, "goldilocks t=8 domain tag, sponge n=20")]
     + [("grumpkin_scalar", 3, None, 3, 1 << 12, "grumpkin_scalar t=3"),
        ("bls12_381_scalar", 8, None, 8, 1 << 12, "bls12_381_scalar t=8"),
        ("bn254_scalar", 3, None, 5, 1 << 12, "bn254_scalar t=3 sponge n=5")])
 POSEIDON2_TIMED = 1 << (MERKLE_LOG - 1)  # the 2^29 tree's leaf layer
+GL_MERKLE_LOG = 28   # goldilocks leaves: 2 GiB, the bytes of the 2^29 babybear tree
+GL_POSEIDON2_TIMED = 1 << (GL_MERKLE_LOG - 1)  # its leaf layer
+GL_POSEIDON2_ROLE = f"goldilocks t=2, the 2^{GL_MERKLE_LOG} tree's leaf layer"
 P2_SASS_KERNEL = "babybear_t2ELb0E"  # poseidon2_kernel<babybear_t2, false>
 KECCAK_SASS_KERNEL = "keccak_kernelILi34ELj1ELi8ELb0E"  # keccak_kernel<34, 0x01, 8, false>
 # (field, width, log2 leaves): trees held against the torch backend's build
@@ -890,8 +946,10 @@ def check_poseidon2_kernel(dev, gen, smi: str) -> list:
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"poseidon2 != hash_fields_ref at {role}: max abs err {err}")
         kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
-        # the plain version is timed once, at the first shape (the kernels line's)
-        plain_ms = cuda_ms(lambda: h.hash_fields_ref(x), reps=3) if not rows else None
+        # the plain version is timed at the first shape and at goldilocks t = 2
+        # (the kernels line's)
+        plain_ms = cuda_ms(lambda: h.hash_fields_ref(x), reps=3) \
+            if not rows or role == "goldilocks t=2" else None
         bound_ms, bound_by = poseidon2_bound(h, batch, n)
         plain_bound_ms = poseidon2_bound(h, batch, n, plain=True)[0]
         rows.append({"role": role, "field": fname, "t": t, "n": n, "batch": batch,
@@ -917,6 +975,19 @@ def check_poseidon2_kernel(dev, gen, smi: str) -> list:
         f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x; against the plain "
         f"version's multiplies {plain_bound_ms:.3f} ms; "
         f"{POSEIDON2_TIMED / (kernel_ms * 1e-3):.4g} hashes/s [{smi}]")
+    del x
+    # goldilocks t = 2 at the 2^28 tree's leaf layer
+    h = Poseidon2("goldilocks", 2)
+    x = field_elements(get_field("goldilocks"), (GL_POSEIDON2_TIMED, 2), gen, dev)
+    kernel_ms = cuda_ms(lambda: PK.poseidon2(h, x))
+    bound_ms, bound_by = poseidon2_bound(h, GL_POSEIDON2_TIMED, 2)
+    rows.append({"role": GL_POSEIDON2_ROLE, "field": "goldilocks", "t": 2, "n": 2,
+                 "batch": GL_POSEIDON2_TIMED, "domain_tag": None, "checked": False,
+                 "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_plain_monts_ms": poseidon2_bound(h, GL_POSEIDON2_TIMED, 2, plain=True)[0]})
+    log(f"  poseidon2 goldilocks t=2 ({GL_POSEIDON2_TIMED}, 2): kernel {kernel_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x; "
+        f"{GL_POSEIDON2_TIMED / (kernel_ms * 1e-3):.4g} hashes/s [{smi}]")
     del x
     torch.cuda.empty_cache()
     return rows
@@ -1468,6 +1539,370 @@ def sumcheck_main_path(dev, smi: str, launches: dict) -> dict:
     return out
 
 
+# -- the field layer: dif_rows_wide, the NTT over every field, polynomials -------
+
+GL_NTT_LOG = 24
+BN_NTT_LOG = 22
+GL_NTT_MAIN = f"ntt goldilocks 2^{GL_NTT_LOG} fwd+inv"
+BN_NTT_MAIN = f"ntt bn254_scalar 2^{BN_NTT_LOG} fwd+inv"
+GL_MERKLE_MAIN = f"merkle goldilocks poseidon2 t=2 2^{GL_MERKLE_LOG}"
+POLY_BN_LOG = 20      # coefficients of each factor: their product's NTTs are 2^21
+POLY_BB_LOG = 21      # babybear: 2^22 NTTs, dif_rows
+POLY_BN_MAIN = f"polynomial bn254_scalar 2^{POLY_BN_LOG} x 2^{POLY_BN_LOG}"
+POLY_BB_MAIN = f"polynomial babybear 2^{POLY_BB_LOG} x 2^{POLY_BB_LOG}"
+WIDE_SAMPLED_ROWS = 64  # rows of a full-length pass compared with the plain version
+EIGHT_LIMB_FIELDS = ("bn254_scalar", "bls12_381_scalar", "bls12_377_scalar",
+                     "grumpkin_scalar", "stark252")
+# (field, rows, log_n, forward, factor, role): the passes of the goldilocks
+# 2^24 and bn254_scalar 2^22 NTTs (pass A: columns in and out; pass B: rows
+# in, columns out, times the inter-pass twiddles); each is checked in all
+# four layouts at 64 sampled rows, with and without the factor, and timed
+WIDE_SHAPES = [
+    ("goldilocks", 4096, 12, True, "goldilocks 2^24 fwd pass A"),
+    ("goldilocks", 4096, 12, False, "goldilocks 2^24 inv pass B"),
+    ("bn254_scalar", 2048, 11, True, "bn254_scalar 2^22 fwd pass A"),
+    ("bn254_scalar", 2048, 11, False, "bn254_scalar 2^22 inv pass B"),
+]
+
+
+def element_bytes(f) -> int:
+    return 4 * max(1, f.nlimbs)
+
+
+def dif_rows_wide_bound(f, rows: int, log_n: int, factor: bool) -> tuple[float, str]:
+    """x and out (and the factor) once, the (log_n, N) stage table once;
+    log_n N / 2 butterfly multiplies a row (and N by the factor), each
+    `field_muls(f)` integer multiplies."""
+    n = 1 << log_n
+    eb = element_bytes(f)
+    nbytes = rows * n * eb * (3 if factor else 2) + log_n * n * eb
+    muls = rows * (log_n * n // 2 + (n if factor else 0)) * field_muls(f)
+    return bound(nbytes, muls)
+
+
+def wide_ntt_bound(f, logn: int) -> tuple[float, str]:
+    """One four-step NTT as its two passes: pass A without the factor, pass B
+    with it."""
+    log_n1 = logn // 2
+    a = dif_rows_wide_bound(f, 1 << (logn - log_n1), log_n1, False)
+    b = dif_rows_wide_bound(f, 1 << log_n1, logn - log_n1, True)
+    return a[0] + b[0], b[1]
+
+
+def _with_edges(f, x: torch.Tensor, dev) -> torch.Tensor:
+    """x with its first two elements (in memory order) 0 and p - 1."""
+    flat = x.view(-1, *f.limb_shape)
+    flat[0] = 0
+    flat[1] = f.from_ints([f.modulus - 1], dev)[0]
+    return x
+
+
+def check_wide_kernel(dev, gen, smi: str) -> list:
+    """dif_rows_wide against dif_rows_wide_ref on the card: WIDE_SHAPES in
+    all four layouts with and without the factor (64 sampled rows of the
+    full-length pass compared; rows are independent), then both passes of a
+    whole 2^16 NTT for every 8-limb field (grumpkin_scalar, which has no
+    root of unity, with a stage table built from random elements in place
+    of the powers of w: the kernel reads tw[s, k], the plain version the
+    bottom lanes' tw[s, k + m], equal only in a table of that structure). Each launch timed (median
+    CUDA-event ms), the plain version at the sampled rows in the layout the
+    four-step gives the pass."""
+    from icicle_tpu_torch import get_field
+    from icicle_tpu_torch.kernels import ntt_kernel as K
+    from icicle_tpu_torch.kernels import ntt_wide as NW
+
+    out = []
+
+    def compare(f, x, tw, factor, tin, tout, rows, role, sampled: bool, main_layout: bool,
+                log_n: int):
+        got = NW.dif_rows_wide(f, x, tw, factor, transpose_in=tin, transpose_out=tout)
+        torch.cuda.synchronize()
+        if sampled:
+            idx = torch.randperm(rows, generator=gen, device=dev)[:WIDE_SAMPLED_ROWS]
+            idx = torch.cat([idx, torch.tensor([0, 1, rows - 1], device=dev)]).unique()
+        else:
+            idx = torch.arange(rows, device=dev)
+        pick = (lambda t: t[:, idx].contiguous()) if tin else (lambda t: t[idx].contiguous())
+
+        def plain():
+            return NW.dif_rows_wide_ref(f, pick(x), tw, None if factor is None else pick(factor),
+                                        transpose_in=tin, transpose_out=tout)
+
+        want = plain()
+        seen = got[:, idx] if tout else got[idx]
+        err = int((seen.to(torch.int64) - want.to(torch.int64)).abs().max())
+        layout = layout_name(tin, tout)
+        if err != 0 or not torch.equal(seen, want):
+            raise AssertionError(f"dif_rows_wide != dif_rows_wide_ref at {role}, {layout}, "
+                                 f"factor {factor is not None}: max abs err {err}")
+        kernel_ms = cuda_ms(lambda: NW.dif_rows_wide(f, x, tw, factor, transpose_in=tin,
+                                                     transpose_out=tout))
+        plain_ms = cuda_ms(plain, reps=3) if main_layout else None
+        bound_ms, bound_by = dif_rows_wide_bound(f, rows, log_n, factor is not None)
+        out.append({"role": role, "field": f.name, "instance": NW.instance(f), "rows": rows,
+                    "N": 1 << log_n, "factor": factor is not None, "layout": layout,
+                    "main_path": main_layout, "plan": NW.wide_plan(rows, log_n, NW.instance(f)),
+                    "compared_rows": int(idx.numel()), "max_abs_diff": err,
+                    "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        plain_txt = "" if plain_ms is None else f", plain {plain_ms:.3f} ms ({idx.numel()} rows)"
+        log(f"  {role:32s} {layout:9s} factor {factor is not None!s:5s} ({rows}, {1 << log_n}) "
+            f"exact at {idx.numel()} rows; kernel {kernel_ms:.4f} ms{plain_txt}, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+
+    for fname, rows, log_n, forward, role in WIDE_SHAPES:
+        f = get_field(fname)
+        tw = K._stage_twiddles(f, log_n, forward, dev)
+        for tin, tout in LAYOUTS:
+            shape = (1 << log_n, rows) if tin else (rows, 1 << log_n)
+            x = _with_edges(f, field_elements(f, shape, gen, dev), dev)
+            for with_factor in (False, True):
+                factor = _with_edges(f, field_elements(f, shape, gen, dev), dev) \
+                    if with_factor else None
+                # the four-step's layouts: pass A columns in and out, pass B rows
+                # in, columns out, times the factor
+                main = (tin, tout, with_factor) == ((True, True, False) if "pass A" in role
+                                                    else (False, True, True))
+                compare(f, x, tw, factor, tin, tout, rows, role, True, main, log_n)
+                del factor
+            del x
+        torch.cuda.empty_cache()
+    for fname in EIGHT_LIMB_FIELDS:
+        f = get_field(fname)
+        for pass_b in (False, True):
+            if f.params.rou is None:  # a stage table over random "powers"
+                pw = field_elements(f, (128,), gen, dev)
+                lane = torch.arange(256, device=dev)
+                tw = torch.stack([pw[(lane & ((1 << (7 - s)) - 1)) << s] for s in range(8)])
+            else:
+                tw = K._stage_twiddles(f, 8, True, dev)
+            x = _with_edges(f, field_elements(f, (256, 256), gen, dev), dev)
+            factor = field_elements(f, (256, 256), gen, dev) if pass_b else None
+            compare(f, x, tw, factor, not pass_b, True, 256, f"{fname} 2^16 pass "
+                    f"{'B' if pass_b else 'A'}", False, fname == "bn254_scalar", 8)
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_ntt_paths(dev, gen, smi: str, launches: dict) -> list:
+    """The NTT over goldilocks and 8-limb fields through icicle_tpu_torch.ntt
+    on CUDA tensors: goldilocks 2^24 (forward, inverse, a coset forward),
+    bn254_scalar 2^22, stark252 and bls12_381_scalar 2^16; each NTT exactly
+    two dif_rows_wide launches (counted), the forward equal to `_ntt_torch`
+    on the card (goldilocks and bn254_scalar at full size, bn254_scalar also
+    at 2^18), the inverse giving the input back; host-clock ms (median of 3
+    after a warm-up) and butterflies/s; a profile of one forward goldilocks
+    2^24 and bn254_scalar 2^22 NTT, two dif_rows_wide launches and no other
+    device work."""
+    from icicle_tpu_torch import NTTConfig, NTTDir, get_field, ntt
+    from icicle_tpu_torch.ops import ntt as N
+
+    def expect(count: int) -> dict:
+        return dict(dict.fromkeys(kernel_counters(), 0), dif_rows_wide=count)
+
+    paths = []
+    for fname, logn, small_ref, coset, profiled in (
+            ("goldilocks", GL_NTT_LOG, None, 7, True), ("bn254_scalar", BN_NTT_LOG, 18, None, True),
+            ("stark252", 16, None, None, False), ("bls12_381_scalar", 16, None, None, False)):
+        f = get_field(fname)
+        n = 1 << logn
+        x = _with_edges(f, field_elements(f, (n,), gen, dev), dev)
+        label = f"ntt {fname} 2^{logn} fwd+inv"
+
+        def fwd_inv():
+            fwd = ntt(f, x, NTTDir.FORWARD)
+            return fwd, ntt(f, fwd, NTTDir.INVERSE)
+
+        y, z = counted(label, fwd_inv, launches)
+        if launches[label] != expect(4):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected 4 dif_rows_wide "
+                                 "for two NTTs and nothing else")
+        if y.shape != x.shape or y.dtype != torch.int32 or not torch.equal(z, x):
+            raise AssertionError(f"{label}: inverse(forward(x)) != x")
+        t0 = time.perf_counter()
+        if not torch.equal(y, N._ntt_torch(f, x, NTTDir.FORWARD, NTTConfig())):
+            raise AssertionError(f"{label}: forward != _ntt_torch at 2^{logn}")
+        plain_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        checked = [logn]
+        if small_ref is not None:
+            xs = x[:1 << small_ref].contiguous()
+            if not torch.equal(ntt(f, xs), N._ntt_torch(f, xs, NTTDir.FORWARD, NTTConfig())):
+                raise AssertionError(f"{fname}: forward != _ntt_torch at 2^{small_ref}")
+            checked.append(small_ref)
+        row = {"field": fname, "logn": logn, "checked_against_torch": checked,
+               "plain_check_s": plain_s}
+        if coset is not None:
+            cfg = NTTConfig(coset_gen=coset)
+            clabel = f"ntt {fname} 2^{logn} coset fwd"
+            yc = counted(clabel, lambda: ntt(f, x, NTTDir.FORWARD, cfg), launches)
+            if launches[clabel] != expect(2):
+                raise AssertionError(f"{clabel}: launched {launches[clabel]}, expected 2")
+            if not torch.equal(yc, N._ntt_torch(f, x, NTTDir.FORWARD, cfg)):
+                raise AssertionError(f"{clabel}: != _ntt_torch")
+            if not torch.equal(ntt(f, yc, NTTDir.INVERSE, cfg), x):
+                raise AssertionError(f"{clabel}: the inverse coset NTT does not give x back")
+            row["coset_gen"] = coset
+            del yc
+        fwd_ms, _ = host_ms(lambda: ntt(f, x, NTTDir.FORWARD), reps=3)
+        inv_ms, _ = host_ms(lambda: ntt(f, y, NTTDir.INVERSE), reps=3)
+        bfly = logn * (n >> 1)
+        bound_ms, bound_by = wide_ntt_bound(f, logn)
+        row.update(forward_ms=fwd_ms, inverse_ms=inv_ms,
+                   butterflies_per_s=bfly / (fwd_ms * 1e-3), bound_ms=bound_ms,
+                   bound_by=bound_by)
+        log(f"  {fname} NTT 2^{logn}: 2 dif_rows_wide launches per NTT, fwd == _ntt_torch at "
+            f"2^{checked} ({plain_s:.1f} s plain), inv round trip exact"
+            f"{', coset fwd too' if coset else ''}; forward {fwd_ms:.3f} ms "
+            f"({bfly / (fwd_ms * 1e-3):.4g} butterflies/s), inverse {inv_ms:.3f} ms; bound "
+            f"{bound_ms:.3f} ms ({bound_by}) [{smi}]")
+        if profiled:
+            _, prof = device_profile(f"{fname} 2^{logn} forward NTT",
+                                     lambda: ntt(f, x, NTTDir.FORWARD), smi)
+            if (prof["copies"] or prof["copy_calls"] or prof["launch_calls"] != 2
+                    or any("dif_rows_wide" not in k for k, _, _ in prof["kernels"])):
+                raise AssertionError(f"{fname} 2^{logn} NTT ran device work other than two "
+                                     f"dif_rows_wide launches: {prof}")
+            row["profile"] = prof
+        paths.append(row)
+        del x, y, z
+        torch.cuda.empty_cache()
+    return paths
+
+
+def gl_merkle_path(dev, gen, smi: str, launches: dict) -> dict:
+    """MerkleTree([Poseidon2(goldilocks, 2)] * 28, leaf_words=2) over 2^28
+    leaves made on the card (2 GiB, the 2^29 babybear tree's bytes): 28
+    poseidon2 launches and no other device kernel (counted and profiled);
+    leaves/s on the host clock, median of 3 after a warm-up; every layer at
+    4096 sampled parents against the plain version on the card; pruned and
+    full proofs verify, and fail with the leaf flipped."""
+    from icicle_tpu_torch import MerkleTree, Poseidon2, get_field
+    from icicle_tpu_torch.kernels.poseidon2_kernel import needed_monts
+    from icicle_tpu_torch.ops.merkle import MerkleProof
+
+    f = get_field("goldilocks")
+    n = 1 << GL_MERKLE_LOG
+    h = Poseidon2(f, 2)
+    tree = MerkleTree([h] * GL_MERKLE_LOG, leaf_words=2)
+    leaves = field_elements(f, (n,), gen, dev)
+    torch.cuda.synchronize()
+    expect = dict(dict.fromkeys(kernel_counters(), 0), poseidon2=GL_MERKLE_LOG)
+    root = counted(GL_MERKLE_MAIN, lambda: tree.build(leaves), launches)
+    if launches[GL_MERKLE_MAIN] != expect:
+        raise AssertionError(f"{GL_MERKLE_MAIN}: launched {launches[GL_MERKLE_MAIN]}, expected "
+                             f"{GL_MERKLE_LOG} poseidon2 and nothing else")
+    ms, last = host_ms(lambda: tree.build(leaves), reps=3)
+    if not np.array_equal(last, root):
+        raise AssertionError(f"{GL_MERKLE_MAIN}: timed root {last} != {root}")
+    nbytes = 8 * (n + 2 * (n - 2) + 1)  # leaves, internal layers out and in, root
+    bound_ms, bound_by = bound(nbytes, (n - 1) * needed_monts(h, 2) * GL64_MULS)
+    log(f"  {GL_MERKLE_MAIN}: {GL_MERKLE_LOG} poseidon2 launches and nothing else; build "
+        f"{ms:.3f} ms, {n / (ms * 1e-3):.4g} leaves/s; bound {bound_ms:.3f} ms ({bound_by}) "
+        f"[{smi}]")
+    _, prof = device_profile(f"2^{GL_MERKLE_LOG} goldilocks build", lambda: tree.build(leaves),
+                             smi)
+    if (any("poseidon2" not in k for k, _, _ in prof["kernels"])
+            or prof["launch_calls"] != GL_MERKLE_LOG):
+        raise AssertionError(f"the goldilocks 2^{GL_MERKLE_LOG} build ran device kernels other "
+                             f"than {GL_MERKLE_LOG} poseidon2 launches: {prof['launch_calls']} "
+                             f"launch calls, kept kernels {prof['kernels']}")
+    for i in range(1, GL_MERKLE_LOG + 1):
+        below, layer = tree.layers[i - 1], tree.layers[i]
+        m = layer.shape[0]
+        pick = torch.randint(0, m, (min(m, 4096),), generator=gen, device=dev)
+        want = h.hash_fields_ref(below.reshape(m, 2, 2)[pick])
+        if not torch.equal(layer[pick], want):
+            raise AssertionError(f"goldilocks 2^{GL_MERKLE_LOG} tree, layer {i}: sampled parents "
+                                 "!= hash_fields_ref of their children")
+    rng = np.random.default_rng(1)
+    proved = [0, n - 1] + [int(i) for i in rng.integers(0, n, size=8)]
+    for idx in proved:
+        for pruned in (True, False):
+            proof = tree.get_merkle_proof(leaves, idx, pruned=pruned)
+            bad = MerkleProof(proof.leaf ^ 1, idx, proof.root, proof.path, pruned)
+            if not tree.verify(proof) or tree.verify(bad):
+                raise AssertionError(f"goldilocks tree: the proof of leaf {idx} (pruned {pruned}) "
+                                     "does not verify, or verifies flipped")
+    log(f"  goldilocks 2^{GL_MERKLE_LOG} tree: every layer == hash_fields_ref at 4096 sampled "
+        f"parents; pruned and full proofs of leaves {proved} verify, and fail flipped")
+    del leaves
+    tree.layers = []
+    torch.cuda.empty_cache()
+    return {"leaves": n, "build_ms": ms, "leaves_per_s": n / (ms * 1e-3), "bound_ms": bound_ms,
+            "bound_by": bound_by, "root": [int(w) for w in root], "profile": prof,
+            "proved_leaves": proved, "card": smi}
+
+
+def _horner(coeffs, x: int, p: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + int(c)) % p
+    return acc
+
+
+def polynomial_paths(dev, gen, smi: str, launches: dict) -> dict:
+    """The polynomial API on CUDA tensors: a bn254_scalar Polynomial of 2^20
+    coefficients times another (three 2^21 NTTs: 6 dif_rows_wide launches),
+    checked at one random point on the host by Python-int Horner, a(r) b(r)
+    == (ab)(r); divide_by_vanishing(2^20) of q (x^(2^20) - 1), built by
+    shifting coefficients, gives q back; eval_on_rou_domain(21) of the
+    product equals the pointwise product of the factors' evaluations; then
+    a babybear multiply of 2^21 x 2^21 coefficients (2^22 NTTs: 6 dif_rows
+    launches), checked the same way. Host-clock ms (median of 3 after a
+    warm-up) and a profile of each multiply."""
+    from icicle_tpu_torch import Polynomial, get_field
+
+    out = {}
+    for fname, log_m, label, kernel in ((("bn254_scalar", POLY_BN_LOG, POLY_BN_MAIN,
+                                          "dif_rows_wide")),
+                                        ("babybear", POLY_BB_LOG, POLY_BB_MAIN, "dif_rows")):
+        f = get_field(fname)
+        p = f.modulus
+        m = 1 << log_m
+        a = Polynomial.from_coeffs(f, field_elements(f, (m,), gen, dev))
+        b = Polynomial.from_coeffs(f, field_elements(f, (m,), gen, dev))
+        ab = counted(label, lambda: a * b, launches)
+        want = dict(dict.fromkeys(kernel_counters(), 0), **{kernel: 6})
+        if launches[label] != want:
+            raise AssertionError(f"{label}: launched {launches[label]}, expected 6 {kernel}")
+        if ab.size != 2 * m - 1:
+            raise AssertionError(f"{label}: product size {ab.size}")
+        t0 = time.perf_counter()
+        r = int(np.random.default_rng(log_m).integers(1, 1 << 62)) % p
+        lhs = _horner(a.to_ints(), r, p) * _horner(b.to_ints(), r, p) % p
+        rhs = _horner(ab.to_ints(), r, p)
+        horner_s = time.perf_counter() - t0
+        if lhs != rhs:
+            raise AssertionError(f"{label}: a(r) b(r) != (ab)(r) at r = {r}")
+        ms, _ = host_ms(lambda: a * b, reps=3)
+        _, prof = device_profile(f"{label} multiply", lambda: a * b, smi)
+        if prof["launch_calls"] < 6:
+            raise AssertionError(f"{label}: the profile saw {prof['launch_calls']} launch calls")
+        row = {"coefficients": m, "product_size": ab.size, "multiply_ms": ms,
+               "horner_check_s": horner_s, "point": r, "profile": prof}
+        log(f"  {label}: {kernel} x 6, a(r) b(r) == (ab)(r) at a random r (Python-int Horner, "
+            f"{horner_s:.1f} s); multiply {ms:.3f} ms [{smi}]")
+        if fname == "bn254_scalar":
+            q = a.coeffs[:m]
+            shifted = Polynomial.from_coeffs(f, torch.cat([f.neg(q), q]))  # q x^m - q
+            if not torch.equal(shifted.divide_by_vanishing(m).copy_coeffs(), q):
+                raise AssertionError(f"{label}: divide_by_vanishing(2^{log_m}) of "
+                                     "q (x^N - 1) != q")
+            log_d = log_m + 1
+            ev = ab.eval_on_rou_domain(log_d)
+            if not torch.equal(ev, f.mul(a.eval_on_rou_domain(log_d),
+                                         b.eval_on_rou_domain(log_d))):
+                raise AssertionError(f"{label}: eval_on_rou_domain({log_d}) of ab != a's times b's")
+            row["checks"] = ["divide_by_vanishing", "eval_on_rou_domain"]
+            log(f"  {label}: divide_by_vanishing(2^{log_m}) of q (x^N - 1) == q; "
+                f"eval_on_rou_domain({log_d}) of ab == the factors' evaluations multiplied")
+        out[label] = row
+        del a, b, ab
+        torch.cuda.empty_cache()
+    return out
+
+
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
@@ -1637,6 +2072,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     dif_variants = time_dif_variants(f=get_field("babybear"), dev=dev, rand=rand, K=K, smi=smi)
     phase_done("kernels: dif_rows")
+    log("== kernels: dif_rows_wide against dif_rows_wide_ref on the card, both instances, "
+        "every layout")
+    wide_rows = check_wide_kernel(dev, gen, smi)
+    phase_done("kernels: dif_rows_wide")
     log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
     msm_rows = check_msm_kernels(dev, gen, smi)
     phase_done("kernels: B3-B7")
@@ -1722,11 +2161,20 @@ def main() -> None:
     log("== main path: the sumcheck prover (sumcheck_prove) on CUDA tensors")
     sumcheck = sumcheck_main_path(dev, smi, launches)
     phase_done("main path: sumcheck")
+    log("== main paths: the field layer -- the NTT over goldilocks and 8-limb fields, a "
+        "goldilocks Poseidon2 Merkle tree, polynomials -- on CUDA tensors")
+    wide_ntt = wide_ntt_paths(dev, gen, smi, launches)
+    phase_done("main path: ntt over limb fields")
+    gl_merkle = gl_merkle_path(dev, gen, smi, launches)
+    phase_done("main path: goldilocks merkle")
+    polys = polynomial_paths(dev, gen, smi, launches)
+    phase_done("main path: polynomials")
     log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 7. main paths line ---------------------------------------------------
     print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle, "fri": fri,
-                                     "sumcheck": sumcheck,
+                                     "sumcheck": sumcheck, "ntt_limb_fields": wide_ntt,
+                                     "merkle_goldilocks": gl_merkle, "polynomials": polys,
                                      "launches": launches, "phase_s": phase_s,
                                      "card": smi}}))
 
@@ -1803,7 +2251,10 @@ def main() -> None:
     # ms and bound_ms: one launch at the 2^29 tree's leaf layer; plain_ms: the
     # plain version at babybear t = 2, batch 2^16, where it was checked, beside
     # the kernel's ms there ("checked_ms")
-    p2_main, p2_checked = p2_rows[-1], p2_rows[0]
+    def p2_row(role: str) -> dict:
+        return next(r for r in p2_rows if r["role"] == role)
+
+    p2_main, p2_checked = p2_row("babybear t=2, the 2^29 tree's leaf layer"), p2_rows[0]
     entries.append({
         "name": "poseidon2", "route": "cuda",
         "source": "icicle_tpu_torch/kernels/csrc/poseidon2.cu",
@@ -1853,6 +2304,49 @@ def main() -> None:
                        "icicle_tpu/ops/program.py:149 Program.execute", SUMCHECK_MAIN,
                        lambda r: "kernel_ms" in r),
     ]
+    # dif_rows_wide, one entry an instance: ms, plain_ms and bound_ms the two
+    # launches of one forward NTT of the path (pass A columns in and out, pass
+    # B rows in, columns out, with the factor), the plain version at the
+    # sampled rows ("plain_rows" of each pass)
+    for inst, fname, headline, a_role, b_role in (
+            ("gl64", "goldilocks", GL_NTT_MAIN, "goldilocks 2^24 fwd pass A",
+             "goldilocks 2^24 inv pass B"),
+            ("fp8", "bn254_scalar", BN_NTT_MAIN, "bn254_scalar 2^22 fwd pass A",
+             "bn254_scalar 2^22 inv pass B")):
+        rows = [r for r in wide_rows if r["instance"] == inst]
+        pair = [next(r for r in rows if r["role"] == a_role and r["main_path"]
+                     and not r["factor"]),
+                next(r for r in rows if r["role"] == b_role and r["main_path"] and r["factor"])]
+        entries.append({
+            "name": f"dif_rows_wide ({inst})", "route": "cuda",
+            "source": "icicle_tpu_torch/kernels/csrc/ntt_wide.cu",
+            "replaces": "none (XLA): icicle_tpu/ops/ntt.py:223-329 _ntt_four_step / "
+                        "_ntt_vecfirst (the JAX NTT of a limb field)",
+            "launches": launches[headline]["dif_rows_wide"], "headline_path": headline,
+            # the wrapper's count: every path that launched either instance
+            "launches_per_path": {path: c["dif_rows_wide"] for path, c in launches.items()
+                                  if c["dif_rows_wide"]},
+            "max_abs_err": max(r["max_abs_diff"] for r in rows),
+            "ms": sum(r["kernel_ms"] for r in pair),
+            "plain_ms": sum(r["plain_ms"] for r in pair),
+            "plain_rows": [r["compared_rows"] for r in pair],
+            "bound_ms": sum(r["bound_ms"] for r in pair), "bound_by": pair[1]["bound_by"],
+            "library_ms": None,  # no PyTorch call computes a prime-field NTT butterfly pass
+            "shapes": rows, "card": smi})
+    gl_rows = [r for r in p2_rows if r["field"] == "goldilocks"]
+    gl_main, gl_checked = p2_row(GL_POSEIDON2_ROLE), p2_row("goldilocks t=2")
+    entries.append({
+        "name": "poseidon2 (gl64)", "route": "cuda",
+        "source": "icicle_tpu_torch/kernels/csrc/poseidon2_gl64.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/hash/poseidon2.py:211 permute_mont",
+        "launches": launches[GL_MERKLE_MAIN]["poseidon2"], "headline_path": GL_MERKLE_MAIN,
+        "max_abs_err": max(r["max_abs_diff"] for r in gl_rows if r["checked"]),
+        "ms": gl_main["kernel_ms"], "plain_ms": gl_checked["plain_ms"],
+        "bound_ms": gl_main["bound_ms"], "bound_by": gl_main["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a Poseidon2 permutation
+        "shape": [gl_main["batch"], gl_main["n"]],
+        "plain_shape": [gl_checked["batch"], gl_checked["n"]],
+        "checked_ms": gl_checked["kernel_ms"], "shapes": gl_rows, "card": smi})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

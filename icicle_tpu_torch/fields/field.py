@@ -2,14 +2,17 @@
 icicle_tpu/fields/field.py).
 
 The parameter table is the JAX package's (standard public constants, equal
-to the reference's config values). `Field` serves the single-limb fields
-(p < 2^31: babybear, koalabear, m31) over int32 tensors through
-:class:`icicle_tpu_torch.math.mont32.Mont32`, and the multi-limb fields
-(bn254, bls12, bw6, grumpkin, stark252) over `(..., L)` int32 limb tensors
-holding uint32 bit patterns through
-:class:`icicle_tpu_torch.math.bigint.BigField`. Goldilocks raises
-NotImplementedError until the slice that ports its engine (ROADMAP.md
-queue A item 5).
+to the reference's config values). `Field` serves every field of the
+table, with the engine chosen as the JAX package chooses it:
+
+  * single-word p < 2^31 (babybear, koalabear, m31) -> int32 tensors
+    through :class:`icicle_tpu_torch.math.mont32.Mont32`;
+  * goldilocks -> `(..., 2)` int32 word pairs [lo, hi] through
+    :class:`icicle_tpu_torch.math.gl64.Goldilocks`;
+  * multi-limb (bn254, bls12, bw6, grumpkin, stark252) -> `(..., L)` int32
+    limb tensors through :class:`icicle_tpu_torch.math.bigint.BigField`.
+
+Limbs and words hold uint32 bit patterns.
 """
 
 from __future__ import annotations
@@ -20,11 +23,10 @@ import numpy as np
 import torch
 
 from icicle_tpu_torch.math.bigint import BigField
+from icicle_tpu_torch.math.gl64 import GOLDILOCKS_P, Goldilocks
 from icicle_tpu_torch.math.params import FieldParams
 from icicle_tpu_torch.math.mont32 import Mont32
 from icicle_tpu_torch.runtime.device import resolve
-
-GOLDILOCKS_P = 0xFFFFFFFF00000001
 
 # ---------------------------------------------------------------------------
 # Field parameter table. rou generates the maximal power-of-two subgroup
@@ -82,17 +84,18 @@ _def("grumpkin_base", _BN254_R,
 
 class Field:
     """Named prime field with canonical-form elementwise ops on int32 tensors
-    (single-limb) or int32 limb tensors (multi-limb, trailing limb axis)."""
+    (single-limb) or int32 limb tensors (goldilocks and multi-limb, trailing
+    limb axis)."""
 
     def __init__(self, params: FieldParams):
-        if params.modulus == GOLDILOCKS_P:
-            raise NotImplementedError(
-                "goldilocks is not ported yet (ROADMAP.md queue A item 5)")
         self.params = params
         self.name = params.name
         self.modulus = params.modulus
         self.nlimbs = params.nlimbs
-        if params.bits <= 31:
+        if params.modulus == GOLDILOCKS_P:
+            self.engine = Goldilocks(params)
+            self.limb_shape = (2,)
+        elif params.bits <= 31:
             self.engine = Mont32(params)
             self.limb_shape = ()
         else:

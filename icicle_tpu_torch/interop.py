@@ -2,8 +2,9 @@
 
 The JAX package (icicle_tpu) keeps field elements as uint32 arrays; the port
 keeps them as int32 tensors holding the same bits: a single-limb element's
-canonical value (< 2^31, never negative), a multi-limb element's (..., L)
-little-endian uint32 limbs, where a limb >= 2^31 reads as negative in int32.
+canonical value (< 2^31, never negative), a goldilocks element's (..., 2)
+words [lo, hi] and a multi-limb element's (..., L) little-endian uint32
+limbs, where a word >= 2^31 reads as negative in int32.
 `.view(np.int32)` and back is exact both ways. These functions take numpy
 arrays and give numpy arrays or the port's objects: the port imports nothing of JAX, and a caller that holds
 a jax.Array passes `np.asarray(array)`.
@@ -20,6 +21,7 @@ from icicle_tpu_torch.ops.merkle import MerkleTree
 from icicle_tpu_torch.ops.msm import signed_table
 from icicle_tpu_torch.ops.msm_tpu3 import ENGINES
 from icicle_tpu_torch.ops.ntt import NttDomain
+from icicle_tpu_torch.polynomials.polynomial import Polynomial
 from icicle_tpu_torch.runtime.device import resolve
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
@@ -39,8 +41,9 @@ def _below_modulus(f: Field, a: np.ndarray) -> bool:
 
 
 def elements_from_numpy(f: Field, arr_u32, device=None) -> torch.Tensor:
-    """uint32 element array (canonical, < p; multi-limb fields (..., L)
-    limbs) -> int32 element tensor with the same bits."""
+    """uint32 element array (canonical, < p; goldilocks (..., 2) words,
+    multi-limb fields (..., L) limbs) -> int32 element tensor with the same
+    bits."""
     a = np.asarray(arr_u32)
     if a.dtype != np.uint32:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
@@ -88,11 +91,20 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
 def domain_from_numpy(f: Field, logn: int, twiddles_u32, twiddles_inv_u32,
                       device=None) -> NttDomain:
     """The JAX package's NttDomain tables (w^0..w^(n/2-1) in Montgomery form,
-    forward and inverse) -> the port's NttDomain on `device`."""
+    forward and inverse; plain values for goldilocks, which has no
+    Montgomery form, in both packages) -> the port's NttDomain on
+    `device`."""
     w = f.omega(logn)
     return NttDomain(f, logn, w, pow(w, -1, f.modulus),
                      elements_from_numpy(f, twiddles_u32, device),
                      elements_from_numpy(f, twiddles_inv_u32, device))
+
+
+def polynomial_from_numpy(f: Field, coeffs_u32, size: int, device=None) -> Polynomial:
+    """A JAX `Polynomial`'s state -> the port's Polynomial on `device`:
+    `coeffs_u32` its `coeffs` ((cap,)+limbs uint32, canonical, padding
+    included) and `size` its `size`."""
+    return Polynomial(f, elements_from_numpy(f, coeffs_u32, device), int(size))
 
 
 def merkle_tree_from_numpy(layer_hashes, leaf_words: int, layers,

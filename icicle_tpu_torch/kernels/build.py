@@ -28,10 +28,11 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # library name -> its sources in CSRC (headers: every *.cuh in CSRC); one
 # source per library, so that every source compiles in its own nvcc
-LIBRARIES = {"ntt": ["ntt_dif.cu"], "msm_scan": ["msm_scan.cu"],
+LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "msm_scan_r12": ["msm_scan_r12.cu"],
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
              "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"],
+             "poseidon2_gl64": ["poseidon2_gl64.cu"],
              "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
              "program": ["program.cu"]}
 

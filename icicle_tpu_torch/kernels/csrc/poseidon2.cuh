@@ -1,6 +1,7 @@
 // Batched Poseidon2 hash on NVIDIA Hopper (sm_90a), one thread per hash:
-// the code shared by the single-word instances (poseidon2.cu) and the
-// 8-limb ones (poseidon2_limbs.cu), two libraries that build in parallel.
+// the code shared by the single-word instances (poseidon2.cu), the 8-limb
+// ones (poseidon2_limbs.cu) and the goldilocks ones (poseidon2_gl64.cu),
+// three libraries that build in parallel.
 // Bound to Python with ctypes (icicle_tpu_torch/kernels/poseidon2_kernel.py:
 // poseidon2).
 //
@@ -37,7 +38,8 @@
 //
 // Rounds fixed at compile time. Every instance (field, t) carries its
 // half_full, partial and alpha as constants (the tables POSEIDON2_WORDS in
-// poseidon2.cu and POSEIDON2_LIMBS in poseidon2_limbs.cu; the C entries
+// poseidon2.cu, POSEIDON2_LIMBS in poseidon2_limbs.cu and POSEIDON2_GL64
+// in poseidon2_gl64.cu; the C entries
 // refuse a call whose counts differ). Single-word instances
 // keep the state in registers and, for one permutation, unroll every round:
 // each round constant is then a compile-time offset into the instance's
@@ -72,6 +74,15 @@
 //   values or for a product of two values above p, and every multiply here
 //   squares a fresh sum or takes a canonical constant.
 // 8-limb fields (bn254_scalar, grumpkin_scalar, bls12_377_scalar,
+// Goldilocks (poseidon2_gl64.cu, t = 2, 3, 4, 8, 12): gl64.cuh's add and
+// multiply on one uint64 a lane; the field has no Montgomery form, so the
+// conversions in and out are none and the constants are plain values. Its
+// M_ext and, at t = 2 and 3, its M_int have the structure above; at
+// t >= 4 M_int's diagonal is general, t multiplies a partial round. State in
+// registers, every round of one permutation unrolled, as the single-word
+// instances; the constants come from the global arrays, as the 8-limb
+// ones'.
+// 8-limb fields (bn254_scalar, grumpkin_scalar, bls12_377_scalar,
 // bls12_381_scalar, stark252): ec_field.cuh's CIOS mont_mul<8> and
 // add_mod<8> with R = 2^256; mont_mul's one final subtraction needs its
 // result t < 2p < 2^256, which holds since each of these moduli is below
@@ -91,6 +102,7 @@
 #include <cuda_runtime.h>
 
 #include "ec_field.cuh"
+#include "gl64.cuh"
 
 namespace icicle_p2 {
 
@@ -186,6 +198,28 @@ struct Limbs8 {
   static __device__ __forceinline__ void store(uint32_t* dst, size_t i, const E& a) {
 #pragma unroll
     for (int j = 0; j < L; ++j) dst[i * L + j] = a.v[j];
+  }
+};
+
+// Goldilocks (gl64.cuh): one uint64 a lane, no Montgomery form, nothing at
+// run time.
+struct Gl64 {
+  static constexpr bool kRegisters = true;
+  static constexpr int kWords = 2;
+  using E = uint64_t;
+  struct C {};
+  static __device__ __forceinline__ E add(E a, E b, const C&) { return icicle_gl::add(a, b); }
+  static __device__ __forceinline__ E dbl(E a, const C&) { return icicle_gl::add(a, a); }
+  static __device__ __forceinline__ E mul(E a, E b, const C&) { return icicle_gl::mul(a, b); }
+  static __device__ __forceinline__ E to_mont(E a, const C&) { return a; }
+  static __device__ __forceinline__ E from_mont(E a, const C&) { return a; }
+  static __device__ __forceinline__ E zero() { return 0; }
+  static __device__ __forceinline__ E one_mont(const C&) { return 1; }
+  static __device__ __forceinline__ E load(const uint32_t* src, size_t i) {
+    return __ldg(reinterpret_cast<const unsigned long long*>(src) + i);
+  }
+  static __device__ __forceinline__ void store(uint32_t* dst, size_t i, E a) {
+    reinterpret_cast<uint64_t*>(dst)[i] = a;
   }
 };
 

@@ -1,6 +1,7 @@
 """Batched Poseidon2 over a hand-written CUDA kernel
 (kernels/csrc/poseidon2.cuh; its single-word instances in poseidon2.cu,
-its 8-limb ones in poseidon2_limbs.cu, two libraries).
+its 8-limb ones in poseidon2_limbs.cu, its goldilocks ones in
+poseidon2_gl64.cu, three libraries).
 
 `poseidon2(h, x)` computes `h.hash_fields(x)` for a `Poseidon2` h: one
 digest per row of x, the permutation or the sponge as the row length
@@ -12,11 +13,13 @@ The kernel keeps each row's state in one thread's registers from the
 inputs to the digest. Its plain version is `Poseidon2.hash_fields_ref`.
 
 Instantiated for the single-word fields babybear, koalabear and m31 at
-every width their constants have, t in {2, 3, 4, 8, 12, 16, 20, 24}, and
-for 8-limb fields below 2^255 (bn254_scalar, grumpkin_scalar,
-bls12_377_scalar, bls12_381_scalar, stark252) at t in {2, 3, 4, 8}, over
-ec_field.cuh's Montgomery arithmetic. Other fields (bw6_761_scalar, 12
-limbs) raise on a CUDA tensor.
+every width their constants have, t in {2, 3, 4, 8, 12, 16, 20, 24}; for
+goldilocks at t in {2, 3, 4, 8, 12}, over gl64.cuh's arithmetic (no
+Montgomery form); and for 8-limb fields below 2^255 (bn254_scalar,
+grumpkin_scalar, bls12_377_scalar, bls12_381_scalar, stark252) at t in
+{2, 3, 4, 8}, over ec_field.cuh's Montgomery arithmetic. Other fields and
+widths (bw6_761_scalar, 12 limbs; goldilocks at t = 16, 20, 24) raise on a
+CUDA tensor.
 
 The kernel applies the linear layers as add chains over their small
 integer entries (`ext_chain`, `int_chain`; `ext_layer` and `int_layer` run
@@ -26,7 +29,7 @@ a launch, `check_linear_layers` holds the field's constants to exactly the
 structure the kernel implements, and raises API_NOT_IMPLEMENTED otherwise:
 no path takes a general multiply in their place. `mont_mul_model` is the
 single-word Montgomery multiply's instruction sequence on Python ints, and
-`needed_monts` counts the Montgomery multiplies a hash needs, the
+`needed_monts` counts the (Montgomery) multiplies a hash needs, the
 kernel's bound.
 """
 
@@ -40,11 +43,12 @@ import torch
 
 from icicle_tpu_torch.fields.field import field_params
 from icicle_tpu_torch.kernels import build
+from icicle_tpu_torch.math.gl64 import GOLDILOCKS_P
 from icicle_tpu_torch.math.params import limbs_of
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
-# limbs -> the widths t the kernel is instantiated for
-KERNEL_WIDTHS = {1: (2, 3, 4, 8, 12, 16, 20, 24), 8: (2, 3, 4, 8)}
+# limbs -> the widths t the kernel is instantiated for (2: goldilocks)
+KERNEL_WIDTHS = {1: (2, 3, 4, 8, 12, 16, 20, 24), 2: (2, 3, 4, 8, 12), 8: (2, 3, 4, 8)}
 WORD_FIELDS = ("babybear", "koalabear", "m31")  # the single-word instances' moduli
 MAX_BITS_8 = 255  # mont_mul<8>'s one final subtraction needs 2p < 2^256
 M4 = ((5, 7, 1, 3), (4, 6, 1, 1), (1, 3, 5, 7), (1, 1, 4, 6))  # the reference's 4x4 block
@@ -191,7 +195,9 @@ def needed_monts(h, n: int) -> int:
     """Montgomery multiplies one hash of n inputs needs (the bound's count):
     the S-boxes, the multiplies by constants of M_ext and M_int that are not
     small integers, and one conversion a word into and one out of
-    Montgomery form. babybear t = 2, n = 2: 12 * 2 * 4 + 24 * 4 + 3 = 195."""
+    Montgomery form, where the field has one (goldilocks has none; its
+    multiplies are plain). babybear t = 2, n = 2: 12 * 2 * 4 + 24 * 4 + 3 =
+    195."""
     t, sbox = h.t, SBOX_MONTS[h.alpha]
     mds, diag, p = field_linear_layers(h.field.name, t)
     ext = sum(not _small(v, p) for row in mds for v in row)
@@ -200,16 +206,19 @@ def needed_monts(h, n: int) -> int:
             + h.partial_rounds * int_)
     tagged = h.domain_tag is not None
     perms = 1 if n == t - tagged else max(1, -(-(n - 1 + tagged) // (t - 1)))
-    return perms * perm + n + 1
+    return perms * perm + (0 if p == GOLDILOCKS_P else n + 1)
 
 
 # -- the launch -----------------------------------------------------------------------
 
+LIBRARY = {1: "poseidon2", 2: "poseidon2_gl64", 8: "poseidon2_limbs"}  # by limbs
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(nlimbs: int):
-    """(hash entry, error text) of the library for single-word (1) or 8-limb
-    (8) fields; the single-word one also has the constant upload."""
-    lib = build.load("poseidon2" if nlimbs == 1 else "poseidon2_limbs")
+    """(hash entry, library) for single-word (1), goldilocks (2) or 8-limb
+    (8) fields; the single-word library also has the constant upload."""
+    lib = build.load(LIBRARY[nlimbs])
     if nlimbs == 1:
         fn = lib.icicle_poseidon2_hash
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5
@@ -217,6 +226,10 @@ def _kernel(nlimbs: int):
         lib.icicle_poseidon2_upload.argtypes = ([ctypes.c_uint32] + [ctypes.c_int] * 4
                                                 + [ctypes.c_void_p] * 2)
         lib.icicle_poseidon2_upload.restype = ctypes.c_int
+    elif nlimbs == 2:
+        fn = lib.icicle_poseidon2_gl64_hash
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
     else:
         fn = lib.icicle_poseidon2_limbs_hash
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
@@ -280,8 +293,13 @@ def supported_on_cuda(h) -> bool:
     """Whether the kernel is instantiated for h's field and width."""
     f = h.field
     nl = f.nlimbs
-    return (h.t in KERNEL_WIDTHS.get(nl, ())
-            and (f.name in WORD_FIELDS if nl == 1 else f.modulus.bit_length() <= MAX_BITS_8))
+    if nl == 1:
+        fits = f.name in WORD_FIELDS
+    elif nl == 2:
+        fits = f.modulus == GOLDILOCKS_P
+    else:
+        fits = f.modulus.bit_length() <= MAX_BITS_8
+    return fits and h.t in KERNEL_WIDTHS.get(nl, ())
 
 
 def poseidon2(h, x: torch.Tensor) -> torch.Tensor:
@@ -301,9 +319,10 @@ def poseidon2(h, x: torch.Tensor) -> torch.Tensor:
         raise IcicleException(
             IcicleError.API_NOT_IMPLEMENTED,
             f"poseidon2: no CUDA kernel for {f.name} ({f.nlimbs} limbs) at t={h.t}: the "
-            f"kernel is built for {', '.join(WORD_FIELDS)} and 8-limb fields below "
-            f"2^{MAX_BITS_8}; other limb counts wait for the limb-count template of "
-            "ROADMAP.md queue A item 6")
+            f"kernel is built for {', '.join(WORD_FIELDS)} (t in {KERNEL_WIDTHS[1]}), "
+            f"goldilocks (t in {KERNEL_WIDTHS[2]}) and 8-limb fields below 2^{MAX_BITS_8} "
+            f"(t in {KERNEL_WIDTHS[8]}); other limb counts wait for the limb-count template "
+            "of ROADMAP.md queue A item 6")
     _checked_structure(f.name, h.t)
     batch, n = x.shape[:2]
     out = torch.empty((batch,) + f.limb_shape, dtype=torch.int32, device=x.device)
@@ -313,13 +332,17 @@ def poseidon2(h, x: torch.Tensor) -> torch.Tensor:
     tag = h.constants("cpu").tag
     tag_arr = None if tag is None else _host_words(tag)   # held through the call
     tag_words = None if tag_arr is None else tag_arr.ctypes.data
-    consts = ctypes.addressof(field_consts(f.name))
+    consts = None if f.nlimbs == 2 else ctypes.addressof(field_consts(f.name))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if f.nlimbs == 1:
             _uploaded(f.name, h.t, x.device.index)
             err = fn(x.data_ptr(), out.data_ptr(), tag_words, batch, n, h.t, h.half_full,
                      h.partial_rounds, h.alpha, consts, stream)
+        elif f.nlimbs == 2:
+            c = h.constants(x.device)
+            err = fn(x.data_ptr(), out.data_ptr(), c.rc.data_ptr(), c.diag_m1.data_ptr(),
+                     tag_words, batch, n, h.t, h.half_full, h.partial_rounds, h.alpha, stream)
         else:
             c = h.constants(x.device)
             err = fn(x.data_ptr(), out.data_ptr(), c.rc.data_ptr(), c.diag_m1.data_ptr(),

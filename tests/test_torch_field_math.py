@@ -48,12 +48,6 @@ def test_field_names_match():
     assert tfield.field_names() == jfield.field_names()
 
 
-@pytest.mark.parametrize("name", ["goldilocks"])
-def test_unported_fields_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfield.Field(tfield.field_params(name))
-
-
 @pytest.mark.parametrize("op", BINARY_OPS)
 @pytest.mark.parametrize("name", MONT32_FIELDS)
 def test_binary_op(name, op):

@@ -220,8 +220,54 @@ def test_kernel_field_constants_layout():
     assert sum(v << (32 * i) for i, v in enumerate(c[18:])) == (1 << 512) % bn.modulus
 
 
-def test_goldilocks_waits_for_its_engine():
-    with pytest.raises(NotImplementedError, match="goldilocks"):
-        Poseidon2("goldilocks", 4)
+def test_unsupported_width_raises():
     with pytest.raises(ValueError, match="unsupported poseidon2 width"):
         Poseidon2("babybear", 5)
+
+
+GOLDILOCKS_WIDTHS = [2, 3, 4, 8, 12]
+
+
+@pytest.mark.parametrize("t", GOLDILOCKS_WIDTHS)
+def test_goldilocks_matches_jax(t):
+    """Goldilocks at every width the kernel is built for: the constants
+    (plain values: the field has no Montgomery form), one permutation, the
+    sponge and a domain tag, against the JAX package's hasher."""
+    jh = _jax_hasher("goldilocks", t)
+    c = Poseidon2("goldilocks", t).constants("cpu")
+    for name in ("rc_full_top", "rc_partial", "rc_full_bot", "mds", "diag_m1"):
+        assert np.array_equal(_u32(getattr(c, name)), np.asarray(getattr(jh, name))), name
+    for n, seed in ((t, 800 + t), (2 * t + 1, 810 + t)):
+        x = _elements("goldilocks", (3, n), seed=seed)
+        got = Poseidon2("goldilocks", t).hash_fields(_t(x))
+        assert got.shape == (3, 2)
+        assert np.array_equal(_u32(got), np.asarray(jh.hash_fields(x))), n
+    x = _elements("goldilocks", (2, t - 1), seed=820 + t)
+    got = Poseidon2("goldilocks", t, domain_tag=77).hash_fields(_t(x))
+    want = np.asarray(_jax_hasher("goldilocks", t, 77).hash_fields(x))
+    assert np.array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("t", [4, 12])
+def test_goldilocks_against_python_poseidon2(t):
+    """No golden goldilocks vector is in the store (tests/golden/); the JAX
+    tests' Python-int Poseidon2 (tests/test_poseidon2.py py_poseidon2), a
+    third implementation, stands in for one, with 0 and p - 1 among the
+    inputs."""
+    from tests.test_poseidon2 import py_poseidon2
+    jf = jax_field("goldilocks")
+    rng = np.random.default_rng(830 + t)
+    ins = [[int.from_bytes(rng.bytes(16), "little") % jf.modulus for _ in range(t)]
+           for _ in range(3)]
+    ins[0], ins[1] = [0] * t, [jf.modulus - 1] * t
+    got = get_field("goldilocks").to_ints(
+        Poseidon2("goldilocks", t).hash_fields(get_field("goldilocks").from_ints(ins, "cpu")))
+    assert list(got) == [py_poseidon2(jf, t, row) for row in ins]
+
+
+def test_goldilocks_kernel_instantiations():
+    for t in GOLDILOCKS_WIDTHS:
+        assert PK.supported_on_cuda(Poseidon2("goldilocks", t)), t
+    for t in (16, 20, 24):                    # constants exist, no instance
+        assert not PK.supported_on_cuda(Poseidon2("goldilocks", t)), t
+    assert PK.LIBRARY[2] == "poseidon2_gl64"

@@ -28,10 +28,11 @@ torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(TP.__file__), "data")
 FILES = sorted(f[len("poseidon2_"):-len(".npz")] for f in os.listdir(DATA))
-ENGINES = [f for f in FILES if f != "goldilocks"]  # goldilocks has no port engine yet
+ENGINES = FILES  # every constant file's field has a port engine
 WORD_MODULI = {"babybear": 0x78000001, "koalabear": 0x7F000001, "m31": 0x7FFFFFFF}
 SOURCES = [os.path.join(os.path.dirname(PK.__file__), "csrc", f)
            for f in ("poseidon2.cu", "poseidon2_limbs.cu")]
+GL64_SOURCE = os.path.join(os.path.dirname(PK.__file__), "csrc", "poseidon2_gl64.cu")
 
 
 def _widths(fname):
@@ -195,6 +196,29 @@ def test_kernel_instances_match_the_constant_files():
             h = Poseidon2(fname, t)
             assert PK.supported_on_cuda(h)
             assert (t, h.half_full, h.partial_rounds, h.alpha) in limbs, (fname, t)
+
+
+def test_goldilocks_instances_match_the_constant_file():
+    """poseidon2_gl64.cu's table: one instance a width the wrapper sends to
+    the kernel, with the file's round counts and alpha."""
+    table = re.findall(r"X\(goldilocks, (\d+), (\d+), (\d+), (\d+)\)", open(GL64_SOURCE).read())
+    rows = [tuple(map(int, row)) for row in table]
+    assert [t for t, *_ in rows] == list(PK.KERNEL_WIDTHS[2])
+    for t, half, partial, alpha in rows:
+        h = Poseidon2("goldilocks", t)
+        assert PK.supported_on_cuda(h)
+        assert (half, partial, alpha) == (h.half_full, h.partial_rounds, h.alpha), t
+        PK.check_linear_layers(t, *PK.field_linear_layers("goldilocks", t))
+
+
+def test_needed_multiplies_goldilocks():
+    """Goldilocks has no Montgomery form: no conversions in or out. t = 2
+    (alpha 7: 4 multiplies an S-box): 8 full rounds of 2 S-boxes and 27
+    partial rounds of one, the linear layers adds; t = 4 adds 21 partial
+    rounds of 4 multiplies by d - 1."""
+    assert PK.needed_monts(Poseidon2("goldilocks", 2), 2) == (8 * 2 + 27) * 4 == 172
+    assert PK.needed_monts(Poseidon2("goldilocks", 4), 4) == (8 * 4 + 21) * 4 + 21 * 4
+    assert PK.needed_monts(Poseidon2("goldilocks", 3), 5) == 2 * (8 * 3 + 23) * 4
 
 
 SASS = """
