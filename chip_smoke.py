@@ -114,9 +114,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                factors' evaluations multiplied; and a babybear multiply of
                2^21 x 2^21 (2^22 NTTs, 6 dif_rows launches), checked the
                same way;
-  10. the main paths' JSON line (per-path launches, times, profiles,
+  10. hashes -- P1: MerkleTree([Poseidon(bls12_381_scalar, 9,
+               domain_tag=0)] * 8, leaf_words=8) over 2^24 leaves of 32
+               bytes (the arity-8 tree Filecoin builds over a 512 MiB
+               sector): 8 poseidon launches (counted, profiled), the build
+               and its leaf layer timed, every layer at 4096 sampled parents
+               against the plain version, proofs verify and fail flipped;
+               the same tree shape over babybear; P2: binary Blake2s and
+               Blake3 trees over 2^26 leaves of 32 bytes, 26 launches each,
+               checked and timed the same way; P3: Blake3 over 2^14
+               messages of 8 KiB, a chunk pass and 3 parent levels (4
+               blake3 launches), equal to blake3_ref; P4: phase 7's FRI
+               path over Blake3 round trees (22 fri_fold, 275 blake3
+               launches; the replayed folds and round 0's root against
+               blake3_ref's), at 2^10 byte-identical to the plain
+               versions' proof;
+  11. the main paths' JSON line (per-path launches, times, profiles,
      seconds a phase);
-  11. the kernels JSON line; 12. the result JSON line, last.
+  12. the kernels JSON line; 13. the result JSON line, last.
 
 Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks and
 8-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in both
@@ -141,10 +156,24 @@ inverse, zero inputs, with and without the fold; a program whose outputs
 are not the tail parameters), both also checked and timed at the 2^24
 prove's shapes (rounds 0 and 1, and the claimed sum's program).
 
+Phase 3 also holds the hash kernels to their plain versions, bit for bit:
+poseidon (kernels/csrc/poseidon.cu, poseidon_limbs.cu) at every
+single-word instance and every 8-limb one (POSEIDON_CHECKS), with and
+without a domain tag and at a ragged batch, rows of 0 and p - 1 among the
+inputs, and timed alone at babybear t = 9 with a tag over 2^24 hashes;
+blake2s (blake2s.cu) at 0, 1, 8, 16, 17 and 40 words and 13 and 130 bytes,
+also against hashlib; blake3 (blake3.cu) at 0, 4, 64, 65, 1024, 1025,
+3072, 4096 and 5120 bytes (5120: five chunks, an odd chaining value carried
+up a level). A Poseidon hash counts poseidon_kernel.needed_monts Montgomery
+multiplies; a BLAKE compression its integer instructions, the non-adds on
+the ALU pipe (64 lanes a clock an SM) and all of them through the
+schedulers (128), its adds free to issue on the FMA pipe as IMAD.IADD.
+
 Launch counts: every kernel's count is set to 0 just before each checked
 main-path call (one NTT forward + inverse, one MSM, one Merkle build, one
 FRI prove, one claimed sum and sumcheck prove; one limb-field NTT forward +
-inverse or coset forward, one goldilocks build, one polynomial product) and
+inverse or coset forward, one goldilocks build, one polynomial product; one
+oct-tree, Blake tree, long-message Blake3 hash or Blake3 FRI prove) and
 read just after it; timing and profiling calls are not counted. A profile
 counts its kernels from the host's launch calls, which it always records;
 the device activities it keeps give the breakdown by kernel and can miss
@@ -217,6 +246,10 @@ REPS = 10
 PROFILE_PAD_S = 1.0  # idle seconds before and after a profiled call, doubled a retry
 PROFILE_TRIES = 3
 PROFILE_KEPT = 0.99  # share of the launch calls a profile must keep, else retried
+# the CUDA activity alone: it brings the device activities and the host's
+# CUDA runtime calls that start them; the CPU activity's operator events add
+# nothing a profile reads and cost its parsing about 0.4 ms a launch
+PROFILE_ACTIVITIES = (torch.profiler.ProfilerActivity.CUDA,)
 GL64_MULS = 8     # a goldilocks multiply: four 32x32 products, low and high words
 MADD_MONTS = 11   # RCB15 Alg 8, not counting its two multiplies by b3
 PADD_MONTS = 12   # RCB15 Alg 7, likewise
@@ -380,9 +413,12 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.kernels import ntt_wide as NW
+    from icicle_tpu_torch.kernels import blake2s_kernel as B2
+    from icicle_tpu_torch.kernels import blake3_kernel as B3
     from icicle_tpu_torch.kernels import fri_kernel as FK
     from icicle_tpu_torch.kernels import keccak_kernel as KK
     from icicle_tpu_torch.kernels import poseidon2_kernel as PK
+    from icicle_tpu_torch.kernels import poseidon_kernel as PSK
     from icicle_tpu_torch.kernels import program_kernel as PGK
     from icicle_tpu_torch.kernels import sumcheck_kernel as SK
     return {"dif_rows": K.dif_rows, "dif_rows_wide": NW.dif_rows_wide,
@@ -390,7 +426,8 @@ def kernel_counters() -> dict:
             "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
             "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2, "keccak": KK.keccak,
             "fri_fold": FK.fri_fold, "sumcheck_round": SK.sumcheck_round,
-            "program": PGK.execute_program_kernel}
+            "program": PGK.execute_program_kernel, "poseidon": PSK.poseidon,
+            "blake2s": B2.blake2s, "blake3": B3.blake3}
 
 
 def counted(path: str, fn, launches: dict):
@@ -996,9 +1033,10 @@ def check_poseidon2_kernel(dev, gen, smi: str) -> list:
 def device_profile(label: str, fn, smi: str):
     """fn() under torch.profiler: (its result, {wall_ms, busy_ms, launch_calls,
     copy_calls, kernels: [(name, count, ms)], copies: [(name, count, ms)],
-    complete, tries}); copies are memcpy and memset activities, kernels every
-    other device activity, launch_calls and copy_calls the host's calls that
-    start them.
+    complete, tries, profile_s}); copies are memcpy and memset activities,
+    kernels every other device activity, launch_calls and copy_calls the
+    host's calls that start them; profile_s the seconds the profile took in
+    all, pads and parsing included.
 
     The host's calls are always in the profile, its device activities not:
     on the H100 machines the profiler drops the first kernels of a profiled
@@ -1009,10 +1047,10 @@ def device_profile(label: str, fn, smi: str):
     with a longer idle pad before and after the call, up to PROFILE_TRIES
     times; `complete` says whether the last one kept them all, and busy_ms is
     its kept time."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t_start = time.perf_counter()
     for tries in range(1, PROFILE_TRIES + 1):
         pad_s = PROFILE_PAD_S * 2 ** (tries - 1)
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(activities=list(PROFILE_ACTIVITIES)) as prof:
             time.sleep(pad_s)
             t0 = time.perf_counter()
             out = fn()
@@ -1039,15 +1077,17 @@ def device_profile(label: str, fn, smi: str):
         if kept >= PROFILE_KEPT * launch_calls and kept_copies >= PROFILE_KEPT * copy_calls:
             break
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    profile_s = time.perf_counter() - t_start
     log(f"  profile, one {label}: wall {wall_ms:.1f} ms (profiled), {launch_calls} launch "
         f"calls, {copy_calls} copy calls; device busy {busy_ms:.3f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}{'' if complete else ' (of the kept activities only)'} "
-        f"[{smi}]")
+        f"{1 - busy_ms / wall_ms:.3f}{'' if complete else ' (of the kept activities only)'}; "
+        f"profiled in {profile_s:.1f} s [{smi}]")
     for kind in ("kernels", "copies"):
         for key, count, ms in split[kind]:
             log(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}")
     return out, dict(wall_ms=wall_ms, busy_ms=busy_ms, launch_calls=launch_calls,
-                     copy_calls=copy_calls, complete=complete, tries=tries, **split)
+                     copy_calls=copy_calls, complete=complete, tries=tries,
+                     profile_s=profile_s, **split)
 
 
 def merkle_main_path(dev, gen, smi: str, launches: dict) -> dict:
@@ -1382,10 +1422,15 @@ def check_protocol_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
     return rows
 
 
-def fri_main_path(dev, smi: str, launches: dict) -> dict:
+def fri_main_path(dev, smi: str, launches: dict, h=None, label: str = FRI_MAIN,
+                  kname: str = "keccak", small_log: int = FRI_SMALL_LOG) -> dict:
     """The FRI prover on the card: 2^22 babybear evaluations (a degree < 2^20
     polynomial at blow-up 4, the port's forward NTT), the reference's
-    defaults, Keccak-256 layers (capi_shim._fri_setup)."""
+    defaults, round trees of h (default Keccak-256, capi_shim._fri_setup),
+    whose kernel is kname: launches counted, the proof verified and a
+    flipped leaf refused, every round's fold and round 0's root replayed
+    against the plain versions, the prove timed and profiled, and at
+    2^small_log the proof byte-identical to the plain path's."""
     from icicle_tpu_torch import (FriConfig, FriTranscriptConfig, Keccak256, MerkleTreeConfig,
                                   fri_prove, fri_verify, get_field, ntt)
     from icicle_tpu_torch.kernels import fri_kernel as FK
@@ -1393,7 +1438,7 @@ def fri_main_path(dev, smi: str, launches: dict) -> dict:
     from icicle_tpu_torch.ops.ntt import ntt_init_domain
 
     f = get_field("babybear")
-    h = Keccak256()
+    h = h or Keccak256()
     cfg, tcfg = FriConfig(), FriTranscriptConfig()
 
     def evals_of(log_n: int) -> torch.Tensor:
@@ -1405,19 +1450,17 @@ def fri_main_path(dev, smi: str, launches: dict) -> dict:
 
     evals = evals_of(FRI_LOG)
     torch.cuda.synchronize()
-    phases = {}
-    proof = counted(FRI_MAIN, lambda: fri_prove(f, evals, cfg, tcfg, h, h, timings=phases),
-                    launches)
+    proof = counted(label, lambda: fri_prove(f, evals, cfg, tcfg, h, h), launches)
     want = dict(dict.fromkeys(kernel_counters(), 0), fri_fold=FRI_LOG,
-                keccak=sum(FRI_LOG + 1 - r for r in range(FRI_LOG)))
-    if launches[FRI_MAIN] != want:
-        raise AssertionError(f"{FRI_MAIN}: launched {launches[FRI_MAIN]}, expected {want}")
+                **{kname: sum(FRI_LOG + 1 - r for r in range(FRI_LOG))})
+    if launches[label] != want:
+        raise AssertionError(f"{label}: launched {launches[label]}, expected {want}")
     if not fri_verify(f, proof, cfg, tcfg, h, h):
-        raise AssertionError(f"{FRI_MAIN}: the proof does not verify")
+        raise AssertionError(f"{label}: the proof does not verify")
     bad = F.FriProof.deserialize(f, proof.serialize(f))
     bad.query_proofs[0][0][0].leaf[0] ^= 1
     if fri_verify(f, bad, cfg, tcfg, h, h):
-        raise AssertionError(f"{FRI_MAIN}: a proof with a leaf word flipped verifies")
+        raise AssertionError(f"{label}: a proof with a leaf word flipped verifies")
     size = len(proof.serialize(f))
 
     # each round's fold against the plain version on the card, replaying the
@@ -1429,14 +1472,14 @@ def fri_main_path(dev, smi: str, launches: dict) -> dict:
     for r in range(FRI_LOG):
         alpha = tr.get_alpha(proof.round_root(r).astype("<u4").tobytes(), r == 0)
         nxt = FK.fri_fold(f, cur, alpha, tw, 1 << r)
-        _exact(f"{FRI_MAIN} round {r} fold", nxt, FK.fri_fold_ref(f, cur, alpha, tw, 1 << r))
+        _exact(f"{label} round {r} fold", nxt, FK.fri_fold_ref(f, cur, alpha, tw, 1 << r))
         cur = nxt
     if [int(v) for v in f.to_ints(cur)] != proof.final_poly:
-        raise AssertionError(f"{FRI_MAIN}: the replayed folds end away from the final polynomial")
+        raise AssertionError(f"{label}: the replayed folds end away from the final polynomial")
     plain_tree = F._make_round_trees(h, h, 1, FRI_LOG)[0]
     plain_root = plain_tree.build(evals.reshape(-1, 1), MerkleTreeConfig(backend="torch"))
     if not np.array_equal(plain_root, proof.round_root(0)):
-        raise AssertionError(f"{FRI_MAIN}: round 0's root != the keccak_ref tree's root")
+        raise AssertionError(f"{label}: round 0's root != the {kname}_ref tree's root")
     del plain_tree, cur, nxt
     torch.cuda.empty_cache()
 
@@ -1450,24 +1493,23 @@ def fri_main_path(dev, smi: str, launches: dict) -> dict:
         if i:
             runs.append(t)
         if again.serialize(f) != proof.serialize(f):
-            raise AssertionError(f"{FRI_MAIN}: a timed proof differs from the checked one")
+            raise AssertionError(f"{label}: a timed proof differs from the checked one")
     med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    log(f"  {FRI_MAIN}: {want['fri_fold']} fri_fold and {want['keccak']} keccak launches in the "
+    log(f"  {label}: {want['fri_fold']} fri_fold and {want[kname]} {kname} launches in the "
         f"commit phase and nothing else of ours; verifies, "
         f"refuses a flipped leaf; every round's fold == fri_fold_ref, round 0's root == "
-        f"keccak_ref's; proof {size} bytes; prove {med['total_ms']:.2f} ms (commit "
+        f"{kname}_ref's; proof {size} bytes; prove {med['total_ms']:.2f} ms (commit "
         f"{med['commit_ms']:.2f}, pow {med['pow_ms']:.2f}, queries {med['query_ms']:.2f}) "
         f"[{smi}]")
-    _, prof = device_profile(f"2^{FRI_LOG} FRI prove", lambda: fri_prove(f, evals, cfg, tcfg,
-                                                                        h, h), smi)
+    _, prof = device_profile(label, lambda: fri_prove(f, evals, cfg, tcfg, h, h), smi)
 
-    small = evals_of(FRI_SMALL_LOG)
+    small = evals_of(small_log)
     t0 = time.perf_counter()
     kernel_proof = fri_prove(f, small, cfg, tcfg, h, h)
     plain_proof = fri_prove(f, small, FriConfig(backend="torch"), tcfg, h, h)
     if kernel_proof.serialize(f) != plain_proof.serialize(f):
-        raise AssertionError(f"fri 2^{FRI_SMALL_LOG}: the proof != the plain path's")
-    log(f"  fri 2^{FRI_SMALL_LOG}: proof byte-identical to the plain versions' "
+        raise AssertionError(f"{label} at 2^{small_log}: the proof != the plain path's")
+    log(f"  {label} at 2^{small_log}: proof byte-identical to the plain versions' "
         f"({len(plain_proof.serialize(f))} bytes, {time.perf_counter() - t0:.1f} s)")
     del evals, small
     torch.cuda.empty_cache()
@@ -1589,11 +1631,12 @@ def wide_ntt_bound(f, logn: int) -> tuple[float, str]:
     return a[0] + b[0], b[1]
 
 
-def _with_edges(f, x: torch.Tensor, dev) -> torch.Tensor:
-    """x with its first two elements (in memory order) 0 and p - 1."""
+def _with_edges(f, x: torch.Tensor, dev, count: int = 1) -> torch.Tensor:
+    """x with its first `count` elements (in memory order) 0 and the next
+    `count` p - 1."""
     flat = x.view(-1, *f.limb_shape)
-    flat[0] = 0
-    flat[1] = f.from_ints([f.modulus - 1], dev)[0]
+    flat[:count] = 0
+    flat[count:2 * count] = f.from_ints([f.modulus - 1], dev)[0]
     return x
 
 
@@ -1776,10 +1819,9 @@ def gl_merkle_path(dev, gen, smi: str, launches: dict) -> dict:
     poseidon2 launches and no other device kernel (counted and profiled);
     leaves/s on the host clock, median of 3 after a warm-up; every layer at
     4096 sampled parents against the plain version on the card; pruned and
-    full proofs verify, and fail with the leaf flipped."""
+    full proofs verify, and fail with the leaf flipped (_tree_path)."""
     from icicle_tpu_torch import MerkleTree, Poseidon2, get_field
     from icicle_tpu_torch.kernels.poseidon2_kernel import needed_monts
-    from icicle_tpu_torch.ops.merkle import MerkleProof
 
     f = get_field("goldilocks")
     n = 1 << GL_MERKLE_LOG
@@ -1787,51 +1829,14 @@ def gl_merkle_path(dev, gen, smi: str, launches: dict) -> dict:
     tree = MerkleTree([h] * GL_MERKLE_LOG, leaf_words=2)
     leaves = field_elements(f, (n,), gen, dev)
     torch.cuda.synchronize()
-    expect = dict(dict.fromkeys(kernel_counters(), 0), poseidon2=GL_MERKLE_LOG)
-    root = counted(GL_MERKLE_MAIN, lambda: tree.build(leaves), launches)
-    if launches[GL_MERKLE_MAIN] != expect:
-        raise AssertionError(f"{GL_MERKLE_MAIN}: launched {launches[GL_MERKLE_MAIN]}, expected "
-                             f"{GL_MERKLE_LOG} poseidon2 and nothing else")
-    ms, last = host_ms(lambda: tree.build(leaves), reps=3)
-    if not np.array_equal(last, root):
-        raise AssertionError(f"{GL_MERKLE_MAIN}: timed root {last} != {root}")
     nbytes = 8 * (n + 2 * (n - 2) + 1)  # leaves, internal layers out and in, root
     bound_ms, bound_by = bound(nbytes, (n - 1) * needed_monts(h, 2) * GL64_MULS)
-    log(f"  {GL_MERKLE_MAIN}: {GL_MERKLE_LOG} poseidon2 launches and nothing else; build "
-        f"{ms:.3f} ms, {n / (ms * 1e-3):.4g} leaves/s; bound {bound_ms:.3f} ms ({bound_by}) "
-        f"[{smi}]")
-    _, prof = device_profile(f"2^{GL_MERKLE_LOG} goldilocks build", lambda: tree.build(leaves),
-                             smi)
-    if (any("poseidon2" not in k for k, _, _ in prof["kernels"])
-            or prof["launch_calls"] != GL_MERKLE_LOG):
-        raise AssertionError(f"the goldilocks 2^{GL_MERKLE_LOG} build ran device kernels other "
-                             f"than {GL_MERKLE_LOG} poseidon2 launches: {prof['launch_calls']} "
-                             f"launch calls, kept kernels {prof['kernels']}")
-    for i in range(1, GL_MERKLE_LOG + 1):
-        below, layer = tree.layers[i - 1], tree.layers[i]
-        m = layer.shape[0]
-        pick = torch.randint(0, m, (min(m, 4096),), generator=gen, device=dev)
-        want = h.hash_fields_ref(below.reshape(m, 2, 2)[pick])
-        if not torch.equal(layer[pick], want):
-            raise AssertionError(f"goldilocks 2^{GL_MERKLE_LOG} tree, layer {i}: sampled parents "
-                                 "!= hash_fields_ref of their children")
-    rng = np.random.default_rng(1)
-    proved = [0, n - 1] + [int(i) for i in rng.integers(0, n, size=8)]
-    for idx in proved:
-        for pruned in (True, False):
-            proof = tree.get_merkle_proof(leaves, idx, pruned=pruned)
-            bad = MerkleProof(proof.leaf ^ 1, idx, proof.root, proof.path, pruned)
-            if not tree.verify(proof) or tree.verify(bad):
-                raise AssertionError(f"goldilocks tree: the proof of leaf {idx} (pruned {pruned}) "
-                                     "does not verify, or verifies flipped")
-    log(f"  goldilocks 2^{GL_MERKLE_LOG} tree: every layer == hash_fields_ref at 4096 sampled "
-        f"parents; pruned and full proofs of leaves {proved} verify, and fail flipped")
+    out = _tree_path(GL_MERKLE_MAIN, tree, leaves, "poseidon2", launches, smi, gen, dev,
+                     lambda rows: h.hash_fields_ref(rows.reshape(-1, 2, 2)), bound_ms, bound_by)
     del leaves
     tree.layers = []
     torch.cuda.empty_cache()
-    return {"leaves": n, "build_ms": ms, "leaves_per_s": n / (ms * 1e-3), "bound_ms": bound_ms,
-            "bound_by": bound_by, "root": [int(w) for w in root], "profile": prof,
-            "proved_leaves": proved, "card": smi}
+    return out
 
 
 def _horner(coeffs, x: int, p: int) -> int:
@@ -1900,6 +1905,314 @@ def polynomial_paths(dev, gen, smi: str, launches: dict) -> dict:
         out[label] = row
         del a, b, ab
         torch.cuda.empty_cache()
+    return out
+
+
+# -- the other hashes: poseidon, blake2s, blake3; their trees; FRI over Blake3 ---------
+
+POSEIDON_WORD_FIELDS = ("babybear", "koalabear", "m31")
+POSEIDON_LIMB_FIELDS = ("bn254_scalar", "grumpkin_scalar", "bls12_377_scalar",
+                        "bls12_381_scalar", "stark252")
+POSEIDON_CHECK_BATCH = {1: 1 << 12, 8: 1 << 8}  # by limbs
+POSEIDON_RAGGED = 37                            # rows past a multiple of the block
+# (field, t, domain tag, ragged rows): every single-word instance with and
+# without a tag; every 8-limb instance (each width and partial-round count)
+# on bn254_scalar and bls12_381_scalar with and without a tag, the other
+# three fields' constants at t = 3 and 12 (the 8-limb plain version takes
+# about a second a call on the card); a ragged batch for each kind
+POSEIDON_CHECKS = (
+    [(f, t, tag, 0) for f in POSEIDON_WORD_FIELDS for t in (3, 5, 9, 12) for tag in (None, 0)]
+    + [(f, 5, None, POSEIDON_RAGGED) for f in POSEIDON_WORD_FIELDS]
+    + [(f, t, tag, 0) for f in ("bn254_scalar", "bls12_381_scalar") for t in (3, 5, 9, 12)
+       for tag in (None, 0)]
+    + [(f, t, tag, 0) for f in ("grumpkin_scalar", "bls12_377_scalar", "stark252")
+       for t, tag in ((3, None), (3, 0), (12, None))]
+    + [(f, 5, None, POSEIDON_RAGGED) for f in ("bn254_scalar", "bls12_381_scalar")])
+POSEIDON_TIMED = 1 << 24                        # babybear t = 9 with a tag, timed alone
+P1_LOG = 24          # leaves of the oct-trees: 2^24 of 32 bytes, a 512 MiB sector
+P1_DEPTH = P1_LOG // 3
+P1_MAIN = f"merkle bls12_381_scalar poseidon t=9 oct-tree 2^{P1_LOG}"
+P1_WORD = f"merkle babybear poseidon t=9 oct-tree 2^{P1_LOG}"
+P2_LOG = 26          # leaves of the binary Blake trees: 2^26 of 32 bytes, 2 GiB
+P2_MAIN = {"blake2s": f"merkle blake2s 2^{P2_LOG}", "blake3": f"merkle blake3 2^{P2_LOG}"}
+P3_LOG, P3_BYTES = 14, 8192  # Blake3 over 2^14 messages of 8 KiB
+P3_MAIN = f"blake3 2^{P3_LOG} x {P3_BYTES} bytes"
+P4_MAIN = f"fri babybear 2^{FRI_LOG} over blake3"
+P4_SMALL_LOG = 10
+BLAKE2S_WORDS = (16, 0, 1, 8, 17, 40)   # hash_words row widths checked; the first timed plain
+BLAKE2S_BYTES = (13, 130)               # and byte lengths off a word
+BLAKE3_BYTES = (64, 0, 4, 65, 1024, 1025, 3072, 4096, 5120)
+BLAKE_CHECK_BATCH = 1 << 12
+BLAKE_SASS = (("blake2s", "blake2s_kernelILb1E"), ("blake3", "blake3_chunksILb1E"),
+              ("blake3", "blake3_parents"), ("poseidon", "babybear_t9E"),
+              ("poseidon_limbs", "LimbsILi9ELi4ELi57E"))
+
+
+def poseidon_bound(h, batch: int) -> tuple[float, str]:
+    """Rows in and digests out once and the constant table once, against the
+    multiplies a hash needs (poseidon_kernel.needed_monts) at 3 (one word)
+    or 4 L^2 + L (L limbs) integer multiplies a Montgomery multiply."""
+    from icicle_tpu_torch.kernels.poseidon_kernel import needed_monts
+    nl = h.field.nlimbs
+    table = h.constants("cpu").table.shape[0]
+    return bound((batch * (h.arity + 1) + table) * nl * 4,
+                 batch * needed_monts(h) * field_muls(h.field))
+
+
+def blake_bound(module, compressions: int, nbytes: int, clock_mhz: float) -> tuple[float, str]:
+    """The bytes moved against the integer instructions: a compression's
+    non-add instructions on the ALU pipe (64 lanes a clock an SM), all of
+    them through the four schedulers (128 lanes a clock an SM); its adds may
+    issue on the FMA pipe (IMAD.IADD). module: blake2s_kernel or
+    blake3_kernel (COMPRESS_OPS, COMPRESS_ADDS)."""
+    alu = compressions * (module.COMPRESS_OPS - module.COMPRESS_ADDS) / alu_ops_per_s(clock_mhz)
+    issue = compressions * module.COMPRESS_OPS / (2 * alu_ops_per_s(clock_mhz))
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return (byte_s * 1e3, "bytes") if byte_s >= max(alu, issue) else \
+        (max(alu, issue) * 1e3, "operations")
+
+
+def check_hash_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
+    """poseidon, blake2s and blake3 against their plain versions on the card,
+    bit for bit: Poseidon at POSEIDON_CHECKS, 0 and p - 1 among the inputs;
+    Blake2s at
+    BLAKE2S_WORDS words and BLAKE2S_BYTES bytes, Blake3 at BLAKE3_BYTES
+    bytes. Each timed (median CUDA-event ms), the plain version at the
+    first shape of each kind; then poseidon alone at babybear t = 9 with a
+    tag, POSEIDON_TIMED hashes."""
+    import hashlib
+
+    from icicle_tpu_torch import Poseidon, get_field
+    from icicle_tpu_torch.kernels import blake2s_kernel as B2
+    from icicle_tpu_torch.kernels import blake3_kernel as B3
+    from icicle_tpu_torch.kernels import poseidon_kernel as PK
+
+    rows = {"poseidon": [], "blake2s": [], "blake3": []}
+    for fname, t, tag, ragged in POSEIDON_CHECKS:
+        f = get_field(fname)
+        h = Poseidon(f, t, domain_tag=tag)
+        batch = POSEIDON_CHECK_BATCH[f.nlimbs] + ragged
+        # the first row all 0, the second all p - 1
+        x = _with_edges(f, field_elements(f, (batch, h.arity), gen, dev), dev, count=h.arity)
+        role = f"{fname} t={t}{' tag' if tag is not None else ''}" + \
+            (f" ragged {batch}" if ragged else "")
+        err = _exact(f"poseidon {role}", PK.poseidon(h, x), h.hash_fields_ref(x))
+        row = {"role": role, "field": fname, "t": t, "domain_tag": tag, "batch": batch,
+               "checked": True, "edge_rows": True, "max_abs_diff": err,
+               "kernel_ms": cuda_ms(lambda: PK.poseidon(h, x))}
+        row["bound_ms"], row["bound_by"] = poseidon_bound(h, batch)
+        if (fname, t, tag) in (("babybear", 9, 0), ("bls12_381_scalar", 9, 0)):
+            row["plain_ms"] = cuda_ms(lambda: h.hash_fields_ref(x), reps=3)
+        rows["poseidon"].append(row)
+        log(f"  poseidon {role:32s} ({batch}, {h.arity}) exact, edge rows too; kernel "
+            f"{row['kernel_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del x
+    for r in rows["poseidon"]:
+        if "plain_ms" in r:
+            log(f"  poseidon {r['role']} ({r['batch']}): kernel {r['kernel_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    h = Poseidon("babybear", 9, domain_tag=0)
+    x = field_elements(get_field("babybear"), (POSEIDON_TIMED, 8), gen, dev)
+    kernel_ms = cuda_ms(lambda: PK.poseidon(h, x))
+    bound_ms, bound_by = poseidon_bound(h, POSEIDON_TIMED)
+    rows["poseidon"].append({"role": f"babybear t=9 tag, {POSEIDON_TIMED} hashes", "t": 9,
+                             "field": "babybear", "domain_tag": 0, "batch": POSEIDON_TIMED,
+                             "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by})
+    log(f"  poseidon babybear t=9 tag ({POSEIDON_TIMED}, 8): kernel {kernel_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.2f}x; "
+        f"{POSEIDON_TIMED / (kernel_ms * 1e-3):.4g} hashes/s [{smi}]")
+    del x
+
+    def rand_words(batch: int, w: int) -> torch.Tensor:
+        return torch.randint(-2 ** 31, 2 ** 31, (batch, w), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    checks = ([(B2, w, 4 * w) for w in BLAKE2S_WORDS] + [(B2, -(-n // 4), n) for n in BLAKE2S_BYTES]
+              + [(B3, -(-n // 4), n) for n in BLAKE3_BYTES])
+    for mod, w, nbytes in checks:
+        name = mod.LIBRARY
+        kernel, ref = getattr(mod, name), getattr(mod, f"{name}_ref")
+        x = rand_words(BLAKE_CHECK_BATCH, w)
+        if nbytes % 4:     # the zero tail of a message that ends inside a word
+            x[:, -1] &= (1 << (8 * (nbytes % 4))) - 1
+        got = kernel(x, nbytes)
+        err = _exact(f"{name} {nbytes} bytes", got, ref(x, nbytes))
+        if name == "blake2s":
+            for i in (0, BLAKE_CHECK_BATCH - 1):
+                msg = x[i].cpu().numpy().view(np.uint32).astype("<u4").tobytes()[:nbytes]
+                if got[i].cpu().numpy().view(np.uint32).astype("<u4").tobytes() != \
+                        hashlib.blake2s(msg).digest():
+                    raise AssertionError(f"blake2s {nbytes} bytes: row {i} != hashlib")
+        comps = B3.compressions(nbytes) if mod is B3 else B2.nof_blocks(nbytes)
+        row = {"role": f"{nbytes} bytes ({w} words)", "batch": BLAKE_CHECK_BATCH, "in_words": w,
+               "nbytes": nbytes, "checked": True, "max_abs_diff": err,
+               "kernel_ms": cuda_ms(lambda: kernel(x, nbytes))}
+        row["bound_ms"], row["bound_by"] = blake_bound(mod, BLAKE_CHECK_BATCH * comps,
+                                                       BLAKE_CHECK_BATCH * (w + 8) * 4, clock_mhz)
+        if not rows[name]:
+            row["plain_ms"] = cuda_ms(lambda: ref(x, nbytes), reps=3)
+        rows[name].append(row)
+        del x, got
+    for name, also in (("blake2s", " and hashlib"), ("blake3", "")):
+        log(f"  {name}: " + ", ".join(str(r["nbytes"]) for r in rows[name]) + f" bytes x "
+            f"{BLAKE_CHECK_BATCH} rows == {name}_ref on the card{also}; kernel "
+            + ", ".join(f"{r['kernel_ms']:.4f}" for r in rows[name]) + " ms; plain "
+            f"{rows[name][0]['plain_ms']:.2f} ms at {rows[name][0]['nbytes']} bytes")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tree_path(label: str, tree, leaves, kname: str, launches: dict, smi: str, gen, dev,
+               h_ref, bound_ms: float, bound_by: str, profile: bool = True) -> dict:
+    """One counted build (`depth` launches of kname and nothing else), the
+    build timed on the host clock (median of 3 after a warm-up), a profile
+    that ran kname only (with `profile`); every layer at 4096 sampled
+    parents against h_ref (the plain version: a (rows, in_words) -> (rows,
+    digest) function) of their children on the card; proofs of the first,
+    the last and 8 random leaves verify, and fail flipped."""
+    from icicle_tpu_torch.ops.merkle import MerkleProof
+    depth = len(tree.hashers)
+    n = leaves.shape[0]
+    root = counted(label, lambda: tree.build(leaves), launches)
+    if launches[label] != dict(dict.fromkeys(kernel_counters(), 0), **{kname: depth}):
+        raise AssertionError(f"{label}: launched {launches[label]}, expected {depth} {kname} and "
+                             "nothing else")
+    ms, last = host_ms(lambda: tree.build(leaves), reps=3)
+    if not np.array_equal(last, root):
+        raise AssertionError(f"{label}: timed root {last} != {root}")
+    prof = None
+    if profile:
+        _, prof = device_profile(label, lambda: tree.build(leaves), smi)
+        if prof["launch_calls"] != depth or any(kname not in k for k, _, _ in prof["kernels"]):
+            raise AssertionError(f"{label}: ran device kernels other than {depth} {kname} "
+                                 f"launches: {prof['launch_calls']} launch calls, kept "
+                                 f"{prof['kernels']}")
+    for i in range(1, depth + 1):
+        below, layer = tree.layers[i - 1], tree.layers[i]
+        m = layer.shape[0]
+        pick = torch.randint(0, m, (min(m, 4096),), generator=gen, device=dev)
+        if not torch.equal(layer[pick], h_ref(below.reshape(m, -1)[pick])):
+            raise AssertionError(f"{label}, layer {i}: sampled parents != the plain version")
+    rng = np.random.default_rng(1)
+    proved = [0, n - 1] + [int(i) for i in rng.integers(0, n, size=8)]
+    for idx in proved:
+        for pruned in (True, False):
+            proof = tree.get_merkle_proof(leaves, idx, pruned=pruned)
+            bad = MerkleProof(proof.leaf ^ 1, idx, proof.root, proof.path, pruned)
+            if not tree.verify(proof) or tree.verify(bad):
+                raise AssertionError(f"{label}: the proof of leaf {idx} (pruned {pruned}) does "
+                                     "not verify, or verifies flipped")
+    log(f"  {label}: {depth} {kname} launches and nothing else; build {ms:.3f} ms, "
+        f"{n / (ms * 1e-3):.4g} leaves/s, bound {bound_ms:.3f} ms ({bound_by}); every layer == "
+        f"the plain version at 4096 sampled parents; proofs of {proved} verify, fail flipped "
+        f"[{smi}]")
+    return {"leaves": n, "layers": depth, "build_ms": ms, "leaves_per_s": n / (ms * 1e-3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "root": [int(w) for w in root],
+            "profile": prof, "proved_leaves": proved, "card": smi}
+
+
+def hash_paths(dev, gen, smi: str, launches: dict, clock_mhz: float) -> dict:
+    """P1: Poseidon oct-trees (t = 9 with a tag: 8 children a hash) over 2^24
+    leaves, bls12_381_scalar (Filecoin's tree over a 512 MiB sector) and
+    babybear; P2: binary Blake2s and Blake3 trees over 2^26 leaves of 32
+    bytes; P3: Blake3 over 2^14 messages of 8 KiB; P4: fri_prove at
+    babybear 2^22 over Blake3 round trees. Each counted, timed and checked
+    against the plain versions on the card."""
+    from icicle_tpu_torch import Blake2s, Blake3, MerkleTree, Poseidon, get_field
+    from icicle_tpu_torch.kernels import blake2s_kernel as B2
+    from icicle_tpu_torch.kernels import blake3_kernel as B3
+    from icicle_tpu_torch.kernels import poseidon_kernel as PK
+    from icicle_tpu_torch.kernels import protocol_lib as L
+
+    out = {}
+    # P1: the oct-trees
+    n = 1 << P1_LOG
+    hashes = sum(n >> (3 * k) for k in range(1, P1_DEPTH + 1))
+    for label, fname in ((P1_MAIN, "bls12_381_scalar"), (P1_WORD, "babybear")):
+        f = get_field(fname)
+        h = Poseidon(f, 9, domain_tag=0)
+        lw = h.digest_words
+        leaves = field_elements(f, (n,), gen, dev).reshape(n, lw)
+        tree = MerkleTree([h] * P1_DEPTH, leaf_words=lw)
+        torch.cuda.synchronize()
+        bound_ms, bound_by = bound((n + 2 * hashes - 1) * lw * 4,
+                                   hashes * PK.needed_monts(h) * field_muls(f))
+        out[label] = _tree_path(label, tree, leaves, "poseidon", launches, smi, gen, dev,
+                                lambda rows, h=h, lim=f.limb_shape: h.hash_fields_ref(
+                                    rows.reshape((rows.shape[0], 8) + lim)).reshape(
+                                        rows.shape[0], -1),
+                                bound_ms, bound_by, profile=label == P1_MAIN)
+        rows = tree.layers[0].reshape((n // 8, 8) + f.limb_shape)
+        leaf_ms = cuda_ms(lambda: PK.poseidon(h, rows), reps=3)
+        lb = poseidon_bound(h, n // 8)
+        out[label]["leaf_layer"] = {"batch": n // 8, "kernel_ms": leaf_ms, "bound_ms": lb[0],
+                                    "bound_by": lb[1]}
+        log(f"  {label} leaf layer ({n // 8} hashes): kernel {leaf_ms:.3f} ms, bound "
+            f"{lb[0]:.3f} ms ({lb[1]}), {leaf_ms / lb[0]:.2f}x [{smi}]")
+        del leaves, rows
+        tree.layers = []
+        torch.cuda.empty_cache()
+
+    # P2: binary Blake trees over the same 2^26 leaves
+    n = 1 << P2_LOG
+    leaves = torch.randint(-2 ** 31, 2 ** 31, (n, 8), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for name, cls, mod in (("blake2s", Blake2s, B2), ("blake3", Blake3, B3)):
+        h = cls().with_input_words(16)
+        tree = MerkleTree([h] * P2_LOG, leaf_words=8)
+        torch.cuda.synchronize()
+        ref = getattr(mod, f"{name}_ref")
+        bound_ms, bound_by = blake_bound(mod, n - 1, (n * 8 + 2 * (n - 2) * 8 + 8) * 4,
+                                         clock_mhz)
+        label = P2_MAIN[name]
+        out[label] = _tree_path(label, tree, leaves, name, launches, smi, gen, dev,
+                                lambda rows, ref=ref: ref(rows, 64), bound_ms, bound_by)
+        pairs = leaves.view(n // 2, 16)
+        kernel = getattr(mod, name)
+        leaf_ms = cuda_ms(lambda: kernel(pairs, 64))
+        lb = blake_bound(mod, n // 2, (n // 2) * 24 * 4, clock_mhz)
+        out[label]["leaf_layer"] = {"batch": n // 2, "kernel_ms": leaf_ms, "bound_ms": lb[0],
+                                    "bound_by": lb[1]}
+        log(f"  {label} leaf layer ({n // 2} compressions): kernel {leaf_ms:.3f} ms, bound "
+            f"{lb[0]:.3f} ms ({lb[1]}), {leaf_ms / lb[0]:.2f}x [{smi}]")
+        tree.layers = []
+        del pairs
+        torch.cuda.empty_cache()
+    del leaves
+    torch.cuda.empty_cache()
+
+    # P3: Blake3 over multi-chunk messages
+    batch, w = 1 << P3_LOG, P3_BYTES // 4
+    x = torch.randint(-2 ** 31, 2 ** 31, (batch, w), generator=gen, device=dev,
+                      dtype=torch.int32)
+    levels = B3.parent_levels(P3_BYTES)
+    h = Blake3()
+    got = counted(P3_MAIN, lambda: h.hash_words(x), launches)
+    if launches[P3_MAIN] != dict(dict.fromkeys(kernel_counters(), 0), blake3=1 + levels):
+        raise AssertionError(f"{P3_MAIN}: launched {launches[P3_MAIN]}, expected {1 + levels}")
+    _exact(P3_MAIN, got, B3.blake3_ref(x, P3_BYTES))
+    ms = cuda_ms(lambda: h.hash_words(x))
+    # the chunk pass alone: its C entry into a scratch array, uncounted
+    chunk_fn, _ = L.entry(B3.LIBRARY, "icicle_blake3_chunks", B3._CHUNK_ARGS)
+    cvs = torch.empty((batch, B3.nof_chunks(P3_BYTES), 8), dtype=torch.int32, device=dev)
+    chunk_ms = cuda_ms(lambda: chunk_fn(x.data_ptr(), cvs.data_ptr(), batch, w, P3_BYTES, 1,
+                                        L.stream()))
+    comps = batch * B3.compressions(P3_BYTES)
+    bound_ms, bound_by = blake_bound(B3, comps, batch * (w + 8) * 4, clock_mhz)
+    chunks = B3.nof_chunks(P3_BYTES)
+    chunk_bound = blake_bound(B3, batch * P3_BYTES // 64, batch * (w + 8 * chunks) * 4, clock_mhz)
+    out[P3_MAIN] = {"batch": batch, "nbytes": P3_BYTES, "launches": 1 + levels, "ms": ms,
+                    "chunk_pass_ms": chunk_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "chunk_pass_bound_ms": chunk_bound[0], "card": smi}
+    log(f"  {P3_MAIN}: 1 chunk pass + {levels} parent levels == blake3_ref on the card; "
+        f"{ms:.4f} ms (chunk pass alone {chunk_ms:.4f} ms), bound {bound_ms:.4f} ms "
+        f"({bound_by}; the chunk pass {chunk_bound[0]:.4f}) [{smi}]")
+    del x, got, cvs
+
+    # P4: FRI over Blake3 round trees
+    out[P4_MAIN] = fri_main_path(dev, smi, launches, h=h, label=P4_MAIN, kname="blake3",
+                                 small_log=P4_SMALL_LOG)
     return out
 
 
@@ -2014,6 +2327,15 @@ def main() -> None:
     log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
         f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
 
+    hash_sass = {}
+    for lib, pattern in BLAKE_SASS:
+        found = sass.kernel_counts(build.lib_path(lib), pattern)
+        if len(found) != 1:
+            raise AssertionError(f"lib{lib}: {len(found)} kernels match {pattern}")
+        hash_sass[pattern] = next(iter(found.values()))["counts"]
+        log(f"  lib{lib} {pattern} SASS (a static count; the kernels loop over blocks, and "
+            f"poseidon_limbs over rounds): {hash_sass[pattern]}")
+
     phase_done("build")
     # -- 3. kernel versus plain ----------------------------------------------
     log("== kernels: dif_rows against dif_rows_ref on the card, every layout")
@@ -2086,6 +2408,9 @@ def main() -> None:
         "on the card")
     protocol_rows = check_protocol_kernels(dev, gen, smi, sm_clock_mhz)
     phase_done("kernels: keccak, fri_fold, sumcheck_round, program")
+    log("== kernels: poseidon, blake2s, blake3 against their plain versions on the card")
+    hash_rows = check_hash_kernels(dev, gen, smi, sm_clock_mhz)
+    phase_done("kernels: poseidon, blake2s, blake3")
 
     # -- 4. NTT main path -----------------------------------------------------
     log("== main path: icicle_tpu_torch.ntt on CUDA tensors")
@@ -2169,13 +2494,17 @@ def main() -> None:
     phase_done("main path: goldilocks merkle")
     polys = polynomial_paths(dev, gen, smi, launches)
     phase_done("main path: polynomials")
+    log("== main paths: the other hashes -- Poseidon oct-trees, Blake2s and Blake3 trees, "
+        "Blake3 over long messages, FRI over Blake3 -- on CUDA tensors")
+    hashes = hash_paths(dev, gen, smi, launches, sm_clock_mhz)
+    phase_done("main path: hashes (P1-P4)")
     log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 7. main paths line ---------------------------------------------------
     print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle, "fri": fri,
                                      "sumcheck": sumcheck, "ntt_limb_fields": wide_ntt,
                                      "merkle_goldilocks": gl_merkle, "polynomials": polys,
-                                     "launches": launches, "phase_s": phase_s,
+                                     "hashes": hashes, "launches": launches, "phase_s": phase_s,
                                      "card": smi}}))
 
     # -- 8. kernels line ------------------------------------------------------
@@ -2347,6 +2676,55 @@ def main() -> None:
         "shape": [gl_main["batch"], gl_main["n"]],
         "plain_shape": [gl_checked["batch"], gl_checked["n"]],
         "checked_ms": gl_checked["kernel_ms"], "shapes": gl_rows, "card": smi})
+    # poseidon (one wrapper, two libraries): single-word ms and bound_ms at
+    # babybear t = 9 with a tag, 2^24 hashes, timed alone; 8-limb at P1's
+    # leaf layer; plain_ms at the checked batch of the same (field, t, tag)
+    pos = hash_rows["poseidon"]
+    replaces = ("none (XLA): icicle_tpu/ops/hash/poseidon.py:143 permute_mont, jitted through "
+                ":172 _hash_fields_impl and :197 _hash_words_impl")
+    for kname, source, fname, headline, main in (
+            ("poseidon", "poseidon.cu", "babybear", P1_WORD,
+             next(r for r in pos if not r["checked"])),
+            ("poseidon (8-limb)", "poseidon_limbs.cu", "bls12_381_scalar", P1_MAIN,
+             dict(hashes[P1_MAIN]["leaf_layer"], t=9))):
+        rows = [r for r in pos if (r["field"] in POSEIDON_WORD_FIELDS) == (fname == "babybear")]
+        checked = next(r for r in rows if "plain_ms" in r)
+        entries.append({
+            "name": kname, "route": "cuda", "source": f"icicle_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches[headline]["poseidon"],
+            "headline_path": headline, "launches_per_path": per_path("poseidon"),
+            "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
+            "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,  # no PyTorch call computes a Poseidon permutation
+            "shape": [main["batch"], 9, "tag"], "plain_shape": [checked["batch"], 9, "tag"],
+            "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
+    # blake2s, blake3: ms and bound_ms at P2's leaf layer (2^25 rows of 16
+    # words); plain_ms at 64 bytes x BLAKE_CHECK_BATCH rows, where checked
+    for kname, source, replaces in (
+            ("blake2s", "blake2s.cu", "none (XLA): icicle_tpu/ops/hash/blake2s.py:47 _compress "
+             "(Blake2s._run :82, hash_words :108, hash_bytes :94)"),
+            ("blake3", "blake3.cu", "none (XLA): icicle_tpu/ops/hash/blake3.py:64 _compress_dyn "
+             "(Blake3._run :132, hash_words :231, hash_bytes :214)")):
+        main = hashes[P2_MAIN[kname]]["leaf_layer"]
+        rows = hash_rows[kname]
+        entry = {"name": kname, "route": "cuda", "source": f"icicle_tpu_torch/kernels/csrc/{source}",
+                 "replaces": replaces, "launches": launches[P2_MAIN[kname]][kname],
+                 "headline_path": P2_MAIN[kname], "launches_per_path": per_path(kname),
+                 "max_abs_err": max(r["max_abs_diff"] for r in rows),
+                 "ms": main["kernel_ms"], "plain_ms": rows[0]["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": None,  # no PyTorch call computes a BLAKE compression
+                 "shape": [main["batch"], 16], "plain_shape": [BLAKE_CHECK_BATCH, 16],
+                 "checked_ms": rows[0]["kernel_ms"], "sm_clock_mhz": sm_clock_mhz,
+                 "sass": {k: v for k, v in hash_sass.items() if kname in k}, "shapes": rows,
+                 "card": smi}
+        if kname == "blake3":
+            p3 = hashes[P3_MAIN]
+            entry.update(p3_ms=p3["ms"], p3_chunk_pass_ms=p3["chunk_pass_ms"],
+                         p3_bound_ms=p3["bound_ms"],
+                         p3_chunk_pass_bound_ms=p3["chunk_pass_bound_ms"])
+        entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -19,7 +19,8 @@ pipeline, whose scan and EC reductions run in two more
 third (msm_scan_r12.cu); the v2 suffix-fold pipeline (msm_fold2.cu); the
 v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu); and the
 Poseidon2 hash with the Merkle tree over it, whose hashing runs in one more
-(poseidon2.cu); and the protocol layer: the Keccak / SHA-3 hashes
+(poseidon2.cu); the Poseidon, Blake2s and Blake3 hashes (poseidon.cu,
+blake2s.cu, blake3.cu); and the protocol layer: the Keccak / SHA-3 hashes
 (keccak.cu), field programs and the vector ops (program.cu), proof of
 work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
 
@@ -27,7 +28,8 @@ work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
     curves:   get_curve
     ops:      ntt, ntt_jit, NTTConfig, NTTDir, Ordering, matmul, MatMulConfig,
               msm_affine, MSMConfig,
-              Poseidon2, Keccak256, Keccak512, Sha3_256, Sha3_512, HashConfig,
+              Poseidon2, Poseidon, Blake2s, Blake3, Keccak256, Keccak512, Sha3_256,
+              Sha3_512, HashConfig,
               MerkleTree, MerkleProof, MerkleTreeConfig, Program,
               ReturningValueProgram, PreDefined, execute_program, sumcheck_prove,
               sumcheck_verify, fri_prove, fri_verify, FriConfig,
@@ -40,7 +42,10 @@ work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.field import get_field
 from icicle_tpu_torch.ops.fri import FriTranscriptConfig, fri_prove, fri_verify
+from icicle_tpu_torch.ops.hash.blake2s import Blake2s
+from icicle_tpu_torch.ops.hash.blake3 import Blake3
 from icicle_tpu_torch.ops.hash.keccak import Keccak256, Keccak512, Sha3_256, Sha3_512
+from icicle_tpu_torch.ops.hash.poseidon import Poseidon
 from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
 from icicle_tpu_torch.ops.mat_ops import MatMulConfig, matmul
 from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
@@ -59,8 +64,8 @@ from icicle_tpu_torch.runtime.device import set_device
 
 __all__ = ["get_curve", "get_field", "ntt", "ntt_jit", "NTTConfig", "NTTDir", "Ordering",
            "matmul", "MatMulConfig", "Polynomial",
-           "msm_affine", "MSMConfig", "Poseidon2", "Keccak256", "Keccak512", "Sha3_256",
-           "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",
+           "msm_affine", "MSMConfig", "Poseidon2", "Poseidon", "Blake2s", "Blake3", "Keccak256",
+           "Keccak512", "Sha3_256", "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",
            "Program", "ReturningValueProgram", "PreDefined", "execute_program",
            "sumcheck_prove", "sumcheck_verify", "SumcheckConfig", "SumcheckTranscriptConfig",
            "fri_prove", "fri_verify", "FriConfig", "FriTranscriptConfig", "proof_of_work",

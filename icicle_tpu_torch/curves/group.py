@@ -9,7 +9,7 @@ every result equal the JAX package's bit for bit. Complete formulas handle
 identity, doubling and negation uniformly: no data-dependent branches.
 
 The identity is `(0, 1, 0)`. G1 only: G2 waits for the extension towers
-(ROADMAP.md queue A item 9).
+(ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def get_group(curve_name: str, g2: bool = False) -> Group:
     if g2:
         raise NotImplementedError(
             "G2 is not ported yet: it needs the extension-field towers "
-            "(ROADMAP.md queue A item 9)")
+            "(ROADMAP.md queue A item 7)")
     if curve_name not in _GROUPS:
         _GROUPS[curve_name] = Group(get_curve(curve_name))
     return _GROUPS[curve_name]

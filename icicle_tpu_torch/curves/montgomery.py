@@ -4,7 +4,7 @@ icicle_tpu/curves/montgomery.py; reference src/curves/montgomery_conversion.cpp
 
 Montgomery form is the in-kernel representation already; these are the
 explicit API-boundary converters the reference exposes. G2 raises in
-`get_group` (ROADMAP.md queue A item 9).
+`get_group` (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations

@@ -78,7 +78,7 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     if prepared["nu"] != 1 or prepared.get("glv", False):
         raise NotImplementedError(
             "prepared_from_numpy: precomputed or GLV bases are not ported yet "
-            "(ROADMAP.md queue A item 8)")
+            "(ROADMAP.md queue A item 6)")
     planes = np.ascontiguousarray(np.asarray(prepared["pts_u8"])).view(np.uint8)
     tiles, T, nbytes = planes.shape
     limbs = planes.reshape(tiles * T, nbytes).view("<u4").astype(np.uint32)

@@ -33,6 +33,8 @@ LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["m
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
              "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"],
              "poseidon2_gl64": ["poseidon2_gl64.cu"],
+             "poseidon": ["poseidon.cu"], "poseidon_limbs": ["poseidon_limbs.cu"],
+             "blake2s": ["blake2s.cu"], "blake3": ["blake3.cu"],
              "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
              "program": ["program.cu"]}
 

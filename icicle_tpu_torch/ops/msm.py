@@ -20,7 +20,7 @@ share the rest of this module: the signed digits, the +-P point table
 Only the single G1 MSM over canonical inputs is ported. G2, a batch axis
 (or unshared points), Montgomery-form inputs, `precompute_factor > 1` and a
 `bitsize` other than the scalar field's width take the JAX package's
-generic Pippenger `msm()`, which waits for ROADMAP.md queue A item 8; here
+generic Pippenger `msm()`, which waits for ROADMAP.md queue A item 6; here
 they raise NotImplementedError and never take another route.
 """
 
@@ -275,7 +275,7 @@ def horner(fq, wsums: torch.Tensor, c: int):
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"msm: {what} takes the generic Pippenger msm(), which is not ported "
-        "yet (ROADMAP.md queue A item 8)")
+        "yet (ROADMAP.md queue A item 6)")
 
 
 def _check_v3(curve_name: str, scalars: torch.Tensor, cfg: MSMConfig) -> None:

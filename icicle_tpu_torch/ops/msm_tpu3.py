@@ -111,7 +111,7 @@ def _check_ported(engine, nu) -> None:
     if nu != 1:
         raise NotImplementedError(
             "msm_tpu3: precompute_factor > 1 is not ported yet "
-            "(ROADMAP.md queue A item 8)")
+            "(ROADMAP.md queue A item 6)")
 
 
 def _resolve_engine(curve_name: str, engine: str | None, nu: int = 1) -> str:

@@ -68,6 +68,18 @@ def test_every_library_source_and_header_exists():
         assert "ec_field.cuh" in {os.path.basename(f) for f in build._inputs(name)}
 
 
+def test_the_hash_libraries_are_listed():
+    """The Poseidon, Blake2s and Blake3 kernels: one library a source, their
+    sources and the headers they include present."""
+    want = {"poseidon": ["poseidon.cu"], "poseidon_limbs": ["poseidon_limbs.cu"],
+            "blake2s": ["blake2s.cu"], "blake3": ["blake3.cu"]}
+    for name, sources in want.items():
+        assert build.LIBRARIES[name] == sources
+        inputs = {os.path.basename(f) for f in build._inputs(name)}
+        assert {"poseidon.cuh", "poseidon2.cuh", "mont32.cuh", "blake.cuh"} <= inputs
+        assert all(os.path.exists(os.path.join(build.CSRC, s)) for s in sources)
+
+
 def test_build_all_runs_nvcc_per_library_and_reports_its_time(tree, tmp_path, monkeypatch):
     """build_all starts one compiler process per stale library, moves each
     output into place, and ends each report with the process's wall time;

@@ -7,7 +7,8 @@ identity behind the strided twiddles, whole proofs byte for byte (log n
 verifying the other's bytes, tampering, the query helper against
 `get_merkle_proof`, the PoW nonces, and the reference's golden
 `babybear_fri_proof_reserialize` vector replayed from the port's blob
-(tests/test_fri.py:94-109's inputs). Tolerance: exact equality."""
+(tests/test_fri.py:94-109's inputs); proofs over Blake3 round trees (log n
+5 and 8) and over goldilocks. Tolerance: exact equality."""
 
 import functools
 
@@ -19,10 +20,11 @@ from icicle_tpu.fields.field import get_field as jax_field
 from icicle_tpu.ops import fri as JF
 from icicle_tpu.ops import ntt as JN
 from icicle_tpu.ops import pow as JPOW
+from icicle_tpu.ops.hash.blake3 import Blake3 as JaxBlake3
 from icicle_tpu.ops.hash.keccak import Keccak256 as JaxKeccak256
 from icicle_tpu.runtime.config import NTTConfig as JaxNTTConfig
 from icicle_tpu.runtime.config import NTTDir as JaxNTTDir
-from icicle_tpu_torch import FriConfig, Keccak256, get_field, ntt
+from icicle_tpu_torch import Blake3, FriConfig, Keccak256, get_field, ntt
 from icicle_tpu_torch.kernels.fri_kernel import fri_fold, fri_fold_ref
 from icicle_tpu_torch.ops import fri as PF
 from icicle_tpu_torch.ops import pow as PPOW
@@ -107,6 +109,42 @@ def test_each_package_verifies_the_others_bytes(case):
     jf, pf = jax_field("babybear"), get_field("babybear")
     assert JF.fri_verify(jf, JF.FriProof.deserialize(jf, pproof.serialize(pf)), jcfg, jtc, JH, JH)
     assert PF.fri_verify(pf, PF.FriProof.deserialize(pf, jproof.serialize(jf)), pcfg, ptc, PH, PH)
+
+
+@pytest.mark.parametrize("log_n,stop,pow_bits", [(5, 3, 0), (8, 0, 4)])
+def test_blake3_trees_match_jax(log_n, stop, pow_bits):
+    """leaves_hash = compress_hash = Blake3: the round trees hash 4-byte
+    leaves and 64-byte pairs; the proof's bytes equal JAX's and verify."""
+    jev, pev = _evals(log_n, stop, seed=40 + log_n)
+    jcfg = JF.FriConfig(stopping_degree=stop, pow_bits=pow_bits, nof_queries=5)
+    pcfg = FriConfig(stopping_degree=stop, pow_bits=pow_bits, nof_queries=5)
+    jh, ph = JaxBlake3(), Blake3()
+    jproof = JF.fri_prove(jax_field("babybear"), jev, jcfg, JF.FriTranscriptConfig(), jh, jh)
+    pproof = PF.fri_prove(get_field("babybear"), pev, pcfg, PF.FriTranscriptConfig(), ph, ph)
+    f = get_field("babybear")
+    assert pproof.serialize(f) == jproof.serialize(jax_field("babybear"))
+    assert PF.fri_verify(f, pproof, pcfg, PF.FriTranscriptConfig(), ph, ph)
+    bad = PF.FriProof.deserialize(f, pproof.serialize(f))
+    bad.query_proofs[0][0][0].leaf[0] ^= 1
+    assert not PF.fri_verify(f, bad, pcfg, PF.FriTranscriptConfig(), ph, ph)
+
+
+def test_goldilocks_proof_matches_jax():
+    """log n 5, stopping degree 3, 5 queries, Keccak-256 over goldilocks
+    (two words an element)."""
+    jf, pf = jax_field("goldilocks"), get_field("goldilocks")
+    rng = np.random.default_rng(64)
+    coeffs = [int.from_bytes(rng.bytes(16), "little") % jf.modulus for _ in range(4)] + [0] * 28
+    JN.ntt_init_domain(jf, 5)
+    jev = JN.ntt_jit(jf, jf.from_ints(coeffs), JaxNTTDir.FORWARD, JaxNTTConfig())
+    pev = ntt(pf, pf.from_ints(coeffs, "cpu"))
+    assert np.array_equal(np.asarray(jev), pev.numpy().view(np.uint32))
+    jcfg = JF.FriConfig(stopping_degree=3, pow_bits=0, nof_queries=5)
+    pcfg = FriConfig(stopping_degree=3, pow_bits=0, nof_queries=5)
+    jproof = JF.fri_prove(jf, jev, jcfg, JF.FriTranscriptConfig(), JH, JH)
+    pproof = PF.fri_prove(pf, pev, pcfg, PF.FriTranscriptConfig(), PH, PH)
+    assert pproof.serialize(pf) == jproof.serialize(jf)
+    assert PF.fri_verify(pf, pproof, pcfg, PF.FriTranscriptConfig(), PH, PH)
 
 
 def test_golden_reference_reserialize_replays_the_ports_blob():

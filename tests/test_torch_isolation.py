@@ -30,7 +30,10 @@ def test_import_leaves_no_jax_in_sys_modules():
             "icicle_tpu_torch.kernels.msm_kernel, icicle_tpu_torch.math.radix12, "
             "icicle_tpu_torch.ops.msm_tpu, icicle_tpu_torch.ops.msm_tpu2, "
             "icicle_tpu_torch.curves.montgomery, icicle_tpu_torch.ops.hash.poseidon2, "
-            "icicle_tpu_torch.ops.merkle, icicle_tpu_torch.kernels.poseidon2_kernel\n"
+            "icicle_tpu_torch.ops.merkle, icicle_tpu_torch.kernels.poseidon2_kernel, "
+            "icicle_tpu_torch.ops.hash.poseidon, icicle_tpu_torch.kernels.poseidon_kernel, "
+            "icicle_tpu_torch.ops.hash.blake2s, icicle_tpu_torch.kernels.blake2s_kernel, "
+            "icicle_tpu_torch.ops.hash.blake3, icicle_tpu_torch.kernels.blake3_kernel\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'icicle_tpu' or m.startswith('icicle_tpu.'))\n"
             "print(bad)\n")

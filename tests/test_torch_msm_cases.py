@@ -95,13 +95,13 @@ def test_msm_affine_dispatch_on_cpu():
 ])
 def test_msm_affine_unported_configurations_raise(cfg, match):
     args = _tensors([1, 2], _points(2, 15))
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*queue A item 8"):
+    with pytest.raises(NotImplementedError, match=f"(?s){match}.*queue A item 6"):
         msm_affine("bn254", *args, cfg)
 
 
 def test_batch_axis_and_other_refusals():
     s, x, y = _tensors([1, 2], _points(2, 16))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         msm_affine("bn254", s[None], x, y)
     # the "r12" engine runs (tests/test_torch_msm_r12.py); one the port does
     # not have raises, and so does an engine other than the prepared one's
@@ -110,9 +110,9 @@ def test_batch_axis_and_other_refusals():
     prepared = TM3.msm_tpu3_prepare("bn254", x, y, c=6, T=16)
     with pytest.raises(IcicleException, match="prepared for 'u32'"):
         TM3.msm_tpu3("bn254", s, prepared=prepared, engine="r12")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         TM3.msm_tpu3("bn254", s, prepared=prepared, precompute_factor=2)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         TM3.msm_tpu3_prepare("bn254", x, y, c=6, precompute_factor=2)
     with pytest.raises(IcicleException, match="CUDA tensors"):
         TM3.msm_tpu3("bn254", s, x, y, backend="cuda")

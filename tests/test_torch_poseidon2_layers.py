@@ -27,7 +27,8 @@ from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(TP.__file__), "data")
-FILES = sorted(f[len("poseidon2_"):-len(".npz")] for f in os.listdir(DATA))
+FILES = sorted(f[len("poseidon2_"):-len(".npz")] for f in os.listdir(DATA)
+               if f.startswith("poseidon2_"))
 ENGINES = FILES  # every constant file's field has a port engine
 WORD_MODULI = {"babybear": 0x78000001, "koalabear": 0x7F000001, "m31": 0x7FFFFFFF}
 SOURCES = [os.path.join(os.path.dirname(PK.__file__), "csrc", f)

@@ -3,7 +3,8 @@ ops/vec_ops.py; kernel K4's plain version on the CPU) against the JAX
 package's (icicle_tpu/ops/program.py, ops/vec_ops.py): bytecode and
 constants word for word, `execute` and `execute_program` (the non-tail
 slot case too), and every vec_ops function on babybear, koalabear and
-bn254_scalar. Inputs come from numpy seeds; tolerance: exact equality."""
+bn254_scalar; `execute_program` over goldilocks too. Inputs come from numpy
+seeds; tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -123,9 +124,11 @@ def test_output_slots_name_the_values():
     assert pp.output_slots[1] in pp.constant_slots
 
 
-# bn254_scalar: three programs, to keep the JAX compiles few
+# bn254_scalar and goldilocks: three programs each, to keep the JAX compiles few
 EXECUTE_CASES = ([(f, name) for f in ("babybear", "koalabear") for name in ALL]
-                 + [("bn254_scalar", name) for name in ("AB_MINUS_C", "const_inv", "two_outputs")])
+                 + [("bn254_scalar", name) for name in ("AB_MINUS_C", "const_inv", "two_outputs")]
+                 + [("goldilocks", name) for name in ("AB_MINUS_C", "EQ_X_AB_MINUS_C",
+                                                      "const_inv")])
 
 
 @pytest.mark.parametrize("fname,name", EXECUTE_CASES)

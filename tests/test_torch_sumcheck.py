@@ -3,7 +3,7 @@ version `sumcheck_round_ref` on the CPU) against the JAX package's
 (icicle_tpu/ops/sumcheck.py): one round against `_round_pass`; whole
 proves (round polynomials, challenges, serialized bytes) for both
 predefined combines and lambdas with constants and an inverse, n = 2^1 ..
-2^10 on babybear and small n on bn254_scalar; verify round trips,
+2^10 on babybear and small n on bn254_scalar and goldilocks; verify round trips,
 tampering, transcript labels and the extension-field refusal. Inputs come
 from numpy seeds; tolerance: exact equality."""
 
@@ -85,7 +85,8 @@ def _proves(fname, name, n, labels=False):
 PROVE_CASES = ([("babybear", "AB_MINUS_C", 1 << k) for k in range(1, 11)]
                + [("babybear", "EQ_X_AB_MINUS_C", n) for n in (2, 32)]
                + [("babybear", "const_inv", 4), ("babybear", "const_deg3", 16)]
-               + [("bn254_scalar", "AB_MINUS_C", 4), ("bn254_scalar", "EQ_X_AB_MINUS_C", 2)])
+               + [("bn254_scalar", "AB_MINUS_C", 4), ("bn254_scalar", "EQ_X_AB_MINUS_C", 2)]
+               + [("goldilocks", "AB_MINUS_C", 16)])
 
 
 @pytest.mark.parametrize("fname,name,n", PROVE_CASES)
