@@ -64,6 +64,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (P_i = (i+1) P against (sum (i+1) s_i) P); torch.profiler
                breakdowns of one 2^24 MSM of the u32, r12 and v2 routes
                and one 2^20 MSM of the v1 route;
+  5b. MSM long tail -- M1: bls12_381 G1 at 2^24 (bench.py's kind of input:
+               one repeated point P = k G, canonical scalars below r) through
+               msm_affine, then timed over prepared bases and profiled, and
+               bls12_377 at 2^16 distinct points; M2: bw6_761 at 2^20 (a
+               depth cut for run time), 12-limb scalars below r; M3: the
+               reference's headline, bls12_377, 1000 MSMs of 2^10 shared
+               points at precompute_factor 23 (c 8), the bases from
+               msm_precompute_bases on the card (one precompute_bases
+               launch), each of the 1000 results against a Python-int
+               oracle, ms an MSM, the idle share from a profile of 100 of
+               them; M4: bn254 2^22 at precompute_factor 1, 2 and 4 (c 11,
+               bases from msm_precompute_bases) and msm_tpu3(glv=True),
+               each against the same oracle, times side by side; M5: bn254
+               2^16 distinct points with Montgomery-form scalars,
+               Montgomery-form points, bitsize 64, and an unshared batch of
+               8 x 2^12 (each element on its own points). Each counted: B3
+               and B4 at the curve's limb count, precompute_bases where
+               used, nothing else;
   6. Merkle  -- the Poseidon2 Merkle main path: MerkleTree([Poseidon2(babybear,
                2)] * 29) over bench.py's 2^29 leaves (bench.py:226-276),
                uploaded once; 29 poseidon2 launches a build and no other
@@ -132,6 +150,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   11. the main paths' JSON line (per-path launches, times, profiles,
      seconds a phase);
   12. the kernels JSON line; 13. the result JSON line, last.
+
+Phase 3 also holds B3 and B4 at 12 limbs (bls12_381) and 24 (bw6_761)
+bit-exact to their plain versions at the lane widths M1 and M2 give them,
+the serial depth cut to 64 and 61, and as projective points to the serial
+plain version, then times them at those paths' full shapes; and
+precompute_bases (kernels/csrc/precompute_bases.cu) at 8, 12 and 24 limbs
+(bn254, bls12_377, bw6_761) over 2^12 points, two of them the identity, at
+nu 2, 4 and 23, bit-exact to its plain version and at one point a copy to
+Python-int doublings, timed at M3's and M4's bases. Its bound: per point 2
+Montgomery multiplies into the form, per further copy `shift` doublings of
+8 (the one by b3 an add chain), a Fermat inversion (bits(p - 2) squarings
+and popcount(p - 2) multiplies) and 4 more; n 2L words read and nu n 2L
+written.
 
 Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks and
 8-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in both
@@ -419,10 +450,12 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import keccak_kernel as KK
     from icicle_tpu_torch.kernels import poseidon2_kernel as PK
     from icicle_tpu_torch.kernels import poseidon_kernel as PSK
+    from icicle_tpu_torch.kernels import precompute_kernel as PB
     from icicle_tpu_torch.kernels import program_kernel as PGK
     from icicle_tpu_torch.kernels import sumcheck_kernel as SK
     return {"dif_rows": K.dif_rows, "dif_rows_wide": NW.dif_rows_wide,
             "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
+            "precompute_bases": PB.precompute_bases,
             "prefix_scan_r12": TS12.prefix_scan_r12, "suffix_fold": TF.suffix_fold,
             "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2, "keccak": KK.keccak,
             "fri_fold": FK.fri_fold, "sumcheck_round": SK.sumcheck_round,
@@ -448,7 +481,8 @@ R12_24 = "msm r12 bn254 2^24 (repeated point)"
 R12_16 = "msm r12 bn254 2^16 (distinct points)"
 V2_24 = "msm v2 bn254 2^24 (repeated point)"
 V2_16 = "msm v2 bn254 2^16 (distinct points)"
-V1_20 = "msm v1 bn254 2^20 (repeated point)"
+V1_LOG = 20
+V1_MAIN = f"msm v1 bn254 2^{V1_LOG} (repeated point)"
 V1_16 = "msm v1 bn254 2^16 (distinct points)"
 NTT_MAIN = "ntt babybear 2^26 fwd+inv"
 MERKLE_LOG = 29
@@ -540,11 +574,26 @@ def same_points(curve, a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(m(x1, y2), m(x2, y1)))
 
 
-def check_msm_kernels(dev, gen, smi: str) -> dict:
-    """B3-B7 against their plain versions on the card at the MSM routes'
-    lane widths (serial depth cut for the plain side), then timed alone at
-    full depth. B3-B6 take curve points (a pool of 64 multiples of the
-    generator and their negatives; B4's projective, sums of two, with one
+def pool_points(curve, count: int = 64) -> list:
+    """(0x5EED + 977 i) G for i < count as affine Python ints, by adds (a
+    761-bit scalar multiply takes 0.1 s on the host)."""
+    from icicle_tpu_torch.curves.host_ec import ec_add, ec_mul
+    mod = curve.fq.modulus
+    cur = ec_mul((curve.gen_x, curve.gen_y), 0x5EED, mod)
+    step = ec_mul((curve.gen_x, curve.gen_y), 977, mod)
+    pool = []
+    for _ in range(count):
+        pool.append(cur)
+        cur = ec_add(cur, step, mod)
+    return pool
+
+
+def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) -> dict:
+    """The MSM kernels of `checks` and `full` (rows as MSM_CHECKS and
+    MSM_FULL) over curve `cname`: against their plain versions on the card
+    at the MSM routes' lane widths (serial depth cut for the plain side),
+    then timed alone at full depth. B3-B6 take curve points (`pool_points`
+    and their negatives; B4's projective, sums of two, with one
     row of identities; B5's in the R' domain) and are held bit-exact
     against their plain versions at the plan's segment count, and against
     the serial plain version (segments=1) as projective points; at full
@@ -557,7 +606,6 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     every slot; at full depth v1 2^20's layout of sorted keys), and is
     compared at the rows it promises (run ends and lane ends)."""
     from icicle_tpu_torch.curves.group import Affine, Projective, get_group
-    from icicle_tpu_torch.curves.host_ec import ec_mul
     from icicle_tpu_torch.curves.params import get_curve
     from icicle_tpu_torch.kernels import ec_reduce as TR
     from icicle_tpu_torch.kernels import msm_fold2 as TF
@@ -565,21 +613,17 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
     from icicle_tpu_torch.kernels import msm_scan as TS
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 
-    curve = get_curve("bn254")
+    curve = get_curve(cname)
     fq = curve.fq
-    g = get_group("bn254")
+    g = get_group(cname)
     nl = fq.nlimbs
     W1 = 12   # windows per B7 launch at the v1 2^20 shape
 
-    pool = [ec_mul((curve.gen_x, curve.gen_y), 0x5EED + 977 * i, fq.modulus) for i in range(64)]
+    pool = pool_points(curve)
     pool_x = fq.to_mont(fq.from_ints([p[0] for p in pool] * 2, dev))
     pool_y = fq.to_mont(fq.from_ints([p[1] for p in pool], dev))
     pool_y = torch.cat([pool_y, fq.neg(pool_y)])                  # P and -P
-    # the same points in B5's R' = 2^(12 nw) domain, canonical
-    rp = TS12.r12_engine("bn254").R % fq.modulus
-    r12_x = fq.from_ints([p[0] * rp % fq.modulus for p in pool] * 2, dev)
-    r12_y = fq.from_ints([p[1] * rp % fq.modulus for p in pool], dev)
-    r12_y = torch.cat([r12_y, fq.neg(r12_y)])
+    r12 = {}
     pair = torch.randint(0, 128, (2, 128), generator=gen, device=dev)
     one = g.one_mont(dev).expand(128, nl)
     pool_proj = torch.cat(list(g.madd(Projective(pool_x[pair[0]], pool_y[pair[0]], one),
@@ -601,6 +645,16 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         if depth > 2:
             pts[2] = torch.cat(list(g.identity((lanes,), dev)), -1)
         return lane_major(pts)
+
+    def r12_affine(depth: int, lanes: int) -> torch.Tensor:
+        """curve_affine over the same points in B5's R' = 2^(12 nw) domain,
+        canonical."""
+        if not r12:
+            rp = TS12.r12_engine(cname).R % fq.modulus
+            y = fq.from_ints([p[1] * rp % fq.modulus for p in pool], dev)
+            r12.update(x=fq.from_ints([p[0] * rp % fq.modulus for p in pool] * 2, dev),
+                       y=torch.cat([y, fq.neg(y)]))
+        return curve_affine(depth, lanes, r12["x"], r12["y"])
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -669,7 +723,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
                       lambda d, c: (curve_proj(d, c),),
                       lambda d, c, a: ec_reduce_bound(d, c, curve), TR.reduce_segments),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
-                            lambda d, c: (curve_affine(d, c, r12_x, r12_y),),
+                            lambda d, c: (r12_affine(d, c),),
                             lambda d, c, a: prefix_scan_bound(d, c, curve), TS12.r12_segments),
         "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref, fold_inputs,
                         lambda d, c, a: suffix_fold_bound(a[1], curve), TF.fold_segments),
@@ -678,9 +732,8 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
                          lambda d, c: TK.accum_segments(d, W1 * c), contract),
     }
     input_opts = ("stream", "M")
-    r12_nw = TS12.r12_engine("bn254").nw
-    rows = {name: [] for name in kernels}
-    for name, depth, lanes, role, opts in MSM_CHECKS:
+    rows = {name: [] for name, *_ in (*checks, *full)}
+    for name, depth, lanes, role, opts in checks:
         fn, ref, make, bnd, plan, *part = kernels[name]
         view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
@@ -697,8 +750,8 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
-        row = {"role": role, "depth": depth, "lanes": lanes, "options": opts, "checked": True,
-               "max_abs_diff": err}
+        row = {"role": role, "curve": cname, "depth": depth, "lanes": lanes, "options": opts,
+               "checked": True, "max_abs_diff": err}
         extra = ""
         if plan is not None:
             row["segments"] = plan(depth, lanes)
@@ -714,18 +767,19 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
         bound_ms, bound_by = bnd(depth, lanes, args)
         row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[0].shape)} exact{extra}; kernel {kernel_ms:.4f} ms, "
+        log(f"  {name:15s} {tuple(args[0].shape)} {cname} exact{extra}; kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
         del args, got, want
-    for name, depth, lanes, role, opts in MSM_FULL:
+    for name, depth, lanes, role, opts in full:
         fn, _, make, bnd, plan, *part = kernels[name]
         view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
         kw = {k: v for k, v in opts.items() if k not in input_opts + ("serial",)}
         kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw), reps=3)
         bound_ms, bound_by = bnd(depth, lanes, args)
-        row = {"role": role, "depth": depth, "lanes": lanes, "options": opts, "checked": False,
-               "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        row = {"role": role, "curve": cname, "depth": depth, "lanes": lanes, "options": opts,
+               "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         extra = ""
         if plan is not None:
             row["segments"] = kw.get("_segments", plan(depth, lanes))
@@ -740,7 +794,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             extra += ", == _segments=1 as points"
         if name == "prefix_scan_r12":
             # its own arithmetic: radix-12 multiplies at the integer rate
-            row["r12_muls"] = depth * lanes * r12_madd_muls(r12_nw)
+            row["r12_muls"] = depth * lanes * r12_madd_muls(TS12.r12_engine(cname).nw)
             row["r12_muls_ms"] = row["r12_muls"] / INT_MULS_PER_S * 1e3
             extra += f", its radix-12 multiplies alone {row['r12_muls_ms']:.3f} ms"
         if name == "suffix_fold":
@@ -748,7 +802,7 @@ def check_msm_kernels(dev, gen, smi: str) -> dict:
             extra += (f"; both adds on every slot (the Pallas body) "
                       f"{row['bound_all_slots_ms']:.3f} ms")
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[0].shape)} kernel {kernel_ms:.3f} ms, bound "
+        log(f"  {name:15s} {tuple(args[0].shape)} {cname} kernel {kernel_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.1f}x{extra}  [{role}] [{smi}]")
         del args
     torch.cuda.empty_cache()
@@ -889,10 +943,10 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     del px, py
 
     # v1 at 2^20 with the same kind of inputs
-    n = 1 << 20
+    n = 1 << V1_LOG
     scal, px, py, want20 = bench_inputs(n, 2)
-    s20, out[V1_20] = run_checked("v1", V1_20, n, scal, px, py, want20)
-    profiles[V1_20] = profile(V1_20, timed_call("v1", s20, px, py), want20)
+    s20, out[V1_MAIN] = run_checked("v1", V1_MAIN, n, scal, px, py, want20)
+    profiles[V1_MAIN] = profile(V1_MAIN, timed_call("v1", s20, px, py), want20)
     del s20, px, py
 
     # bench.py's distinct-point check (bench.py:158-223) at 2^16, every route
@@ -2216,6 +2270,420 @@ def hash_paths(dev, gen, smi: str, launches: dict, clock_mhz: float) -> dict:
     return out
 
 
+# -- the MSM's long tail: B3/B4 at 12 and 24 limbs, precompute_bases, M1-M5 ------
+
+DBL_MONTS = 8     # RCB15 Alg 9, not counting its multiply by b3
+JAC_DBL_MONTS = 7  # Jacobian doubling at a = 0 (dbl-2009-l: 2M + 5S)
+M1_LOG = 24
+M2_LOG = 20       # a depth cut for run time: bw6_761's users run 2^20 and more
+LIMB_CURVES = ((12, "bls12_381", M1_LOG), (24, "bw6_761", M2_LOG))  # (L, curve, M1 / M2 log n)
+PRE_CURVES = ((8, "bn254"), (12, "bls12_377"), (24, "bw6_761"))
+PRE_CHECK_N = 1 << 12
+PRE_CHECK_NU = (2, 4, 23)
+PRE_CHECK_C = 8
+M1_MAIN = f"msm bls12_381 2^{M1_LOG} (repeated point)"
+M1_377_LOG = 16
+M1_377 = f"msm bls12_377 2^{M1_377_LOG} (distinct points)"
+M2_MAIN = f"msm bw6_761 2^{M2_LOG} (repeated point)"
+M3_BATCH, M3_LOG, M3_NU, M3_C = 1000, 10, 23, 8
+M3_PROFILED = 100
+M3_BASES = f"msm_precompute_bases bls12_377 2^{M3_LOG} x {M3_NU} (c {M3_C})"
+M3_MAIN = (f"msm bls12_377 {M3_BATCH} x 2^{M3_LOG} shared, precompute_factor {M3_NU} "
+           f"(c {M3_C})")
+M4_LOG, M4_C = 22, 11
+M4_NU = (1, 2, 4)
+M4_MAIN = {nu: f"msm bn254 2^{M4_LOG} precompute_factor {nu} (c {M4_C})" for nu in M4_NU}
+M4_BASES = {nu: f"msm_precompute_bases bn254 2^{M4_LOG} x {nu} (c {M4_C})" for nu in M4_NU[1:]}
+M4_GLV = f"msm bn254 2^{M4_LOG} glv (c {M4_C})"
+M5_LOG = 16
+M5_BATCH, M5_BATCH_LOG = 8, 12      # the unshared batch: 8 x 2^12 of M5's points
+M5_MAIN = {k: f"msm bn254 2^{M5_LOG} (distinct points) {k}"
+           for k in ("montgomery scalars", "montgomery points", "bitsize 64")}
+M5_MAIN["unshared batch"] = (f"msm bn254 {M5_BATCH} x 2^{M5_BATCH_LOG} unshared "
+                             "(distinct points)")
+
+
+def precompute_bound(curve, n: int, nu: int, shift: int,
+                     fermat_per_copy: bool = False) -> tuple[float, str]:
+    """precompute_bases' least work: per point 2 Montgomery multiplies into
+    the form; per copy after the first, `shift` doublings of 7 multiplies
+    (Jacobian, a = 0: dbl-2009-l's 2M + 5S, no multiply by b), 3 multiplies
+    of Montgomery's batch inversion and 4 to affine (Z^-2, Z^-3, x Z^-2,
+    y Z^-3); one Fermat inversion (bits(p - 2) squarings, popcount(p - 2)
+    multiplies) for the whole batch. Bytes: n 2L words read, nu n 2L
+    written. fermat_per_copy: the kernel's own algorithm instead (RCB15
+    doublings, DBL_MONTS and the b3 multiply where b3 is not small, and a
+    Fermat inversion and 4 multiplies a copy)."""
+    from icicle_tpu_torch.kernels.msm_lib import b3_small
+    nl = curve.fq.nlimbs
+    e = curve.fq.modulus - 2
+    inversion = e.bit_length() + bin(e).count("1")
+    if fermat_per_copy:
+        dbl = DBL_MONTS + (0 if b3_small(curve) is not None else 1)
+        monts = n * (2 + (nu - 1) * (shift * dbl + inversion + 4))
+    else:
+        monts = n * (2 + (nu - 1) * (shift * JAC_DBL_MONTS + 3 + 4)) + inversion
+    return bound(n * (1 + nu) * 2 * nl * 4, monts * big_mont_muls(nl))
+
+
+def v3_plan(curve_name: str, n: int, c=None, T=None, nu: int = 1, glv: bool = False,
+            bitsize: int = 0) -> dict:
+    from icicle_tpu_torch.ops import msm_tpu3 as V3
+    return V3._resolve_plan(curve_name, n, c, T, None, "u32", nu, glv, bitsize)
+
+
+def v3_launches(plan: dict, times: int = 1) -> dict:
+    """B3's and B4's launches in `times` MSMs of v3's stages over `plan`."""
+    groups = -(-plan["n_windows"] // plan["wg"])
+    return {"prefix_scan": times * groups,
+            "ec_reduce": times * (groups + (2 if plan["M"] > 128 else 1))}
+
+
+def canonical_scalars(rng, shape: tuple, fr) -> np.ndarray:
+    """(*shape, Ls) uint32 limbs of random scalars below r: random words,
+    the top one below r's top word."""
+    nl = fr.nlimbs
+    s = rng.integers(0, 2**32, size=shape + (nl,), dtype=np.uint32)
+    s[..., -1] = rng.integers(0, fr.modulus >> (32 * (nl - 1)), size=shape, dtype=np.uint32)
+    return s
+
+
+def weighted_total(scal: np.ndarray, mod: int, weights=None):
+    """sum_i w_i s_i mod `mod` over the rows s_i of (..., n, Ls) uint32
+    limbs (w = 1 by default; w < 2^20, n < 2^28), one int per leading
+    index; 16-bit halves keep the uint64 sums exact."""
+    n = scal.shape[-2]
+    halves = np.stack([scal & 0xFFFF, scal >> 16], -1).reshape(scal.shape[:-1] + (-1,))
+    w = np.ones(n, np.uint64) if weights is None else np.asarray(weights, np.uint64)
+    sums = np.einsum("i,...ih->...h", w, halves.astype(np.uint64))
+    flat = sums.reshape(-1, sums.shape[-1])
+    totals = [sum(int(v) << (16 * h) for h, v in enumerate(row)) % mod for row in flat]
+    return totals if scal.ndim > 2 else totals[0]
+
+
+def fixed_base_mul(table: list, k: int, mod: int):
+    """k P from table[j] = 2^j P by affine adds (no doublings)."""
+    from icicle_tpu_torch.curves.host_ec import INF, ec_add
+    acc = INF
+    j = 0
+    while k:
+        if k & 1:
+            acc = ec_add(acc, table[j], mod)
+        k >>= 1
+        j += 1
+    return acc if acc is not INF else (0, 0)
+
+
+def limb_checks(nl: int, cname: str, log_n: int) -> tuple[list, list]:
+    """check_msm_kernels' rows for B3 and B4 at nl limbs: the lane widths
+    v3 gives them at 2^log_n points (M1, M2) with the serial depth cut to
+    64 and 61, then those paths' full shapes, timed."""
+    plan = v3_plan(cname, 1 << log_n)
+    K, C = plan["T"], plan["wg"] * plan["tiles"]
+    R, CR = plan["tiles"], plan["wg"] * plan["M"]
+    w_pad = -(-plan["n_windows"] // plan["wg"]) * plan["wg"]
+    path = "M1" if nl == 12 else "M2"
+    groups = -(-plan["n_windows"] // plan["wg"])
+    checks = [("prefix_scan", 64, C, f"B3 {nl}-limb, one {path} window group, K cut from {K}"),
+              ("prefix_scan", 61, C, f"B3 {nl}-limb, K 61: ragged last segment"),
+              ("ec_reduce", 64, CR, f"B4 {nl}-limb, {path} cross-tile fold, R cut from {R}"),
+              ("ec_reduce", 61, CR, f"B4 {nl}-limb, R 61: ragged and empty segments")]
+    full = [("prefix_scan", K, C, f"B3 {nl}-limb at full depth ({groups} per {path} MSM)"),
+            ("ec_reduce", R, CR, f"B4 {nl}-limb cross-tile at full depth ({groups} per "
+                                 f"{path} MSM)"),
+            ("ec_reduce", plan["M"] // 128, w_pad * 128, f"B4 {nl}-limb, {path} bucket pass 1"),
+            ("ec_reduce", 128, w_pad, f"B4 {nl}-limb, {path} bucket pass 2")]
+    return [r + ({},) for r in checks], [r + ({},) for r in full]
+
+
+def check_precompute_bases(dev, gen, smi: str) -> list:
+    """precompute_bases at 8, 12 and 24 limbs over 2^12 points (two of them
+    the identity, (0, 0)) at nu 2, 4 and 23 (shift from c = 8), bit-exact
+    with its plain version and, at one point a copy, with Python-int
+    doublings; timed at M3's and M4's shapes."""
+    from icicle_tpu_torch.curves.host_ec import ec_add
+    from icicle_tpu_torch.curves.params import get_curve
+    from icicle_tpu_torch.kernels import precompute_kernel as PB
+    from icicle_tpu_torch.ops.msm import precompute_shift
+
+    pre = []
+    for nl, cname in PRE_CURVES:
+        curve = get_curve(cname)
+        fq, mod = curve.fq, curve.fq.modulus
+        pool = pool_points(curve)
+        idx = torch.randint(0, len(pool), (PRE_CHECK_N,), generator=gen, device=dev)
+        px = fq.from_ints([p[0] for p in pool], dev)[idx]
+        py = fq.from_ints([p[1] for p in pool], dev)[idx]
+        px[:2] = 0
+        py[:2] = 0                                               # the identity, (0, 0)
+        P = pool[int(idx[2])]
+        nbits = curve.fr.modulus.bit_length()
+        for nu in PRE_CHECK_NU:
+            shift = precompute_shift(nbits, PRE_CHECK_C, nu)
+            got = PB.precompute_bases(curve, px, py, nu, shift)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = PB.precompute_bases_ref(curve, px, py, nu, shift)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                      for a, b in zip(got, want))
+            if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"precompute_bases != its plain version, {cname} nu {nu}: "
+                                     f"max abs err {err}")
+            ox, oy = (fq.to_ints(t[:3 * nu]) for t in got)
+            Q = P
+            for j in range(nu):
+                for _ in range(shift if j else 0):
+                    Q = ec_add(Q, Q, mod)                        # 2^(j shift) P
+                row = 2 * nu + j                                 # copy j of point 2
+                if (int(ox[row]), int(oy[row])) != Q:
+                    raise AssertionError(f"precompute_bases {cname} nu {nu}: copy {j} != "
+                                         f"2^{j * shift} P by Python ints")
+                if any(int(ox[j2]) or int(oy[j2]) for j2 in (j, nu + j)):
+                    raise AssertionError(f"precompute_bases {cname} nu {nu}: the identity's "
+                                         f"copy {j} is not (0, 0)")
+            kernel_ms = cuda_ms(lambda: PB.precompute_bases(curve, px, py, nu, shift))
+            bound_ms, bound_by = precompute_bound(curve, PRE_CHECK_N, nu, shift)
+            pre.append({"role": f"{cname} {nl}-limb, 2^12 points, nu {nu}", "curve": cname,
+                        "n": PRE_CHECK_N, "nu": nu, "shift": shift, "checked": True,
+                        "max_abs_diff": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bound_fermat_per_copy_ms":
+                            precompute_bound(curve, PRE_CHECK_N, nu, shift, True)[0]})
+            log(f"  precompute_bases {cname} ({PRE_CHECK_N}, {nl}) nu {nu} shift {shift} exact, "
+                f"== Python ints at one point; kernel {kernel_ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # timed at the main paths' shapes: M3 (its bases) and M4 (nu 4)
+    for cname, n, nu, c, role in (
+            ("bls12_377", 1 << M3_LOG, M3_NU, M3_C, "M3's bases"),
+            ("bn254", 1 << M4_LOG, 4, M4_C, "M4's bases at nu 4")):
+        curve = get_curve(cname)
+        fq = curve.fq
+        pts = pool_points(curve, 16)
+        idx = torch.randint(0, 16, (n,), generator=gen, device=dev)
+        px = fq.from_ints([p[0] for p in pts], dev)[idx]
+        py = fq.from_ints([p[1] for p in pts], dev)[idx]
+        shift = precompute_shift(curve.fr.modulus.bit_length(), c, nu)
+        kernel_ms = cuda_ms(lambda: PB.precompute_bases(curve, px, py, nu, shift), reps=3)
+        bound_ms, bound_by = precompute_bound(curve, n, nu, shift)
+        fermat_ms = precompute_bound(curve, n, nu, shift, True)[0]
+        pre.append({"role": role, "curve": cname, "n": n, "nu": nu, "shift": shift,
+                    "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_fermat_per_copy_ms": fermat_ms})
+        log(f"  precompute_bases {cname} ({n}, {fq.nlimbs}) nu {nu} shift {shift} kernel "
+            f"{kernel_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+            f"{kernel_ms / bound_ms:.1f}x (its own algorithm's multiplies {fermat_ms:.3f} ms)"
+            f"  [{role}] [{smi}]")
+        del px, py
+    torch.cuda.empty_cache()
+    return pre
+
+
+def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
+    """M1-M5 on CUDA tensors through the entry points a user calls, each
+    counted (B3 and B4 at the curve's limb count, precompute_bases where
+    used, nothing else), equal to a Python-int oracle, and timed: M1
+    bls12_381 2^24 (and bls12_377 2^16 distinct points); M2 bw6_761 2^20;
+    M3 the reference's headline, bls12_377, 1000 MSMs of 2^10 shared
+    points at precompute_factor 23; M4 bn254 2^22 at nu 1, 2, 4 and with
+    glv; M5 bn254 2^16 distinct points with Montgomery-form scalars,
+    Montgomery-form points, bitsize 64, and an unshared batch of 8 x 2^12.
+    Repeated-point inputs take P = k G, so the answer is one host scalar
+    multiply."""
+    from icicle_tpu_torch import MSMConfig, get_curve, msm_affine
+    from icicle_tpu_torch.curves.host_ec import ec_add, ec_mul
+    from icicle_tpu_torch.ops.msm import _auto_c, generic_plan, msm_precompute_bases
+    from icicle_tpu_torch.ops.msm_tpu3 import msm_tpu3, msm_tpu3_prepare
+
+    out = {}
+    zero = dict.fromkeys(kernel_counters(), 0)
+
+    def run(label, call, want, expect, limbs):
+        got = counted(label, call, launches)
+        if launches[label] != dict(zero, **expect):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected {expect}")
+        if got != want:
+            bad = (sum(a != b for a, b in zip(got, want)) if isinstance(want, list)
+                   else f"{got} != {want}")
+            raise AssertionError(f"{label}: MSM result differs from the oracle: {bad}")
+        launched = {k: v for k, v in launches[label].items() if v}
+        log(f"  {label}: == oracle, {limbs}-limb launches {launched} [{smi}]")
+        return {"limbs": limbs, "launches": launched}
+
+    def repeated(cname, n, seed, k):
+        """n canonical scalars (on the card) and P = k G repeated, the oracle."""
+        curve = get_curve(cname)
+        fq, fr, mod = curve.fq, curve.fr, curve.fq.modulus
+        P = ec_mul((curve.gen_x, curve.gen_y), k, mod)
+        scal = canonical_scalars(np.random.default_rng(seed), (n,), fr)
+        px = fq.from_ints([P[0]], dev).expand(n, fq.nlimbs).contiguous()
+        py = fq.from_ints([P[1]], dev).expand(n, fq.nlimbs).contiguous()
+        s = torch.from_numpy(scal.view(np.int32)).to(dev)
+        return s, px, py, P, ec_mul(P, weighted_total(scal, fr.modulus), mod)
+
+    def distinct(cname, n, seed, k):
+        """P_i = (i + 1) P on the card, P = k G; canonical scalars."""
+        curve = get_curve(cname)
+        fq, mod = curve.fq, curve.fq.modulus
+        P = ec_mul((curve.gen_x, curve.gen_y), k, mod)
+        pts, cur = [], P
+        for _ in range(n):
+            pts.append(cur)
+            cur = ec_add(cur, P, mod)
+        return (fq.from_ints([p[0] for p in pts], dev), fq.from_ints([p[1] for p in pts], dev),
+                P, np.arange(1, n + 1))
+
+    def timed(label, call, want, n, per=1, reps=3):
+        ms, last = host_ms(call, reps=reps)
+        if last != want:
+            raise AssertionError(f"{label}: timed result differs from the oracle")
+        log(f"  {label}: timed == oracle, {ms:.1f} ms, {ms / per:.3f} ms an MSM, "
+            f"{n * per / (ms * 1e-3):.4g} points/s [{smi}]")
+        return {"ms": ms, "ms_per_msm": ms / per, "points_per_s": n * per / (ms * 1e-3)}
+
+    def profiled(label, call, want):
+        got, prof = device_profile(label, call, smi)
+        if got != want:
+            raise AssertionError(f"profiled {label}: result differs from the oracle")
+        return prof
+
+    # M1 (bls12_381 2^24) and M2 (bw6_761 2^20), repeated point: msm_affine,
+    # then v3 over prepared bases, timed and profiled
+    for label, cname, n, seed, k in ((M1_MAIN, "bls12_381", 1 << M1_LOG, 3, 0xB15),
+                                     (M2_MAIN, "bw6_761", 1 << M2_LOG, 4, 0xB6)):
+        s, px, py, _, want = repeated(cname, n, seed, k)
+        rec = run(label, lambda: msm_affine(cname, s, px, py), want,
+                  v3_launches(v3_plan(cname, n)), get_curve(cname).fq.nlimbs)
+        prepared = msm_tpu3_prepare(cname, px, py)
+        torch.cuda.synchronize()
+        call = lambda: msm_tpu3(cname, s, prepared=prepared)
+        rec.update(timed(label, call, want, n), n=n, plan={
+            k: prepared[k] for k in ("c", "T", "tiles", "wg", "n_windows", "M")})
+        rec["profile"] = profiled(label, call, want)
+        out[label] = rec
+        del s, px, py, prepared
+        torch.cuda.empty_cache()
+
+    # M1's second input: bls12_377 at 2^16 distinct points, msm_affine
+    n = 1 << M1_377_LOG
+    px, py, P, w = distinct("bls12_377", n, 5, 0xC0FFEE)
+    fr377 = get_curve("bls12_377").fr
+    scal = canonical_scalars(np.random.default_rng(6), (n,), fr377)
+    s = torch.from_numpy(scal.view(np.int32)).to(dev)
+    want = ec_mul(P, weighted_total(scal, fr377.modulus, w), get_curve("bls12_377").fq.modulus)
+    rec = run(M1_377, lambda: msm_affine("bls12_377", s, px, py), want,
+              v3_launches(v3_plan("bls12_377", n)), 12)
+    rec.update(timed(M1_377, lambda: msm_affine("bls12_377", s, px, py), want, n), n=n)
+    out[M1_377] = rec
+
+    # M3: the reference's headline, 1000 MSMs of 2^10 shared points at nu 23
+    curve = get_curve("bls12_377")
+    n = 1 << M3_LOG
+    px, py, P, w = distinct("bls12_377", n, 7, 0x377)
+    cfg = MSMConfig(c=M3_C, precompute_factor=M3_NU)
+    bx, by = counted(M3_BASES, lambda: msm_precompute_bases("bls12_377", px, py, cfg), launches)
+    if launches[M3_BASES] != dict(zero, precompute_bases=1):
+        raise AssertionError(f"{M3_BASES}: launched {launches[M3_BASES]}")
+    scal = canonical_scalars(np.random.default_rng(8), (M3_BATCH, n), curve.fr)
+    s = torch.from_numpy(scal.view(np.int32)).to(dev)
+    table = [P]
+    for _ in range(curve.fr.modulus.bit_length() + 10):
+        table.append(ec_add(table[-1], table[-1], curve.fq.modulus))
+    want = [fixed_base_mul(table, t, curve.fq.modulus)
+            for t in weighted_total(scal, curve.fr.modulus, w)]
+    plan = generic_plan("bls12_377", M3_NU * n, M3_C, M3_NU)
+    call = lambda: msm_affine("bls12_377", s, bx, by, cfg)
+    rec = run(M3_MAIN, call, want, v3_launches(plan, M3_BATCH), 12)
+    # one timed call after the warm-up: it is already the mean of 1000 MSMs
+    rec.update(timed(M3_MAIN, call, want, n, per=M3_BATCH, reps=1), batch=M3_BATCH, n=n,
+               plan={k: plan[k] for k in ("c", "T", "tiles", "wg", "n_windows", "M")})
+    # the profile takes the first M3_PROFILED MSMs of the batch: its idle
+    # share is the batch's, for a tenth of the profiler's parsing
+    rec["profile"] = profiled(f"{M3_PROFILED} of {M3_MAIN}",
+                              lambda: msm_affine("bls12_377", s[:M3_PROFILED], bx, by, cfg),
+                              want[:M3_PROFILED])
+    out[M3_MAIN] = rec
+    del s, bx, by
+
+    # M4: bn254 2^22, repeated point, nu 1, 2, 4 (one c) and glv
+    n = 1 << M4_LOG
+    s, px, py, _, want = repeated("bn254", n, 9, 0xDEADBEEF)
+    for nu in M4_NU:
+        cfg = MSMConfig(c=M4_C, precompute_factor=nu)
+        if nu > 1:
+            bx, by = counted(M4_BASES[nu], lambda: msm_precompute_bases("bn254", px, py, cfg),
+                             launches)
+            if launches[M4_BASES[nu]] != dict(zero, precompute_bases=1):
+                raise AssertionError(f"{M4_BASES[nu]}: launched {launches[M4_BASES[nu]]}")
+        else:
+            bx, by = px, py
+        label = M4_MAIN[nu]
+        rec = run(label, lambda: msm_affine("bn254", s, bx, by, cfg), want,
+                  v3_launches(v3_plan("bn254", nu * n, M4_C, nu=nu)), 8)
+        prepared = msm_tpu3_prepare("bn254", bx, by, c=M4_C, precompute_factor=nu)
+        rec.update(timed(label, lambda: msm_tpu3("bn254", s, prepared=prepared,
+                                                 precompute_factor=nu), want, n), n=n)
+        out[label] = rec
+        del bx, by, prepared
+        torch.cuda.empty_cache()
+    rec = run(M4_GLV, lambda: msm_tpu3("bn254", s, px, py, c=M4_C, glv=True), want,
+              v3_launches(v3_plan("bn254", n, M4_C, glv=True)), 8)
+    prepared = msm_tpu3_prepare("bn254", px, py, c=M4_C, glv=True)
+    rec.update(timed(M4_GLV, lambda: msm_tpu3("bn254", s, prepared=prepared, glv=True), want,
+                     n), n=n)
+    out[M4_GLV] = rec
+    log("  M4 side by side (ms): " + ", ".join(
+        f"{k} {out[k]['ms']:.1f}" for k in [*M4_MAIN.values(), M4_GLV]) + f" [{smi}]")
+    del s, px, py, prepared
+    torch.cuda.empty_cache()
+
+    # M5: bn254 2^16 distinct points; Montgomery-form scalars, Montgomery-form
+    # points, bitsize 64, and an unshared batch of 8 x 2^12
+    curve = get_curve("bn254")
+    fq, fr, mod = curve.fq, curve.fr, curve.fq.modulus
+    n = 1 << M5_LOG
+    px, py, P, w = distinct("bn254", n, 10, 0xC0FFEE)
+    scal = canonical_scalars(np.random.default_rng(11), (n,), fr)
+    s = torch.from_numpy(scal.view(np.int32)).to(dev)
+    want = ec_mul(P, weighted_total(scal, fr.modulus, w), mod)
+    small = scal.copy()
+    small[:, 2:] = 0                                             # scalars below 2^64
+    s64 = torch.from_numpy(small.view(np.int32)).to(dev)
+    want64 = ec_mul(P, weighted_total(small, fr.modulus, w), mod)
+    nb = 1 << M5_BATCH_LOG
+    sb = s[:M5_BATCH * nb].view(M5_BATCH, nb, -1)
+    wb = [ec_mul(P, t, mod) for t in (weighted_total(scal[b * nb:(b + 1) * nb], fr.modulus,
+                                                     w[b * nb:(b + 1) * nb])
+                                      for b in range(M5_BATCH))]
+    cases = {
+        "montgomery scalars": (fr.to_mont(s), px, py,
+                               MSMConfig(are_scalars_montgomery_form=True), want, n),
+        "montgomery points": (s, fq.to_mont(px), fq.to_mont(py),
+                              MSMConfig(are_points_montgomery_form=True), want, n),
+        "bitsize 64": (s64, px, py, MSMConfig(bitsize=64), want64, None),
+        "unshared batch": (sb, px[:M5_BATCH * nb], py[:M5_BATCH * nb],
+                           MSMConfig(are_points_shared_in_batch=False), wb, nb),
+    }
+    for key, (sc, x, y, cfg, want_k, generic_n) in cases.items():
+        label = M5_MAIN[key]
+        if generic_n is None:                                    # v3 at bitsize 64
+            expect = v3_launches(v3_plan("bn254", n, bitsize=64))
+        else:
+            expect = v3_launches(generic_plan("bn254", generic_n, _auto_c(generic_n)),
+                                 M5_BATCH if key == "unshared batch" else 1)
+        call = lambda sc=sc, x=x, y=y, cfg=cfg: msm_affine("bn254", sc, x, y, cfg)
+        rec = run(label, call, want_k, expect, 8)
+        per = M5_BATCH if key == "unshared batch" else 1
+        rec.update(timed(label, call, want_k, generic_n or n, per=per))
+        out[label] = rec
+    del px, py, s
+    torch.cuda.empty_cache()
+    return out
+
+
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
@@ -2399,8 +2867,16 @@ def main() -> None:
     wide_rows = check_wide_kernel(dev, gen, smi)
     phase_done("kernels: dif_rows_wide")
     log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
-    msm_rows = check_msm_kernels(dev, gen, smi)
+    msm_rows = check_msm_kernels(dev, gen, smi, "bn254", MSM_CHECKS, MSM_FULL)
     phase_done("kernels: B3-B7")
+    log("== kernels: B3 and B4 at 12 and 24 limbs, precompute_bases at 8, 12 and 24, against "
+        "their plain versions on the card")
+    limb_rows = {}
+    for nl, cname, log_n in LIMB_CURVES:
+        curve_rows = check_msm_kernels(dev, gen, smi, cname, *limb_checks(nl, cname, log_n))
+        limb_rows.update({f"{k} ({nl}-limb)": v for k, v in curve_rows.items()})
+    limb_rows["precompute_bases"] = check_precompute_bases(dev, gen, smi)
+    phase_done("kernels: B3/B4 12, 24 limbs, precompute_bases")
     log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
     p2_rows = check_poseidon2_kernel(dev, gen, smi)
     phase_done("kernels: poseidon2")
@@ -2473,6 +2949,10 @@ def main() -> None:
         "on CUDA tensors")
     msm = msm_main_paths(dev, smi, launches)
     phase_done("main path: msm")
+    log("== main paths: the MSM's long tail (M1-M5: bls12_381, bls12_377, bw6_761, precomputed "
+        "bases, GLV, batches, Montgomery-form inputs, bitsize) on CUDA tensors")
+    msm_tail = msm_long_tail_paths(dev, smi, launches)
+    phase_done("main path: msm long tail (M1-M5)")
 
     # -- 6. Merkle main path --------------------------------------------------
     log("== main path: the babybear Poseidon2 Merkle tree (MerkleTree.build) on CUDA tensors")
@@ -2501,7 +2981,8 @@ def main() -> None:
     log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 7. main paths line ---------------------------------------------------
-    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "merkle": merkle, "fri": fri,
+    print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "msm_long_tail": msm_tail,
+                                     "merkle": merkle, "fri": fri,
                                      "sumcheck": sumcheck, "ntt_limb_fields": wide_ntt,
                                      "merkle_goldilocks": gl_merkle, "polynomials": polys,
                                      "hashes": hashes, "launches": launches, "phase_s": phase_s,
@@ -2575,8 +3056,52 @@ def main() -> None:
                   "B6 at full depth (29 per v2 2^24 MSM)", V2_24),
         msm_entry("bucket_accum", "icicle_tpu_torch/kernels/csrc/bucket_accum.cu",
                   "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)",
-                  "B7 at full depth (2 per v1 2^20 MSM)", V1_20),
+                  "B7 at full depth (2 per v1 2^20 MSM)", V1_MAIN),
     ]
+    # B3 and B4 at 12 and 24 limbs: ms and bound_ms one launch at the path's
+    # full-depth shape (M1, M2), plain_ms at the first checked (cut) shape
+    for kname, source, replaces in (
+            ("prefix_scan", "msm_scan.cu", "icicle_tpu/pallas/msm_scan.py:45 (make_prefix_scan)"),
+            ("ec_reduce", "ec_reduce.cu", "icicle_tpu/pallas/ec_reduce.py:63 (make_ec_reduce)")):
+        for nl, headline in ((12, M1_MAIN), (24, M2_MAIN)):
+            rows = limb_rows[f"{kname} ({nl}-limb)"]
+            main = next(r for r in rows if not r["checked"])
+            checked = rows[0]
+            entries.append({
+                "name": f"{kname} ({nl}-limb)", "route": "cuda",
+                "source": f"icicle_tpu_torch/kernels/csrc/{source}", "replaces": replaces,
+                "launches": launches[headline][kname], "headline_path": headline,
+                "launches_per_path": {path: c[kname] for path, c in launches.items()
+                                      if c[kname] and path in msm_tail
+                                      and msm_tail[path]["limbs"] == nl},
+                "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
+                "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None,  # no PyTorch call computes an elliptic-curve add
+                "shape": [main["depth"], main["lanes"]],
+                "plain_shape": [checked["depth"], checked["lanes"]],
+                "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
+    # precompute_bases: ms and bound_ms at M4's bases (2^22 bn254 points, nu 4),
+    # M3's beside them; plain_ms at the first checked shape (bn254, 2^12, nu 2)
+    pre = limb_rows["precompute_bases"]
+    pre_main = next(r for r in pre if r["role"] == "M4's bases at nu 4")
+    pre_m3 = next(r for r in pre if r["role"] == "M3's bases")
+    entries.append({
+        "name": "precompute_bases", "route": "cuda",
+        "source": "icicle_tpu_torch/kernels/csrc/precompute_bases.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/msm.py:313 msm_precompute_bases chunk_fn",
+        "launches": launches[M4_BASES[4]]["precompute_bases"], "headline_path": M4_BASES[4],
+        "launches_per_path": per_path("precompute_bases"),
+        "max_abs_err": max(r["max_abs_diff"] for r in pre if r["checked"]),
+        "ms": pre_main["kernel_ms"], "plain_ms": pre[0]["plain_ms"],
+        "bound_ms": pre_main["bound_ms"], "bound_by": pre_main["bound_by"],
+        "library_ms": None,  # no PyTorch call computes an elliptic-curve doubling chain
+        "shape": [pre_main["n"], pre_main["nu"], pre_main["shift"]],
+        "plain_shape": [pre[0]["n"], pre[0]["nu"], pre[0]["shift"]],
+        "checked_ms": pre[0]["kernel_ms"], "m3_ms": pre_m3["kernel_ms"],
+        "m3_bound_ms": pre_m3["bound_ms"],
+        "bound_fermat_per_copy_ms": pre_main["bound_fermat_per_copy_ms"],
+        "shapes": pre, "card": smi})
     # ms and bound_ms: one launch at the 2^29 tree's leaf layer; plain_ms: the
     # plain version at babybear t = 2, batch 2^16, where it was checked, beside
     # the kernel's ms there ("checked_ms")

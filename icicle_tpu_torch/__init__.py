@@ -13,11 +13,14 @@ Ported so far: the runtime, the field layer (Mont32, goldilocks and
 multi-limb), the NTT over every field, whose four-step row passes run in
 hand-written Hopper kernels (kernels/csrc/ntt_dif.cu for single-word
 fields, ntt_wide.cu for goldilocks and 8-limb fields), the polynomial API
-over it, field matmul, and the bn254 G1 MSM: the v3 prefix-scan
-pipeline, whose scan and EC reductions run in two more
-(kernels/csrc/msm_scan.cu, ec_reduce.cu) or, with the radix-12 engine, a
-third (msm_scan_r12.cu); the v2 suffix-fold pipeline (msm_fold2.cu); the
-v1 bucket pipeline, ops/msm_tpu.py `msm_tpu` (bucket_accum.cu); and the
+over it, field matmul, and the G1 MSM over every curve: the v3
+prefix-scan pipeline, whose scan and EC reductions run in two more
+(kernels/csrc/msm_scan.cu, ec_reduce.cu, each at 8, 12 and 24 limbs) or,
+with the radix-12 engine, a third (msm_scan_r12.cu, bn254); precomputed
+bases (precompute_bases.cu), GLV, batches and Montgomery-form inputs
+through the generic `msm` over the same kernels; the v2 suffix-fold
+pipeline (msm_fold2.cu); the v1 bucket pipeline, ops/msm_tpu.py
+`msm_tpu` (bucket_accum.cu); and the
 Poseidon2 hash with the Merkle tree over it, whose hashing runs in one more
 (poseidon2.cu); the Poseidon, Blake2s and Blake3 hashes (poseidon.cu,
 blake2s.cu, blake3.cu); and the protocol layer: the Keccak / SHA-3 hashes
@@ -27,7 +30,7 @@ work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
     fields:   get_field
     curves:   get_curve
     ops:      ntt, ntt_jit, NTTConfig, NTTDir, Ordering, matmul, MatMulConfig,
-              msm_affine, MSMConfig,
+              msm, msm_affine, msm_precompute_bases, MSMConfig,
               Poseidon2, Poseidon, Blake2s, Blake3, Keccak256, Keccak512, Sha3_256,
               Sha3_512, HashConfig,
               MerkleTree, MerkleProof, MerkleTreeConfig, Program,
@@ -49,7 +52,7 @@ from icicle_tpu_torch.ops.hash.poseidon import Poseidon
 from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
 from icicle_tpu_torch.ops.mat_ops import MatMulConfig, matmul
 from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
-from icicle_tpu_torch.ops.msm import MSMConfig, msm_affine
+from icicle_tpu_torch.ops.msm import MSMConfig, msm, msm_affine, msm_precompute_bases
 from icicle_tpu_torch.ops.ntt import ntt, ntt_jit
 from icicle_tpu_torch.ops.pow import proof_of_work, proof_of_work_verify
 from icicle_tpu_torch.ops.program import PreDefined, Program, ReturningValueProgram
@@ -64,7 +67,7 @@ from icicle_tpu_torch.runtime.device import set_device
 
 __all__ = ["get_curve", "get_field", "ntt", "ntt_jit", "NTTConfig", "NTTDir", "Ordering",
            "matmul", "MatMulConfig", "Polynomial",
-           "msm_affine", "MSMConfig", "Poseidon2", "Poseidon", "Blake2s", "Blake3", "Keccak256",
+           "msm", "msm_affine", "msm_precompute_bases", "MSMConfig", "Poseidon2", "Poseidon", "Blake2s", "Blake3", "Keccak256",
            "Keccak512", "Sha3_256", "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",
            "Program", "ReturningValueProgram", "PreDefined", "execute_program",
            "sumcheck_prove", "sumcheck_verify", "SumcheckConfig", "SumcheckTranscriptConfig",

@@ -167,6 +167,13 @@ class Group:
     def neg(self, p: Projective) -> Projective:
         return pneg(self.f, p)
 
+    def glv_beta_mont(self, device) -> torch.Tensor:
+        """Montgomery-form beta of the GLV endomorphism (x, y) -> (beta x, y)
+        (curves/glv.py) as (L,) limbs on `device`."""
+        from icicle_tpu_torch.curves.glv import glv_constants
+        beta, _ = glv_constants(self.curve.name)
+        return self._const(self.coord_field.params.to_mont_int(beta), device)
+
     def is_identity(self, p: Projective):
         return self.f.is_zero(p.z)
 

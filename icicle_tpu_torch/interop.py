@@ -66,24 +66,23 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     """The JAX package's `msm_tpu3_prepare` result -> the port's prepared
     bases on `device`, for `msm_tpu3(prepared=...)`.
 
-    `prepared` holds the plan (c, T, tiles, wg, engine, ...) and `pts_u8`,
-    the (tiles, T, 8L) int8 Montgomery byte planes of x || y (little-endian
-    bytes of each uint32 limb, icicle_tpu/ops/msm_tpu3.py:446-457); pass
-    `np.asarray(prepared["pts_u8"])` or the jax.Array itself. The limbs are
-    in the plan's engine's domain (R = 2^(32 L) for "u32", R' = 2^(12 nw)
-    for "r12") and carry over as they are, with the engine."""
+    `prepared` holds the plan (c, T, tiles, wg, engine, nu, glv, ...) and
+    `pts_u8`, the (tiles, T, 8L) int8 Montgomery byte planes of x || y
+    (little-endian bytes of each uint32 limb,
+    icicle_tpu/ops/msm_tpu3.py:446-457); pass `np.asarray(prepared["pts_u8"])`
+    or the jax.Array itself. The limbs are in the plan's engine's domain
+    (R = 2^(32 L) for "u32", R' = 2^(12 nw) for "r12") and carry over as they
+    are, with the engine: the bases of precomputed copies (nu > 1) and of
+    GLV's [P, phi(P)] (glv=True) too."""
     if prepared["engine"] not in ENGINES:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
                               f"prepared_from_numpy: unknown engine {prepared['engine']!r}")
-    if prepared["nu"] != 1 or prepared.get("glv", False):
-        raise NotImplementedError(
-            "prepared_from_numpy: precomputed or GLV bases are not ported yet "
-            "(ROADMAP.md queue A item 6)")
     planes = np.ascontiguousarray(np.asarray(prepared["pts_u8"])).view(np.uint8)
     tiles, T, nbytes = planes.shape
     limbs = planes.reshape(tiles * T, nbytes).view("<u4").astype(np.uint32)
     plan = {k: prepared[k] for k in ("engine", "nbits", "c", "M", "T", "tiles",
                                      "n_windows", "wg", "n_pad", "nu")}
+    plan["glv"] = bool(prepared.get("glv", False))
     xy = torch.from_numpy(limbs.view(np.int32)).to(resolve(device))
     return dict(plan, pts=signed_table(get_curve(curve_name).fq, xy), n=prepared["n"])
 

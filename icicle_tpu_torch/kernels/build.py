@@ -27,9 +27,14 @@ CSRC = os.path.join(_PKG, "kernels", "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # library name -> its sources in CSRC (headers: every *.cuh in CSRC); one
-# source per library, so that every source compiles in its own nvcc
+# source per library, so that every source compiles in its own nvcc. The
+# 12- and 24-limb instances of B3 and B4 are their sources compiled again
+# with another ICICLE_EC_LIMBS (DEFINES), each in its own nvcc.
 LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["msm_scan.cu"],
-             "ec_reduce": ["ec_reduce.cu"], "msm_scan_r12": ["msm_scan_r12.cu"],
+             "msm_scan_l12": ["msm_scan.cu"], "msm_scan_l24": ["msm_scan.cu"],
+             "ec_reduce": ["ec_reduce.cu"], "ec_reduce_l12": ["ec_reduce.cu"],
+             "ec_reduce_l24": ["ec_reduce.cu"], "precompute_bases": ["precompute_bases.cu"],
+             "msm_scan_r12": ["msm_scan_r12.cu"],
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
              "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"],
              "poseidon2_gl64": ["poseidon2_gl64.cu"],
@@ -37,6 +42,10 @@ LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["m
              "blake2s": ["blake2s.cu"], "blake3": ["blake3.cu"],
              "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
              "program": ["program.cu"]}
+
+# library name -> its extra nvcc flags
+DEFINES = {f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
+           for kernel in ("msm_scan", "ec_reduce") for nl in (12, 24)}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,7 +96,7 @@ def build_all(names=None) -> dict[str, str]:
         if not _stale(name):
             continue
         tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc(), *NVCC_FLAGS, *DEFINES.get(name, []), "-o", tmp,
                *(os.path.join(CSRC, s) for s in LIBRARIES[name])]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True), tmp)

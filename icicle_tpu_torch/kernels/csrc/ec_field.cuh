@@ -1,8 +1,10 @@
 // Multi-limb Montgomery field arithmetic and complete elliptic-curve adds
 // on one thread's registers, for NVIDIA Hopper (sm_90a). Shared by the MSM
-// kernels msm_scan.cu (B3), ec_reduce.cu (B4), msm_fold2.cu (B6) and
-// bucket_accum.cu (B7); templated on the limb count L, instantiated by them
-// for L = 8 (bn254 and grumpkin).
+// kernels msm_scan.cu (B3), ec_reduce.cu (B4), msm_fold2.cu (B6),
+// bucket_accum.cu (B7) and precompute_bases.cu; templated on the limb count
+// L. B3, B4 and precompute_bases are instantiated for L = 8 (bn254,
+// grumpkin), 12 (bls12_377, bls12_381) and 24 (bw6_761); B6 and B7 for
+// L = 8.
 //
 // Elements are L little-endian uint32 limbs of the canonical value in
 // [0, p), Montgomery form with R = 2^(32 L): the bits that the torch side
@@ -12,10 +14,11 @@
 //
 // The curve formulas are the complete projective formulas for a = 0
 // (Renes-Costello-Batina 2015): Alg 7 (`padd`, 12 Montgomery multiplies + 2
-// by b3) and Alg 8 (`madd`, 11 + 2), line for line as
-// icicle_tpu/curves/group.py. b3 = 3b is a small signed integer on the
-// curves built here (9 on bn254, -51 on grumpkin), so a multiply by it is a
-// short chain of modular adds (`mul_small`), as in the Pallas bodies
+// by b3), Alg 8 (`madd`, 11 + 2) and Alg 9 (`dbl`, 8 + 1), line for line as
+// icicle_tpu/curves/group.py. b3 = 3b is a small signed integer on every
+// curve built here (9 on bn254, -51 on grumpkin, 3 on bls12_377, 12 on
+// bls12_381, -3 on bw6_761), so a multiply by it is a short chain of
+// modular adds (`mul_small`), as in the Pallas bodies
 // (icicle_tpu/pallas/msm_kernel.py: _ListField.mul_small, _b3_small).
 
 #pragma once
@@ -102,14 +105,17 @@ __device__ __forceinline__ Fp<L> sub_mod(const Fp<L>& a, const Fp<L>& b,
 }
 
 // a * b * R^-1 mod p: CIOS with 32-bit words. Each 32x32->64 product is one
-// mad.wide.u32; a*b_i + t_j + carry < 2^64, so no step overflows.
+// mad.wide.u32; a*b_i + t_j + carry < 2^64, so no step overflows. The outer
+// loop is unrolled up to L = 12; at L = 24 it stays rolled (each of the
+// curve formulas' multiplies would otherwise be 1,200 straight-line
+// multiply-adds, and the compile time with them).
 template <int L>
 __device__ __forceinline__ Fp<L> mont_mul(const Fp<L>& a, const Fp<L>& b,
                                           const CurveConsts<L>& c) {
   uint32_t t[L + 2];
 #pragma unroll
   for (int j = 0; j < L + 2; ++j) t[j] = 0;
-#pragma unroll
+#pragma unroll (L <= 12 ? L : 1)
   for (int i = 0; i < L; ++i) {
     uint64_t carry = 0;
 #pragma unroll
@@ -223,6 +229,31 @@ __device__ __forceinline__ Point<L> padd(const Point<L>& p, const Point<L>& q,
   r.x = sub_mod<L>(mont_mul<L>(t3, t1, c), mont_mul<L>(t4, y3, c), c);
   r.y = add_mod<L>(mont_mul<L>(t1, z3, c), mont_mul<L>(y3, t0, c), c);
   r.z = add_mod<L>(mont_mul<L>(z3, t4, c), mont_mul<L>(t0, t3, c), c);
+  return r;
+}
+
+// Complete doubling, RCB15 Alg 9 (a = 0): 2p, as icicle_tpu/curves/group.py
+// pdbl.
+template <int L>
+__device__ __forceinline__ Point<L> dbl(const Point<L>& p, const CurveConsts<L>& c) {
+  Fp<L> t0 = mont_mul<L>(p.y, p.y, c);
+  Fp<L> z3 = add_mod<L>(t0, t0, c);
+  z3 = add_mod<L>(z3, z3, c);
+  z3 = add_mod<L>(z3, z3, c);                                     // 8 y^2
+  Fp<L> t1 = mont_mul<L>(p.y, p.z, c);
+  Fp<L> t2 = mul_small<L>(mont_mul<L>(p.z, p.z, c), c.b3, c);     // 3b z^2
+  Fp<L> x3 = mont_mul<L>(t2, z3, c);
+  Fp<L> y3 = add_mod<L>(t0, t2, c);
+  z3 = mont_mul<L>(t1, z3, c);
+  t1 = add_mod<L>(t2, t2, c);
+  t2 = add_mod<L>(t1, t2, c);                                     // 9b z^2
+  t0 = sub_mod<L>(t0, t2, c);                                     // y^2 - 9b z^2
+  y3 = add_mod<L>(mont_mul<L>(t0, y3, c), x3, c);
+  x3 = mont_mul<L>(t0, mont_mul<L>(p.x, p.y, c), c);
+  Point<L> r;
+  r.x = add_mod<L>(x3, x3, c);
+  r.y = y3;
+  r.z = z3;
   return r;
 }
 

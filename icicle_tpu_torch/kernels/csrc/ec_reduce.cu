@@ -15,8 +15,8 @@
 // identity would scale the projective coordinates by Y).
 //
 // Bound: per row 12 Montgomery multiplies of 4L^2 + L 32-bit multiplies
-// each (the two by b3 are add chains) against 3L * 4 bytes read; at L = 8
-// the multiplies bound it (chip_smoke.py computes both from each run's
+// each (the two by b3 are add chains) against 3L * 4 bytes read; at every
+// L the multiplies bound it (chip_smoke.py computes both from each run's
 // shapes). The tree's S - 1 extra adds per lane are not part of the bound.
 //
 // Design: one thread per lane would run R dependent adds on C threads (at
@@ -49,8 +49,10 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
 ec_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                  int R, int C, int S, int n, const CurveConsts<L> c) {
   // per segment 3L words x G lanes, plus G words of padding so that the
-  // 32 / G segments of one warp fall in distinct banks
-  __shared__ uint32_t part[kSplitThreads * (3 * L + 1)];
+  // 32 / G segments of one warp fall in distinct banks: part_bytes<L>()
+  // of dynamic shared memory (74,752 bytes at L = 24, over the 48 KB that
+  // static shared memory may take)
+  extern __shared__ uint32_t part[];
   const int G = kSplitThreads / S;
   const int g = threadIdx.x % G;
   const int seg = threadIdx.x / G;
@@ -74,24 +76,56 @@ ec_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   if (seg == 0 && live) store_point<L>(out + lane, row, acc);
 }
 
+template <int L>
+constexpr size_t part_bytes() {
+  return sizeof(uint32_t) * kSplitThreads * (3 * L + 1);
+}
+
+template <int L>
+int launch_reduce(const void* in, void* out, int R, int C, int S, const unsigned int* consts,
+                  cudaStream_t st) {
+  if (part_bytes<L>() > 48 * 1024) {
+    // above 48 KB a kernel takes dynamic shared memory only after this, on
+    // each device it runs on
+    const cudaError_t set = cudaFuncSetAttribute(
+        ec_reduce_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(part_bytes<L>()));
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const int G = kSplitThreads / S;
+  const int n = (R + S - 1) / S;
+  ec_reduce_kernel<L><<<(C + G - 1) / G, kSplitThreads, part_bytes<L>(), st>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), R, C, S, n,
+      consts_from<L>(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The library's limb count: build.py compiles this source once per
+// instance (libec_reduce: 8, libec_reduce_l12: 12, libec_reduce_l24: 24).
+#ifndef ICICLE_EC_LIMBS
+#define ICICLE_EC_LIMBS 8
+#endif
 
 extern "C" {
 
 // Launches the reduction on `stream` without synchronising. in, out: device
 // pointers, (R, 3L, C) and (3L, C) uint32. S: segments per lane, a power of
-// two <= 32. consts: host array {p[L], one[L], inv32, b3}. Only L = 8 is
-// built. Returns the launch's cudaError_t (0 on success).
+// two <= 32. consts: host array {p[L], one[L], inv32, b3}. L must be the
+// library's ICICLE_EC_LIMBS. Returns the launch's cudaError_t (0 on
+// success).
 int icicle_msm_ec_reduce(const void* in, void* out, int R, int C, int S, int L,
                          const unsigned int* consts, void* stream) {
-  if (L != 8 || R < 1 || C < 1 || S < 1 || S > 32 || (S & (S - 1)))
+  if (R < 1 || C < 1 || S < 1 || S > 32 || (S & (S - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = kSplitThreads / S;
-  const int n = (R + S - 1) / S;
-  ec_reduce_kernel<8><<<(C + G - 1) / G, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), R, C, S, n,
-      consts_from<8>(consts));
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (L) {
+    case ICICLE_EC_LIMBS:
+      return launch_reduce<ICICLE_EC_LIMBS>(in, out, R, C, S, consts, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

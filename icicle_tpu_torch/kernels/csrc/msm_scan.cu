@@ -13,9 +13,11 @@
 // they are folded into C (n_groups = 1).
 //
 // Bound: per slot 11 Montgomery multiplies of 4L^2 + L 32-bit multiplies
-// each (264 at L = 8; the two by b3 are add chains) against 5L * 4 bytes
-// moved; at L = 8 the multiplies bound it (chip_smoke.py computes both from
-// each run's shapes). The extra adds the split below spends are not part of
+// each (264 at L = 8, 588 at 12, 2,328 at 24; the two by b3 are add chains)
+// against 5L * 4 bytes moved; the multiplies bound it at every L
+// (chip_smoke.py computes both from each run's shapes). At L = 12 and 24 a
+// thread's point and temporaries pass the 255-register cap, and ptxas
+// spills (its report, in chip_smoke.py's build lines). The extra adds the split below spends are not part of
 // the bound.
 //
 // Design: a scan over K slots with one thread per lane is K dependent adds
@@ -95,34 +97,55 @@ rescan_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 
 }  // namespace
 
-extern "C" {
+// The library's limb count: build.py compiles this source once per
+// instance (libmsm_scan: 8, libmsm_scan_l12: 12, libmsm_scan_l24: 24), so
+// that the instances compile in parallel.
+#ifndef ICICLE_EC_LIMBS
+#define ICICLE_EC_LIMBS 8
+#endif
 
-// Launches the scan's passes on `stream` without synchronising. in, out,
-// carries: device pointers, (K, 2L, C), (K, 3L, C) and (S - 1, 3L, C)
-// uint32 (carries is scratch, unused when S = 1). S: segments per lane,
-// 1 <= S <= 65535. consts: host array {p[L], one[L], inv32, b3}. Only
-// L = 8 is built. Returns the first refused launch's cudaError_t (0 on
-// success).
-int icicle_msm_prefix_scan(const void* in, void* out, void* carries, int K, int C, int S,
-                           int L, const unsigned int* consts, void* stream) {
-  if (L != 8 || K < 1 || C < 1 || S < 1 || S > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto c = consts_from<8>(consts);
+namespace {
+
+template <int L>
+int launch_scan(const void* in, void* out, void* carries, int K, int C, int S,
+                const unsigned int* consts, cudaStream_t st) {
+  const auto c = consts_from<L>(consts);
   const auto* src = static_cast<const uint32_t*>(in);
   auto* dst = static_cast<uint32_t*>(out);
   auto* car = static_cast<uint32_t*>(carries);
   const int n = (K + S - 1) / S;
   const int lane_blocks = (C + kSplitThreads - 1) / kSplitThreads;
   const dim3 grid1(lane_blocks, S > 1 ? S - 1 : 1);
-  scan_reduce_kernel<8><<<grid1, kSplitThreads, 0, st>>>(src, dst, car, K, C, S, n, c);
+  scan_reduce_kernel<L><<<grid1, kSplitThreads, 0, st>>>(src, dst, car, K, C, S, n, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  err = launch_carry_scan<8>(car, C, S, c, st);
+  err = launch_carry_scan<L>(car, C, S, c, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rescan_kernel<8><<<dim3(lane_blocks, S - 1), kSplitThreads, 0, st>>>(src, dst, car, K, C, n,
+  rescan_kernel<L><<<dim3(lane_blocks, S - 1), kSplitThreads, 0, st>>>(src, dst, car, K, C, n,
                                                                        c);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the scan's passes on `stream` without synchronising. in, out,
+// carries: device pointers, (K, 2L, C), (K, 3L, C) and (S - 1, 3L, C)
+// uint32 (carries is scratch, unused when S = 1). S: segments per lane,
+// 1 <= S <= 65535. consts: host array {p[L], one[L], inv32, b3}. L must be
+// the library's ICICLE_EC_LIMBS. Returns the first refused launch's
+// cudaError_t (0 on success).
+int icicle_msm_prefix_scan(const void* in, void* out, void* carries, int K, int C, int S,
+                           int L, const unsigned int* consts, void* stream) {
+  if (K < 1 || C < 1 || S < 1 || S > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (L) {
+    case ICICLE_EC_LIMBS:
+      return launch_scan<ICICLE_EC_LIMBS>(in, out, carries, K, C, S, consts, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -1,14 +1,18 @@
 """The MSM's CUDA libraries (`msm_scan` from kernels/csrc/msm_scan.cu,
-`ec_reduce` from ec_reduce.cu, `msm_fold2` from msm_fold2.cu and
-`bucket_accum` from bucket_accum.cu, all over ec_field.cuh; `msm_scan_r12`
-from msm_scan_r12.cu over radix12.cuh): loading with ctypes, the curve
-constants their kernels take, and the checks the wrappers share.
+`ec_reduce` from ec_reduce.cu, `precompute_bases` from precompute_bases.cu,
+`msm_fold2` from msm_fold2.cu and `bucket_accum` from bucket_accum.cu, all
+over ec_field.cuh; `msm_scan_r12` from msm_scan_r12.cu over radix12.cuh):
+loading with ctypes, the curve constants their kernels take, and the checks
+the wrappers share.
 
-The kernels are instantiated for L = 8 limbs (bn254, grumpkin) and multiply
-by b3 = 3b as a small integer; other curves raise before a launch. Every C
-entry point takes its tensors' device pointers, its int dimensions, L, a
-host array of curve constants and the stream, and returns the launch's
-cudaError_t.
+B3 (`prefix_scan`), B4 (`ec_reduce`) and `precompute_bases` are built for
+L = 8 limbs (bn254, grumpkin), 12 (bls12_377, bls12_381) and 24 (bw6_761):
+B3 and B4 as one library an instance (`msm_scan_l12`, ...), the
+precompute kernel as one library of all three. B5, B6 and B7 are built
+for L = 8. Every kernel multiplies by b3 = 3b as a small integer; a curve
+without an instance raises before a launch. Every C entry point takes its
+tensors' device pointers, its int dimensions, L, a host array of curve
+constants and the stream, and returns the launch's cudaError_t.
 """
 
 from __future__ import annotations
@@ -24,15 +28,19 @@ from icicle_tpu_torch.kernels import build
 from icicle_tpu_torch.math.params import limbs_of
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
-KERNEL_LIMBS = 8
-
-# kernel -> (library in build.LIBRARIES, its C entry point, number of tensor
-# arguments, number of int dimensions before L)
-KERNELS = {"prefix_scan": ("msm_scan", "icicle_msm_prefix_scan", 3, 3),
-           "ec_reduce": ("ec_reduce", "icicle_msm_ec_reduce", 2, 3),
-           "prefix_scan_r12": ("msm_scan_r12", "icicle_msm_prefix_scan_r12", 3, 3),
-           "suffix_fold": ("msm_fold2", "icicle_msm_suffix_fold", 5, 4),
-           "bucket_accum": ("bucket_accum", "icicle_msm_bucket_accum", 6, 4)}
+# kernel -> ({limb count: library in build.LIBRARIES}, its C entry point,
+# number of tensor arguments, number of int dimensions before L)
+KERNELS = {"prefix_scan": ({8: "msm_scan", 12: "msm_scan_l12", 24: "msm_scan_l24"},
+                           "icicle_msm_prefix_scan", 3, 3),
+           "ec_reduce": ({8: "ec_reduce", 12: "ec_reduce_l12", 24: "ec_reduce_l24"},
+                         "icicle_msm_ec_reduce", 2, 3),
+           "precompute_bases": (dict.fromkeys((8, 12, 24), "precompute_bases"),
+                                "icicle_msm_precompute_bases", 4, 3),
+           "prefix_scan_r12": ({8: "msm_scan_r12"}, "icicle_msm_prefix_scan_r12", 3, 3),
+           "suffix_fold": ({8: "msm_fold2"}, "icicle_msm_suffix_fold", 5, 4),
+           "bucket_accum": ({8: "bucket_accum"}, "icicle_msm_bucket_accum", 6, 4)}
+# the limb counts with a built instance of some MSM kernel
+KERNEL_LIMBS = frozenset(nl for libraries, *_ in KERNELS.values() for nl in libraries)
 
 
 # threads the split of B3's and B4's serial axis aims to run: about two
@@ -116,9 +124,9 @@ def b3_small(curve: Curve) -> int | None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(kernel: str):
-    library, entry, n_tensors, n_dims = KERNELS[kernel]
-    lib = build.load(library)
+def _entry(kernel: str, nl: int):
+    libraries, entry, n_tensors, n_dims = KERNELS[kernel]
+    lib = build.load(libraries[nl])
     fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * n_tensors + [ctypes.c_int] * (n_dims + 1)
                    + [ctypes.c_void_p, ctypes.c_void_p])
@@ -145,17 +153,32 @@ def not_built(kernel: str, curve: Curve, why: str) -> IcicleException:
                            f"{kernel}: {why}; no CUDA kernel for {curve.name}")
 
 
+def built_limbs(kernel: str) -> tuple:
+    """The limb counts `kernel` has an instance for."""
+    return tuple(sorted(KERNELS[kernel][0]))
+
+
+def require_instance(kernel: str, curve: Curve) -> None:
+    """Raises API_NOT_IMPLEMENTED unless `kernel` has an instance for the
+    curve's limb count and the curve's b3 is a small integer; callable on
+    the CPU."""
+    nl = curve.fq.nlimbs
+    built = built_limbs(kernel)
+    if nl not in built or b3_small(curve) is None:
+        has = f"{nl} limbs" if nl not in built else "a b3 that is not a small integer"
+        counts = ", ".join(map(str, built))
+        raise not_built(kernel, curve, f"the CUDA kernel is built for {counts}-limb fields "
+                        f"with a small b3, and {curve.name} has {has}")
+
+
 def launch(kernel: str, curve: Curve, tensors, dims, consts=None) -> None:
     """Launch `kernel` over `tensors` (inputs, then the output) with its int
     dimensions `dims` on the current stream; `consts` defaults to the
     ec_field.cuh constants. Raises if the curve has no instantiation or the
     launch is refused."""
+    require_instance(kernel, curve)
     nl = curve.fq.nlimbs
-    if nl != KERNEL_LIMBS or b3_small(curve) is None:
-        has = f"{nl} limbs" if nl != KERNEL_LIMBS else "a b3 that is not a small integer"
-        raise not_built(kernel, curve, f"the CUDA kernel is built for {KERNEL_LIMBS}-limb "
-                        f"fields with a small b3 (bn254, grumpkin), and {curve.name} has {has}")
-    fn, error_string = _entry(kernel)
+    fn, error_string = _entry(kernel, nl)
     consts = consts if consts is not None else _consts(curve.name)
     with torch.cuda.device(tensors[0].device):
         err = fn(*(t.data_ptr() for t in tensors), *dims, nl, ctypes.addressof(consts),

@@ -15,9 +15,9 @@ each column sum (< 2^38 for L <= 16) fits int64. A schoolbook product is
 one outer product and one anti-diagonal sum. The Montgomery reduction
 (R = 2^(32 L)) is separated operand scanning: m = (T mod R) p' mod R and
 (T + m p) / R, three such products. Carries are resolved by carry-lookahead
-on bit masks, a fixed handful of ops for any limb count up to 31 (a loop
-over the limbs beyond that), so an op costs about a hundred torch calls
-whatever L: the plain versions of the MSM kernels call this engine 13
+on bit masks, a fixed handful of ops a block of 62 columns (one block for
+L <= 15, two for bw6_761's 24 limbs), so an op costs about a hundred torch
+calls whatever L: the plain versions of the MSM kernels call this engine 13
 times per slot.
 """
 
@@ -64,8 +64,8 @@ _LOOKAHEAD_COLUMNS = 62  # carries travel as bits of one int64
 
 def _normalize(v: torch.Tensor, bits: int, carry_in: int = 0):
     """Columns v (..., n), each in [0, 2^(bits+1) - 1), plus `carry_in`
-    (0 or 1) into column 0 -> digits in [0, 2^bits) and the carry out of the
-    top column (0 or 1).
+    (0 or 1, or a tensor of them over the batch) into column 0 -> digits in
+    [0, 2^bits) and the carry out of the top column (0 or 1).
 
     Carry-lookahead in a few ops, whatever n: column k generates a carry
     when v_k >= 2^bits and propagates one when its digit is all ones. With
@@ -73,10 +73,12 @@ def _normalize(v: torch.Tensor, bits: int, carry_in: int = 0):
     sum (G | P) + G + carry_in."""
     n = v.shape[-1]
     if n > _LOOKAHEAD_COLUMNS:
-        if carry_in:
-            v = v.clone()
-            v[..., 0] += carry_in
-        return carry_resolve(v, bits)
+        # blocks of _LOOKAHEAD_COLUMNS, each block's carry out into the next
+        digits = []
+        for s in range(0, n, _LOOKAHEAD_COLUMNS):
+            d, carry_in = _normalize(v[..., s:s + _LOOKAHEAD_COLUMNS], bits, carry_in)
+            digits.append(d)
+        return torch.cat(digits, -1), carry_in
     mask = (1 << bits) - 1
     weights = 1 << torch.arange(n, dtype=I64, device=v.device)
     d = v & mask

@@ -1,27 +1,36 @@
-"""Multi-scalar multiplication: configuration, signed digits and the
-dispatched entry point (counterpart of icicle_tpu/ops/msm.py, partial).
+"""Multi-scalar multiplication: configuration, signed digits, precomputed
+bases, the generic `msm()` and the dispatched entry point (counterpart of
+icicle_tpu/ops/msm.py).
 
-Reference surface: include/icicle/msm.h (msm, MSMConfig). `msm_affine`
-dispatches on the scalars' device: "cuda" runs the v3 prefix-scan pipeline
-(ops/msm_tpu3.py) with the hand-written kernels, "torch" the same pipeline
-with their plain versions (the counterpart of the JAX package's
-`msm_tpu3(backend="xla")`), "auto" picks "cuda" for a CUDA tensor. Under
-ICICLE_TPU_MSM_PIPELINE=v2 it runs the v2 suffix-fold pipeline
-(ops/msm_tpu2.py) instead, as the JAX package does (ops/msm.py:462-466).
-The v1 pipeline (ops/msm_tpu.py `msm_tpu`) is called directly, as there.
+Reference surface: include/icicle/msm.h (msm, msm_precompute_bases,
+MSMConfig). `msm_affine` dispatches on the scalars' device: "cuda" runs
+the hand-written kernels, "torch" their plain versions, "auto" picks
+"cuda" for a CUDA tensor. Routing follows the JAX package's
+`_msm_affine_pallas` (ops/msm.py:452-469): a single G1 MSM over canonical
+inputs, with precompute_factor 1 or a power of two with an explicit c,
+takes the v3 prefix-scan pipeline (ops/msm_tpu3.py; under
+ICICLE_TPU_MSM_PIPELINE=v2 and factor 1 the v2 suffix-fold pipeline,
+ops/msm_tpu2.py); batches, Montgomery-form inputs and other factors take
+the generic `msm()`. G2 raises: it needs the extension-field towers
+(ROADMAP.md queue A item 7). The v1 pipeline (ops/msm_tpu.py `msm_tpu`)
+is called directly, as there.
+
+The generic `msm()` runs v3's stages (ops/msm_tpu3.py `msm_stages`: B3
+and B4 on a CUDA tensor) per batch element over one prepared table
+(shared points) or one per element (unshared), and lifts the affine sum
+back to Montgomery projective (x, y, 1). Where the JAX package's
+Pippenger `msm()` computes its projective coordinates by another order
+of adds, the affine point is the same. Three behaviours of the JAX
+package are not copied (ROADMAP.md §C): unshared points take element i's
+own rows iN..(i+1)N, a batched `msm_affine` returns every element's
+point, and `bitsize` holds on every route.
 
 `_auto_c`, `_segmented_scan_add` and `_prefix_scan_add` serve the v1
-pipeline; `_auto_c` is the JAX function's closed form only (its tuning
-table, measured on the TPU, is not carried over). The three pipelines
-share the rest of this module: the signed digits, the +-P point table
-(`point_table`, `signed_table`), `resolve_backend`, the B4 fold
-`fold_rows` and `horner`.
-
-Only the single G1 MSM over canonical inputs is ported. G2, a batch axis
-(or unshared points), Montgomery-form inputs, `precompute_factor > 1` and a
-`bitsize` other than the scalar field's width take the JAX package's
-generic Pippenger `msm()`, which waits for ROADMAP.md queue A item 6; here
-they raise NotImplementedError and never take another route.
+pipeline and the generic `msm()`'s window size; `_auto_c` is the JAX
+function's closed form only (its tuning table, measured on the TPU, is
+not carried over). The pipelines share the rest of this module: the
+signed digits, the +-P point table (`point_table`, `signed_table`),
+`resolve_backend`, the B4 fold `fold_rows` and `horner`.
 """
 
 from __future__ import annotations
@@ -272,36 +281,186 @@ def horner(fq, wsums: torch.Tensor, c: int):
     return acc if acc is not INF else (0, 0)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"msm: {what} takes the generic Pippenger msm(), which is not ported "
-        "yet (ROADMAP.md queue A item 6)")
+def _precompute_digit_remap(digits: torch.Tensor, nu: int, n: int, G0: int):
+    """(W, ..., N) digits -> (G, ..., nu N) merged-window digits for
+    precomputed bases with stride G0 = shift / c (cpu_msm.hpp:469): window
+    w = j G0 + m of point i becomes merged window m of copy nu i + j.
+    Windows beyond nu G0 (the signed-digit carry window) ride the LAST copy
+    at m >= G0, so G = W - (nu - 1) G0 (at least G0). One gather: merged
+    window m of copy j reads window j G0 + m, or a zero row where the JAX
+    function pads its blocks."""
+    W = digits.shape[0]
+    G = max(G0, W - (nu - 1) * G0)
+    src = [[j * G0 + m if (m < G0 or j == nu - 1) and j * G0 + m < W else W
+            for j in range(nu)] for m in range(G)]
+    padded = torch.cat([digits, digits.new_zeros((1,) + digits.shape[1:])])
+    dp = padded[torch.tensor(src, device=digits.device)]       # (G, nu, ..., N)
+    return dp.movedim(1, -1).reshape(G, *digits.shape[1:-1], nu * n), G
 
 
-def _check_v3(curve_name: str, scalars: torch.Tensor, cfg: MSMConfig) -> None:
+def msm_precompute_bases(curve_name: str, points_x, points_y, cfg: MSMConfig | None = None):
+    """Reference msm_precompute_bases (msm.h:107; cpu_msm.hpp:455-481):
+    (N, L) canonical affine coordinates -> interleaved (nu N, L) canonical
+    affine coordinates with row nu i + j = 2^(j shift) P_i,
+    shift = precompute_shift(bitsize, c, nu). On a CUDA tensor the
+    `precompute_bases` kernel computes the copies, on the CPU its plain
+    version (cfg.backend may say "torch" or "cuda").
+
+    The window size must match the later msm() call: pass an explicit cfg.c
+    (0 takes `_auto_c(N)`, the port's closed form; the JAX package's may
+    differ). Torch tensors are used where they lie; numpy uint32 arrays go
+    to the default device. nu = 1 returns the points as they are."""
+    from icicle_tpu_torch.kernels.precompute_kernel import (precompute_bases,
+                                                            precompute_bases_ref)
+    cfg = cfg or MSMConfig()
     if cfg.g2:
-        raise _unported("G2")
-    if scalars.dim() == 3 or cfg.batch_size != 1 or not cfg.are_points_shared_in_batch:
-        raise _unported("a batch axis")
-    nbits = get_curve(curve_name).fr.modulus.bit_length()
-    if cfg.bitsize not in (0, nbits):
-        raise _unported(f"bitsize {cfg.bitsize} (the scalar field has {nbits} bits)")
-    if cfg.are_scalars_montgomery_form or cfg.are_points_montgomery_form:
-        raise _unported("Montgomery-form inputs")
-    if cfg.precompute_factor > 1:
-        raise _unported("precompute_factor > 1")
+        raise _g2_unported("msm_precompute_bases")
+    px = _limb_tensor(points_x, None).contiguous()
+    py = _limb_tensor(points_y, px.device).contiguous()
+    nu = cfg.precompute_factor
+    if nu == 1:
+        return px, py
+    curve = get_curve(curve_name)
+    nbits = cfg.bitsize or curve.fr.modulus.bit_length()
+    shift = precompute_shift(nbits, cfg.c or _auto_c(px.shape[0]), nu)
+    fn = precompute_bases if resolve_backend(cfg.backend, px, "msm_precompute_bases") \
+        else precompute_bases_ref
+    return fn(curve, px, py, nu, shift)
+
+
+def _g2_unported(who: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{who}: G2 needs the extension-field towers, which are not ported yet "
+        "(ROADMAP.md queue A item 7)")
+
+
+GENERIC_TILES = 128
+
+
+def generic_tile(rows: int) -> int:
+    """The generic msm()'s tile T over `rows` bases: rows / GENERIC_TILES
+    rounded up to a power of two, 16 to 8192. The MSMs it serves are small
+    (batch elements, 2^10-2^16 points), where v3's plan (T >= 256, up to
+    8192) leaves a few lanes to scan thousands of serial slots; 128 tiles
+    give B3 more lanes and shorter chains."""
+    return min(8192, 1 << max(4, (-(-rows // GENERIC_TILES) - 1).bit_length()))
+
+
+def generic_plan(curve_name: str, rows: int, c: int, nu: int = 1, nbits: int = 0) -> dict:
+    """The generic msm()'s plan over `rows` bases (nu N rows of copies for
+    nu > 1): v3's at tile generic_tile(rows), its wg picked on the windows
+    left after the copies merge them, where v3 (and the JAX package) pick
+    it before, so no group scans windows of zero digits (at 2^10 x 23, c 8:
+    2 windows, not 8). nbits: the scalars' bits, 0 for the scalar field's."""
+    from icicle_tpu_torch.ops.msm_tpu3 import _resolve_plan, pick_wg
+    T = generic_tile(rows)
+    plan = _resolve_plan(curve_name, rows, c, T, None, "u32", nu, False, nbits)
+    return dict(plan, wg=pick_wg(plan["n_windows"], plan["tiles"], T))
+
+
+def _generic_points(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig):
+    """The generic MSM's canonical affine results as Python ints, one a
+    batch element, and whether the call was a batch.
+
+    scalars (N, Ls), (B, N, Ls), or (B N, Ls) with cfg.batch_size = B > 1;
+    points (nu N, L) shared by the batch, or (B nu N, L) with
+    are_points_shared_in_batch=False, element i taking rows
+    [i nu N, (i + 1) nu N) (reference msm.h); nu N rows are the output of
+    msm_precompute_bases where nu = cfg.precompute_factor > 1."""
+    from icicle_tpu_torch.ops.msm_tpu3 import msm_stages, msm_tpu3_prepare, plan_digits
+    if cfg.g2:
+        raise _g2_unported("msm")
+    curve = get_curve(curve_name)
+    fr, fq = curve.fr, curve.fq
+    scalars = _limb_tensor(scalars, None)
+    px = _limb_tensor(points_x, scalars.device)
+    py = _limb_tensor(points_y, scalars.device)
+    batched = scalars.dim() == 3 or cfg.batch_size > 1
+    if scalars.dim() == 2:
+        B = cfg.batch_size if cfg.batch_size > 1 else 1
+        if scalars.shape[0] % B:
+            raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                                  f"msm: {scalars.shape[0]} scalars for batch_size {B}")
+        scalars = scalars.view(B, -1, scalars.shape[-1])
+    if scalars.dim() != 3 or scalars.dtype != torch.int32:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm: scalars must be (N, Ls) or (B, N, Ls) int32, got "
+                              f"{tuple(scalars.shape)} {scalars.dtype}")
+    B, N = scalars.shape[:2]
+    nu = cfg.precompute_factor
+    rows = nu * N
+    shared = cfg.are_points_shared_in_batch or B == 1
+    if px.shape != (rows if shared else B * rows, fq.nlimbs) or py.shape != px.shape:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm: {B} x {N} scalars at precompute_factor {nu} need "
+                              f"({rows if shared else B * rows}, {fq.nlimbs}) coordinates, "
+                              f"got {tuple(px.shape)} and {tuple(py.shape)}")
+    if cfg.are_scalars_montgomery_form:
+        scalars = fr.from_mont(scalars)
+    if cfg.are_points_montgomery_form:
+        px, py = fq.from_mont(px), fq.from_mont(py)
+    nbits = cfg.bitsize or fr.modulus.bit_length()
+    plan = generic_plan(curve_name, rows, cfg.c or _auto_c(N), nu, nbits)
+
+    def prepare(x, y):
+        return msm_tpu3_prepare(curve_name, x.contiguous(), y.contiguous(), c=plan["c"],
+                                T=plan["T"], engine="u32", precompute_factor=nu,
+                                wg=plan["wg"], bitsize=nbits)
+
+    table = prepare(px, py) if shared else None
+    # every element's digits at once: (W, B, N), or (G, B, nu N) merged
+    digits = plan_digits(curve_name, scalars, plan)
+    out = []
+    for i in range(B):
+        prepared = table or prepare(px[i * rows:(i + 1) * rows], py[i * rows:(i + 1) * rows])
+        out.append(msm_stages(curve_name, digits[:, i], prepared, cfg.backend))
+    return out, batched
+
+
+def msm(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig | None = None) -> Projective:
+    """MSM over canonical-form inputs (or Montgomery-form ones, as cfg
+    says). Returns a Montgomery-form projective point on the scalars'
+    device, (x R, y R, R) or the identity (0, R, 0); (B, L) coordinates
+    for a batch (use Group.to_affine_canonical to read out).
+
+    scalars: (N, Ls) limbs, (B, N, Ls), or (B N, Ls) with cfg.batch_size =
+    B; points (N, L) each, (B N, L) with are_points_shared_in_batch=False
+    (element i takes rows iN..(i+1)N). With cfg.precompute_factor = nu > 1
+    the points are the interleaved (nu N, L) output of msm_precompute_bases
+    with the same cfg.c (per element when unshared). Torch tensors are used
+    where they lie; numpy uint32 arrays go to the default device. Backend:
+    cfg.backend, else the scalars' device."""
+    cfg = cfg or MSMConfig()
+    pts, batched = _generic_points(curve_name, scalars, points_x, points_y, cfg)
+    fq = get_curve(curve_name).fq
+    to_mont = fq.params.to_mont_int
+    one = to_mont(1)
+    coords = [(0, one, 0) if p == (0, 0) else (to_mont(p[0]), to_mont(p[1]), one) for p in pts]
+    dev = _limb_tensor(scalars, None).device
+    xyz = fq.from_ints([v for p in coords for v in p], dev).view(len(pts), 3, fq.nlimbs)
+    if not batched:
+        xyz = xyz[0]
+    return Projective(*xyz.unbind(-2))
 
 
 def _msm_affine_pipeline(backend: str):
     def run(curve_name, scalars, points_x, points_y, cfg):
-        _check_v3(curve_name, scalars, cfg)
-        if os.environ.get("ICICLE_TPU_MSM_PIPELINE", "v3") == "v2":
+        if cfg.g2:
+            raise _g2_unported("msm")
+        cfg = dataclasses.replace(cfg, backend=backend)
+        nu = cfg.precompute_factor
+        v3_pre = nu > 1 and cfg.c and nu & (nu - 1) == 0
+        if (scalars.dim() == 3 or cfg.batch_size > 1 or (nu > 1 and not v3_pre)
+                or cfg.are_scalars_montgomery_form or cfg.are_points_montgomery_form):
+            pts, batched = _generic_points(curve_name, scalars, points_x, points_y, cfg)
+            return pts if batched else pts[0]
+        if os.environ.get("ICICLE_TPU_MSM_PIPELINE", "v3") == "v2" and nu == 1:
             from icicle_tpu_torch.ops.msm_tpu2 import msm_tpu2
             return msm_tpu2(curve_name, scalars, points_x, points_y,
-                            c=cfg.c or None, backend=backend)
+                            c=cfg.c or None, backend=backend, bitsize=cfg.bitsize)
         from icicle_tpu_torch.ops.msm_tpu3 import msm_tpu3
-        return msm_tpu3(curve_name, scalars, points_x, points_y,
-                        c=cfg.c or None, backend=backend)
+        return msm_tpu3(curve_name, scalars, points_x, points_y, c=cfg.c or None,
+                        backend=backend, precompute_factor=nu, bitsize=cfg.bitsize)
     return run
 
 
@@ -312,13 +471,15 @@ _dispatcher.register_impl("msm", _dispatcher.CUDA, _msm_affine_pipeline("cuda"))
 def msm_affine(curve_name: str, scalars, points_x, points_y,
                cfg: MSMConfig | None = None):
     """Dispatched MSM returning the canonical affine result as python ints
-    ((0, 0) = identity).
+    ((0, 0) = identity); for a batch, the list of every element's result.
 
-    scalars: (N, Ls) canonical limbs; points_x, points_y: (N, L) canonical
-    affine coordinates. Torch tensors (int32 holding the uint32 limb bits)
-    are used where they lie; numpy uint32 arrays go to the default device,
-    CUDA unless `set_device("cpu")` was called. Backend: cfg.backend, else
-    "auto" (the scalars' device)."""
+    scalars: (N, Ls) canonical limbs, (B, N, Ls), or (B N, Ls) with
+    cfg.batch_size = B; points_x, points_y: (N, L) canonical affine
+    coordinates (see `msm` for unshared batches, precomputed bases and
+    Montgomery-form inputs). Torch tensors (int32 holding the uint32 limb
+    bits) are used where they lie; numpy uint32 arrays go to the default
+    device, CUDA unless `set_device("cpu")` was called. Backend:
+    cfg.backend, else "auto" (the scalars' device)."""
     cfg = cfg or MSMConfig()
     scalars = _limb_tensor(scalars, None)
     points_x = _limb_tensor(points_x, scalars.device)

@@ -80,14 +80,16 @@ def _plan2(n: int, c: int | None, nbits: int, T: int | None):
 
 
 def msm_tpu2(curve_name: str, scalars, points_x, points_y,
-             c: int | None = None, T: int | None = None, backend: str | None = None):
+             c: int | None = None, T: int | None = None, backend: str | None = None,
+             bitsize: int = 0):
     """Suffix-fold MSM. scalars (N, Ls) int32 limbs on the device to compute
     on (numpy uint32 arrays go to the default device), canonical; points
     canonical affine (N, L) on the same device. Returns the canonical affine
     (x, y) as Python ints ((0, 0) = the identity).
 
     backend: None / "auto" (the scalars' device), "cuda" (the kernels) or
-    "torch" (their plain versions)."""
+    "torch" (their plain versions). bitsize: the scalars' bits, 0 for the
+    scalar field's (MSMConfig.bitsize)."""
     scalars = _limb_tensor(scalars, None)
     px = _limb_tensor(points_x, scalars.device)
     py = _limb_tensor(points_y, scalars.device)
@@ -103,7 +105,7 @@ def msm_tpu2(curve_name: str, scalars, points_x, points_y,
     nl = fq.nlimbs
     dev = scalars.device
     n = scalars.shape[0]
-    nbits = curve.fr.modulus.bit_length()
+    nbits = bitsize or curve.fr.modulus.bit_length()
     c, M, T, tiles, n_windows, wg = _plan2(n, c, nbits, T)
     n_pad = tiles * T
     K, C = T + M, wg * tiles

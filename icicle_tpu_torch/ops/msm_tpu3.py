@@ -1,11 +1,14 @@
 """Prefix-scan MSM pipeline (v3) on PyTorch and CUDA (counterpart of
-icicle_tpu/ops/msm_tpu3.py, engines "u32" and "r12").
+icicle_tpu/ops/msm_tpu3.py, engines "u32" and "r12"), over every G1 curve.
 
-Reference surface: include/icicle/msm.h (msm, MSMConfig.c); CPU algorithm
-backend/cpu/src/curve/cpu_msm.hpp phases 1-3. Per window group of `wg`
-windows, on the scalars' device:
+Reference surface: include/icicle/msm.h (msm, MSMConfig.c,
+precompute_factor); CPU algorithm backend/cpu/src/curve/cpu_msm.hpp phases
+1-3. Per window group of `wg` windows, on the scalars' device:
 
-  1. signed digits (ops/msm.py `_signed_digits_t`), all windows at once;
+  1. signed digits, all windows at once (`plan_digits`: ops/msm.py
+     `_signed_digits_t`; with precomputed bases, nu > 1, the copies'
+     merged windows, ops/msm.py `_precompute_digit_remap`; with glv, the
+     split halves' digits over [P, phi(P)], ops/msm_glv.py);
   2. per (window, tile of T points): one int32 sort of the packed key
      ((M - |digit|) << 14 | neg << 13 | index): |digit| descending, unique;
   3. the permute: one gather from the prepared table of 2 n_pad points
@@ -23,6 +26,10 @@ windows, on the scalars' device:
      bucket axis, windows riding the lanes;
   8. Horner over the windows and the affine conversion on the host, in
      Python ints: only the (W, 3, L) window sums leave the device.
+
+Steps 2-8 are `msm_stages`, which takes any (W, columns) digit matrix over
+a prepared table: `msm_tpu3` and the generic `msm()` (ops/msm.py: batches,
+Montgomery-form inputs, any precompute factor) both end in it.
 
 backend "cuda" runs steps 4, 6 and 7 in the hand-written kernels, "torch"
 in their plain versions (the JAX package's backend="xla"). The JAX package
@@ -56,8 +63,10 @@ from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.kernels.ec_reduce import ec_reduce, ec_reduce_ref
 from icicle_tpu_torch.kernels.msm_scan import prefix_scan, prefix_scan_ref
 from icicle_tpu_torch.kernels.msm_scan_r12 import prefix_scan_r12, prefix_scan_r12_ref, r12_engine
-from icicle_tpu_torch.ops.msm import (_limb_tensor, _signed_digits_t, fold_rows, horner,
-                                      point_table, resolve_backend, signed_window_count)
+from icicle_tpu_torch.ops.msm import (_limb_tensor, _precompute_digit_remap, _signed_digits_t,
+                                      fold_rows, horner, point_table, precompute_shift,
+                                      resolve_backend, signed_window_count)
+from icicle_tpu_torch.ops.msm_glv import glv_digits_t, glv_split_bound
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
 _IDX_BITS = 13
@@ -65,6 +74,26 @@ _NEG_BIT = 13
 _KEY_SHIFT = 14
 
 ENGINES = ("u32", "r12")
+
+
+def pick_wg(n_windows: int, tiles: int, T: int) -> int:
+    """Windows per group: powers of two up to 8 whose in-flight permuted
+    points and E-stream (~160 B a slot) stay within 6 GiB; the one that
+    fills the most of 1024 lanes (wg * tiles), then pads the fewest
+    windows, then makes the fewest groups."""
+    byte_budget = 6 << 30
+    per_window = tiles * T * 160
+    wg_cap = max(1, min(n_windows, byte_budget // max(per_window, 1), 8))
+    best = None
+    for cand in (8, 4, 2, 1):
+        if cand > wg_cap:
+            continue
+        padded = -(-n_windows // cand) * cand
+        occupancy_deficit = 1024 - min(cand * tiles, 1024)
+        key = (occupancy_deficit, padded, -cand)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    return best[1]
 
 
 def _plan3(n: int, c: int | None, nbits: int, T: int | None,
@@ -84,41 +113,20 @@ def _plan3(n: int, c: int | None, nbits: int, T: int | None,
     n_windows = signed_window_count(nbits, c)
     tiles = -(-n // T)
     tiles = 1 << max(0, (tiles - 1).bit_length())
-    # windows per group: bound in-flight permuted+E-stream bytes (~160B/slot)
-    if wg is None:
-        byte_budget = 6 << 30
-        per_window = tiles * T * 160
-        wg_cap = max(1, min(n_windows, byte_budget // max(per_window, 1), 8))
-        # powers of two only; maximise lane occupancy (min(wg*tiles, 1024)),
-        # then minimise padded windows, then the fewest groups
-        best = None
-        for cand in (8, 4, 2, 1):
-            if cand > wg_cap:
-                continue
-            padded = -(-n_windows // cand) * cand
-            occupancy_deficit = 1024 - min(cand * tiles, 1024)
-            key = (occupancy_deficit, padded, -cand)
-            if best is None or key < best[0]:
-                best = (key, cand)
-        wg = best[1]
-    return c, M, T, tiles, n_windows, wg
+    return c, M, T, tiles, n_windows, wg or pick_wg(n_windows, tiles, T)
 
 
-def _check_ported(engine, nu) -> None:
+def _check_engine(engine) -> None:
     if engine not in (None, *ENGINES):
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
                               f"msm_tpu3: unknown engine {engine!r}")
-    if nu != 1:
-        raise NotImplementedError(
-            "msm_tpu3: precompute_factor > 1 is not ported yet "
-            "(ROADMAP.md queue A item 6)")
 
 
-def _resolve_engine(curve_name: str, engine: str | None, nu: int = 1) -> str:
+def _resolve_engine(curve_name: str, engine: str | None) -> str:
     """engine=, else ICICLE_TPU_MSM_ENGINE, else "u32"; "r12" on a field
     whose radix-12 columns could overflow int32 takes "u32"."""
     engine = engine or os.environ.get("ICICLE_TPU_MSM_ENGINE") or "u32"
-    _check_ported(engine, nu)
+    _check_engine(engine)
     if engine == "r12":
         try:
             r12_engine(curve_name)
@@ -127,30 +135,58 @@ def _resolve_engine(curve_name: str, engine: str | None, nu: int = 1) -> str:
     return engine
 
 
-def _resolve_plan(curve_name, n, c, T, wg, engine, nu):
-    engine = _resolve_engine(curve_name, engine, nu)
-    nbits = get_curve(curve_name).fr.modulus.bit_length()
+def _resolve_plan(curve_name, n, c, T, wg, engine, nu, glv=False, bitsize=0):
+    """The plan of n bases (for nu > 1, n rows of precomputed copies): the
+    JAX `_resolve_plan` without its TPU tuning table. glv doubles the point
+    set and takes the split halves' width; nu > 1 needs the bases' c and
+    merges the windows into max(G0, W - (nu - 1) G0)."""
+    engine = _resolve_engine(curve_name, engine)
+    if glv and nu > 1:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              "msm_tpu3: glv and precompute_factor > 1 are not combined "
+                              "(as in the JAX package)")
+    if glv:
+        nbits = glv_split_bound(curve_name)
+        n = 2 * n
+    else:
+        nbits = bitsize or get_curve(curve_name).fr.modulus.bit_length()
+    if nu > 1 and not c:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              "msm_tpu3: precomputed bases need the explicit c they were "
+                              "made with")
     c, M, T, tiles, n_windows, wg = _plan3(n, c, nbits, T, wg)
+    if nu > 1:
+        G0 = precompute_shift(nbits, c, nu) // c
+        n_windows = max(G0, n_windows - (nu - 1) * G0)
     return dict(engine=engine, nbits=nbits, c=c, M=M, T=T, tiles=tiles,
-                n_windows=n_windows, wg=wg, n_pad=tiles * T, nu=nu)
+                n_windows=n_windows, wg=wg, n_pad=tiles * T, nu=nu, glv=glv)
 
 
 def msm_tpu3_prepare(curve_name: str, points_x, points_y,
                      c: int | None = None, T: int | None = None,
                      engine: str | None = None, precompute_factor: int = 1,
-                     wg: int | None = None) -> dict:
+                     wg: int | None = None, glv: bool = False, bitsize: int = 0) -> dict:
     """One-time base preparation: pad, convert into the engine's Montgomery
     domain and keep the u32 limbs on the points' device. The result feeds
     msm_tpu3(prepared=...), so repeated MSMs over the same bases skip this
     work (reference: are_points_on_device=true, msm.h:40-49); it carries its
-    engine.
+    engine and plan.
 
     points_x, points_y: (n, L) canonical limbs, int32 tensors or uint32
-    numpy arrays (those go to the default device)."""
+    numpy arrays (those go to the default device); with
+    precompute_factor = nu > 1, the interleaved (nu N, L) output of
+    msm_precompute_bases made with the same c. glv=True interleaves
+    [P_i, phi(P_i)], phi = (beta x, y), one canonical multiply a point.
+    bitsize: the scalars' bits, 0 for the scalar field's."""
     px = _limb_tensor(points_x, None)
     py = _limb_tensor(points_y, px.device)
     n = px.shape[0]
-    plan = _resolve_plan(curve_name, n, c, T, wg, engine, precompute_factor)
+    plan = _resolve_plan(curve_name, n, c, T, wg, engine, precompute_factor, glv, bitsize)
+    if glv:
+        g = get_group(curve_name)
+        phi_x = g.f.mul_mont(px, g.glv_beta_mont(px.device))        # beta x, canonical
+        px = torch.stack([px, phi_x], 1).view(2 * n, -1)
+        py = torch.stack([py, py], 1).view(2 * n, -1)
     return dict(plan, pts=point_table(curve_name, px, py, plan["n_pad"], plan["engine"]), n=n)
 
 
@@ -161,50 +197,47 @@ def _kernels(backend: str, scalars: torch.Tensor, engine: str):
     return (prefix_scan if cuda else prefix_scan_ref), (ec_reduce if cuda else ec_reduce_ref)
 
 
-def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=None,
-             c: int | None = None, T: int | None = None,
-             backend: str | None = None, engine: str | None = None,
-             precompute_factor: int = 1, wg: int | None = None,
-             prepared: dict | None = None):
-    """Prefix-scan MSM. scalars (N, Ls) int32 limbs on the device to compute
-    on, canonical (wider values are taken as integers while the top signed
-    window cannot overflow, as with bench.py's scalars at c = 11); points
-    canonical affine (N, L) on the same device, or `prepared` from
-    msm_tpu3_prepare over them. Returns the canonical affine (x, y) as
-    Python ints ((0, 0) = the identity).
+def plan_digits(curve_name: str, scalars: torch.Tensor, plan: dict) -> torch.Tensor:
+    """(..., N, Ls) int32 scalars -> the (W, ..., columns) signed digits of
+    the plan's bases (plan: c, nbits, nu, glv): (W, ..., N) digits; for glv
+    (two-dimensional scalars) the split's (Wg, 2N), columns [k1, k2] a
+    scalar; for nu > 1 the (G, ..., nu N) merged windows of the copies
+    (`_precompute_digit_remap`)."""
+    if plan["glv"]:
+        return glv_digits_t(curve_name, scalars.T, plan["c"])
+    lead, N = scalars.shape[:-2], scalars.shape[-2]
+    digits = _signed_digits_t(scalars.reshape(-1, scalars.shape[-1]).T, plan["c"],
+                              plan["nbits"]).view(-1, *lead, N)
+    nu = plan["nu"]
+    if nu > 1:
+        G0 = precompute_shift(plan["nbits"], plan["c"], nu) // plan["c"]
+        digits, _ = _precompute_digit_remap(digits, nu, N, G0)
+    return digits
 
-    backend: None / "auto" (the scalars' device), "cuda" (the kernels) or
-    "torch" (their plain versions). engine: "u32" (B3) or "r12" (B5), else
-    ICICLE_TPU_MSM_ENGINE, else "u32"; `prepared` carries its own, and an
-    `engine=` that differs from it raises."""
-    _check_ported(engine, precompute_factor)
-    if prepared is None:
-        if points_x is None or points_y is None:
-            raise IcicleException(IcicleError.INVALID_ARGUMENT,
-                                  "msm_tpu3: give points_x and points_y, or prepared")
-        prepared = msm_tpu3_prepare(curve_name, points_x, points_y, c=c, T=T,
-                                    engine=engine, wg=wg)
-    elif engine is not None and _resolve_engine(curve_name, engine) != prepared["engine"]:
-        raise IcicleException(IcicleError.INVALID_ARGUMENT,
-                              f"msm_tpu3: engine {engine!r}, but the bases were prepared "
-                              f"for {prepared['engine']!r}")
+
+def msm_stages(curve_name: str, digits: torch.Tensor, prepared: dict,
+               backend: str | None = None):
+    """Everything v3 does after the digits: (W, columns <= n_pad) int32
+    signed digits over `prepared`'s table (column i of the digits scales
+    base row i) -> the canonical affine sum as Python ints ((0, 0) = the
+    identity). backend: None / "auto" (the digits' device), "cuda" (B3 or
+    B5 and B4) or "torch" (their plain versions)."""
     plan = prepared
-    scan, reduce = _kernels(backend, scalars, plan["engine"])
+    scan, reduce = _kernels(backend, digits, plan["engine"])
     table = plan["pts"]
-    if table.device != scalars.device:
+    if table.device != digits.device:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
-                              f"msm_tpu3: scalars on {scalars.device}, bases on {table.device}")
-    if scalars.dim() != 2 or scalars.dtype != torch.int32 or scalars.shape[0] > plan["n"]:
-        raise IcicleException(IcicleError.INVALID_ARGUMENT,
-                              f"msm_tpu3: scalars must be (n <= {plan['n']}, Ls) int32, "
-                              f"got {tuple(scalars.shape)} {scalars.dtype}")
-
+                              f"msm_tpu3: scalars on {digits.device}, bases on {table.device}")
     curve = get_curve(curve_name)
     fq = curve.fq
     nl = fq.nlimbs
-    dev = scalars.device
+    dev = digits.device
     c, M, T, tiles, wg = plan["c"], plan["M"], plan["T"], plan["tiles"], plan["wg"]
     n_windows, n_pad = plan["n_windows"], plan["n_pad"]
+    if digits.shape[0] != n_windows or digits.shape[1] > n_pad:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu3: digits {tuple(digits.shape)} for a plan of "
+                              f"{n_windows} windows over {n_pad} bases")
     K, C = T, wg * tiles
     n_groups = -(-n_windows // wg)
     w_pad = n_groups * wg
@@ -247,13 +280,10 @@ def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=Non
         buckets = rows.permute(1, 3, 0, 2).reshape(tiles, 3 * nl, wg * M)
         return reduce(curve, buckets.contiguous())              # lane = w*M + q
 
-    s_t = torch.zeros((scalars.shape[1], n_pad), dtype=torch.int32, device=dev)
-    s_t[:, :scalars.shape[0]] = scalars.T
-    digits = _signed_digits_t(s_t, c, plan["nbits"])            # (W, n_pad)
-    if w_pad != n_windows:
-        digits = torch.cat([digits, digits.new_zeros((w_pad - n_windows, n_pad))])
-    digits = digits.view(n_groups, wg, tiles, T)
-    sums = torch.stack([group_fn(digits[g]) for g in range(n_groups)])
+    full = digits.new_zeros((w_pad, n_pad))
+    full[:n_windows, :digits.shape[1]] = digits
+    full = full.view(n_groups, wg, tiles, T)
+    sums = torch.stack([group_fn(full[g]) for g in range(n_groups)])
 
     # window sum = sum over all M filled prefixes: B4 over the bucket axis,
     # lane = g*wg + w
@@ -262,3 +292,55 @@ def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=Non
     wsums = total[:, :n_windows].T.reshape(n_windows, 3, nl).cpu()
     return horner(fq, wsums, c)
 
+
+def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=None,
+             c: int | None = None, T: int | None = None,
+             backend: str | None = None, engine: str | None = None,
+             precompute_factor: int = 1, wg: int | None = None,
+             prepared: dict | None = None, glv: bool = False, bitsize: int = 0):
+    """Prefix-scan MSM. scalars (N, Ls) int32 limbs on the device to compute
+    on, canonical (wider values are taken as integers while the top signed
+    window cannot overflow, as with bench.py's scalars at c = 11); points
+    canonical affine (N, L) on the same device, or `prepared` from
+    msm_tpu3_prepare over them. Returns the canonical affine (x, y) as
+    Python ints ((0, 0) = the identity).
+
+    backend: None / "auto" (the scalars' device), "cuda" (the kernels) or
+    "torch" (their plain versions). engine: "u32" (B3) or "r12" (B5), else
+    ICICLE_TPU_MSM_ENGINE, else "u32"; `prepared` carries its own, and an
+    `engine=` that differs from it raises.
+    precompute_factor: nu > 1, a power of two, means the points are the
+    interleaved (nu N, L) output of msm_precompute_bases with the same c,
+    which is then required. glv: split each scalar k = k1 + lambda k2 on
+    the device (ops/msm_glv.py) over the [P, phi(P)] bases; not with
+    nu > 1. bitsize: the scalars' bits, 0 for the scalar field's (ignored
+    with glv, whose digits take the split's width). `prepared` must have
+    been made with the same nu, glv and bitsize."""
+    _check_engine(engine)
+    nu = precompute_factor
+    if nu < 1 or nu & (nu - 1):
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu3: precompute_factor must be a power of two, got {nu}")
+    if prepared is None:
+        if points_x is None or points_y is None:
+            raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                                  "msm_tpu3: give points_x and points_y, or prepared")
+        prepared = msm_tpu3_prepare(curve_name, points_x, points_y, c=c, T=T,
+                                    engine=engine, precompute_factor=nu, wg=wg, glv=glv,
+                                    bitsize=bitsize)
+    elif engine is not None and _resolve_engine(curve_name, engine) != prepared["engine"]:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu3: engine {engine!r}, but the bases were prepared "
+                              f"for {prepared['engine']!r}")
+    plan = prepared
+    if (plan["nu"], plan["glv"]) != (nu, glv) or (
+            bitsize and not glv and bitsize != plan["nbits"]):
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu3: precompute_factor {nu}, glv {glv}, bitsize {bitsize}, "
+                              f"but the bases were prepared with {plan['nu']}, {plan['glv']}, "
+                              f"{plan['nbits']} bits")
+    if scalars.dim() != 2 or scalars.dtype != torch.int32 or nu * scalars.shape[0] > plan["n"]:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"msm_tpu3: scalars must be (n <= {plan['n'] // nu}, Ls) int32, "
+                              f"got {tuple(scalars.shape)} {scalars.dtype}")
+    return msm_stages(curve_name, plan_digits(curve_name, scalars, plan), plan, backend)

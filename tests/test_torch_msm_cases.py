@@ -1,6 +1,7 @@
 """The port's MSM entry points on the CPU: `msm_tpu3` on the skewed and
 degenerate cases of tests/test_msm_tpu3.py against the python-int oracle
-tests/ec_ref.py, and `msm_affine`'s dispatch and refusals. Tolerance: exact
+tests/ec_ref.py, `msm_affine`'s dispatch, the configurations its generic
+msm() serves (formerly refused) and its refusals. Tolerance: exact
 equality."""
 
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from icicle_tpu.curves.params import get_curve as jcurve
 from icicle_tpu_torch import MSMConfig, msm_affine
+from icicle_tpu_torch.ops.msm import msm_precompute_bases
 from icicle_tpu_torch.kernels import ec_reduce as TR
 from icicle_tpu_torch.kernels import msm_scan as TS
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
@@ -86,23 +88,52 @@ def test_msm_affine_dispatch_on_cpu():
 
 @pytest.mark.parametrize("cfg,match", [
     (MSMConfig(g2=True), "G2"),
-    (MSMConfig(are_scalars_montgomery_form=True), "Montgomery"),
-    (MSMConfig(are_points_montgomery_form=True), "Montgomery"),
+    (MSMConfig(are_scalars_montgomery_form=True, c=6), "Montgomery"),
+    (MSMConfig(are_points_montgomery_form=True, c=6), "Montgomery"),
     (MSMConfig(precompute_factor=2, c=6), "precompute_factor"),
-    (MSMConfig(batch_size=2), "batch"),
-    (MSMConfig(are_points_shared_in_batch=False), "batch"),
-    (MSMConfig(bitsize=64), "bitsize 64"),
+    (MSMConfig(batch_size=2, c=6), "batch"),
+    (MSMConfig(are_points_shared_in_batch=False, c=6), "batch"),
+    (MSMConfig(bitsize=64, c=6), "bitsize 64"),
 ])
 def test_msm_affine_unported_configurations_raise(cfg, match):
-    args = _tensors([1, 2], _points(2, 15))
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*queue A item 6"):
-        msm_affine("bn254", *args, cfg)
+    """The seven configurations the port refused before its generic msm():
+    G2 still raises (it needs the extension-field towers, queue A item 7);
+    the other six now run and equal the oracle. A batch (batch_size 2 over
+    flat scalars; unshared points over a (2, N) batch) gives one point an
+    element, unshared elements on their own rows."""
+    c = jcurve("bn254")
+    pts = _points(8, 15)
+    rng = np.random.default_rng(16)
+    bits = 64 if cfg.bitsize else 250
+    scalars = [int(v) for v in rng.integers(0, 1 << 62, size=8)]
+    scalars = [(v << (bits - 62)) + 3 for v in scalars]
+    s, x, y = _tensors(scalars, pts)
+    if cfg.g2:
+        with pytest.raises(NotImplementedError, match=f"(?s){match}.*queue A item 7"):
+            msm_affine("bn254", s, x, y, cfg)
+        return
+    want = _want(scalars, pts)
+    if cfg.are_scalars_montgomery_form:
+        s = torch.from_numpy(np.array(c.fr.to_mont(c.fr.from_ints(scalars)),
+                                      dtype=np.uint32).view(np.int32))
+    if cfg.are_points_montgomery_form:
+        x, y = (torch.from_numpy(np.array(c.fq.to_mont(c.fq.from_ints([p[i] for p in pts])),
+                                          dtype=np.uint32).view(np.int32)) for i in (0, 1))
+    if cfg.precompute_factor > 1:
+        x, y = msm_precompute_bases("bn254", x, y, cfg)
+    if cfg.batch_size > 1:          # (2 N) flat scalars over N shared points
+        x, y = x[:4], y[:4]
+        want = [_want(scalars[:4], pts[:4]), _want(scalars[4:], pts[:4])]
+    if not cfg.are_points_shared_in_batch:   # a (2, N) batch, element i on rows iN..(i+1)N
+        s = s.view(2, 4, 8)
+        want = [_want(scalars[:4], pts[:4]), _want(scalars[4:], pts[4:])]
+    assert msm_affine("bn254", s, x, y, cfg) == want
 
 
 def test_batch_axis_and_other_refusals():
     s, x, y = _tensors([1, 2], _points(2, 16))
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        msm_affine("bn254", s[None], x, y)
+    # a batch axis runs the generic msm(): one point an element
+    assert msm_affine("bn254", s[None], x, y) == [_want([1, 2], _points(2, 16))]
     # the "r12" engine runs (tests/test_torch_msm_r12.py); one the port does
     # not have raises, and so does an engine other than the prepared one's
     with pytest.raises(IcicleException, match="unknown engine"):
@@ -110,10 +141,11 @@ def test_batch_axis_and_other_refusals():
     prepared = TM3.msm_tpu3_prepare("bn254", x, y, c=6, T=16)
     with pytest.raises(IcicleException, match="prepared for 'u32'"):
         TM3.msm_tpu3("bn254", s, prepared=prepared, engine="r12")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    # bases prepared without precompute_factor do not serve one, and
+    # precomputed bases prepare with their factor
+    with pytest.raises(IcicleException, match="prepared with"):
         TM3.msm_tpu3("bn254", s, prepared=prepared, precompute_factor=2)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        TM3.msm_tpu3_prepare("bn254", x, y, c=6, precompute_factor=2)
+    assert TM3.msm_tpu3_prepare("bn254", x, y, c=6, precompute_factor=2)["nu"] == 2
     with pytest.raises(IcicleException, match="CUDA tensors"):
         TM3.msm_tpu3("bn254", s, x, y, backend="cuda")
     with pytest.raises(IcicleException, match="no cuda backend|has no"):

@@ -196,13 +196,19 @@ def test_wrappers_reject_bad_inputs(fn, rows):
             fn(CURVE, bad)
 
 
-def test_kernel_launch_rejects_other_limb_counts():
-    """The CUDA kernels are built for 8 limbs: a 12-limb curve raises before
-    anything is loaded or launched."""
+@pytest.mark.parametrize("kernel", ["ec_reduce", "prefix_scan", "bucket_accum"])
+def test_kernel_launch_rejects_other_limb_counts(kernel, monkeypatch):
+    """A limb count with no built instance raises before anything is loaded
+    or launched: B7 has only its 8-limb instance, and B3 and B4 without
+    their 12-limb library refuse a 12-limb curve."""
     c = get_group("bls12_377").curve
     x = torch.zeros((2, 36, 4), dtype=torch.int32)
-    with pytest.raises(IcicleException, match="8-limb"):
-        msm_lib.launch("ec_reduce", c, x, x)
+    libraries, *rest = msm_lib.KERNELS[kernel]
+    monkeypatch.setitem(msm_lib.KERNELS, kernel,
+                        ({k: v for k, v in libraries.items() if k != 12}, *rest))
+    monkeypatch.setattr(msm_lib.build, "load", None)           # nothing is loaded
+    with pytest.raises(IcicleException, match=r"built for 8(, 24)?-limb"):
+        msm_lib.launch(kernel, c, x, x)
 
 
 @pytest.mark.parametrize("name", curve_names())

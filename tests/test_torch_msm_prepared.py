@@ -4,13 +4,17 @@
 the port's own preparation, and the python-int oracle's MSM. Tolerance:
 exact equality."""
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from icicle_tpu.curves.params import get_curve as jcurve
 from icicle_tpu.ops.msm_tpu3 import msm_tpu3_prepare as jax_prepare
-from icicle_tpu_torch import interop
+from icicle_tpu_torch import MSMConfig, interop
+from icicle_tpu_torch.ops.msm import msm_precompute_bases
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
 from icicle_tpu_torch.runtime.errors import IcicleException
 from tests.ec_ref import INF, ec_mul, msm_ref
@@ -50,12 +54,51 @@ def test_prepared_from_jax_bases():
     assert got == (want if want is not INF else (0, 0))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_prepared(kind: str):
+    """JAX `msm_tpu3_prepare` over 16 bn254 points: "u32" and "r12" over
+    the points' precomputed copies at nu = 2 (c = 6), "glv" over [P, phi(P)];
+    with the port's own preparation of the same bases and the scalars'
+    oracle."""
+    c = jcurve("bn254")
+    pts, scalars = _setup(16, 90)
+    px = np.asarray(c.fq.from_ints([p[0] for p in pts]))
+    py = np.asarray(c.fq.from_ints([p[1] for p in pts]))
+    glv = kind == "glv"
+    nu = 1 if glv else 2
+    if nu > 1:
+        bx, by = msm_precompute_bases("bn254", _i32(px), _i32(py), MSMConfig(c=6, precompute_factor=nu))
+        px, py = bx.numpy().view(np.uint32), by.numpy().view(np.uint32)
+    engine = "u32" if glv else kind
+    with jax.disable_jit(kind == "r12"):                  # its jitted prepare compiles ~40 s
+        jprep = jax_prepare("bn254", px, py, c=6, T=16, engine=engine, precompute_factor=nu,
+                            glv=glv)
+    own = TM3.msm_tpu3_prepare("bn254", _i32(px), _i32(py), c=6, T=16, engine=engine,
+                               precompute_factor=nu, glv=glv)
+    want = msm_ref(scalars, pts, c.fq.modulus)
+    return jprep, own, _i32(c.fr.from_ints(scalars)), (want if want is not INF else (0, 0))
+
+
 def test_prepared_from_numpy_refuses_other_engines():
     # "u32" and "r12" bases carry over (tests/test_torch_msm_r12.py for r12);
-    # an engine the port does not have, and precomputed bases, do not
+    # an engine the port does not have does not; precomputed bases (nu > 1)
+    # in either engine load
     with pytest.raises(IcicleException, match="unknown engine"):
         interop.prepared_from_numpy("bn254", {"engine": "r13", "nu": 1}, "cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        interop.prepared_from_numpy("bn254", {"engine": "u32", "nu": 2}, "cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        interop.prepared_from_numpy("bn254", {"engine": "r12", "nu": 2}, "cpu")
+    for kind in ("u32", "r12"):
+        prepared = interop.prepared_from_numpy("bn254", _jax_prepared(kind)[0], "cpu")
+        assert (prepared["engine"], prepared["nu"], prepared["glv"]) == (kind, 2, False)
+
+
+@pytest.mark.parametrize("kind", ["u32", "r12", "glv"])
+def test_prepared_from_jax_precomputed_and_glv_bases(kind):
+    """JAX-prepared bases of precomputed copies (nu 2, both engines) and of
+    GLV's [P, phi(P)]: the port's own preparation's plan and limbs, and the
+    oracle's MSM over them."""
+    jprep, own, s, want = _jax_prepared(kind)
+    prepared = interop.prepared_from_numpy("bn254", jprep, "cpu")
+    assert {k: v for k, v in own.items() if k != "pts"} == \
+        {k: v for k, v in prepared.items() if k != "pts"}
+    assert torch.equal(own["pts"], prepared["pts"])
+    nu, glv = prepared["nu"], prepared["glv"]
+    assert TM3.msm_tpu3("bn254", s, prepared=prepared, precompute_factor=nu, glv=glv) == want

@@ -19,6 +19,7 @@ from icicle_tpu_torch.kernels import ec_reduce as TR
 from icicle_tpu_torch.kernels import msm_fold2 as TF
 from icicle_tpu_torch.kernels import msm_scan as TS
 from icicle_tpu_torch.ops import msm_tpu2 as TM2
+from icicle_tpu_torch.ops.msm import msm_precompute_bases
 from icicle_tpu_torch.runtime.errors import IcicleException
 from tests.ec_ref import INF, ec_mul, msm_ref
 
@@ -141,9 +142,11 @@ def test_msm_affine_routes_to_v2(monkeypatch):
     TF.suffix_fold.launches = TS.prefix_scan.launches = TR.ec_reduce.launches = 0
     monkeypatch.setenv("ICICLE_TPU_MSM_PIPELINE", "v2")
     assert msm_affine(CURVE, *args, MSMConfig(c=6)) == _want(scalars, pts)
-    assert calls == [{"c": 6, "backend": "torch"}]
+    assert calls == [{"c": 6, "backend": "torch", "bitsize": 0}]
     assert TF.suffix_fold.launches == TS.prefix_scan.launches == TR.ec_reduce.launches == 0
-    # precomputed bases are refused before the route is taken
-    with pytest.raises(NotImplementedError, match="precompute_factor"):
-        msm_affine(CURVE, *args, MSMConfig(c=6, precompute_factor=2))
+    # precomputed bases take v3, as in the JAX package (ops/msm.py:462-466):
+    # v2 is not called
+    cfg = MSMConfig(c=6, precompute_factor=2)
+    bx, by = msm_precompute_bases(CURVE, args[1], args[2], cfg)
+    assert msm_affine(CURVE, args[0], bx, by, cfg) == _want(scalars, pts)
     assert len(calls) == 1
