@@ -63,7 +63,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                times them); then each route on 2^16 distinct points
                (P_i = (i+1) P against (sum (i+1) s_i) P); torch.profiler
                breakdowns of one 2^24 MSM of the u32, r12 and v2 routes
-               and one 2^20 MSM of the v1 route;
+               (v1's 2^20 MSM is not profiled: over 200k launches);
   5b. MSM long tail -- M1: bls12_381 G1 at 2^24 (bench.py's kind of input:
                one repeated point P = k G, canonical scalars below r) through
                msm_affine, then timed over prepared bases and profiled, and
@@ -82,6 +82,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                8 x 2^12 (each element on its own points). Each counted: B3
                and B4 at the curve's limb count, precompute_bases where
                used, nothing else;
+  5c. G2 and the extension fields -- B3, B4 and precompute_bases over
+               Fp2 (8 and 12 limbs) and over Fq (bw6_761's G2) against
+               their plain versions (the kernel phase, after B3/B4 at 12
+               and 24 limbs), then E1: bn254 G2 2^22 through
+               msm_affine(MSMConfig(g2=True)) (Groth16's B query); E2:
+               bls12_381 G2 2^20; E3: bls12_377 and bw6_761 G2 at 2^16;
+               E4: bn254 G2 msm_precompute_bases at nu 2 over 2^20 points,
+               its MSM with explicit c, and a shared batch of 8 x 2^12;
+               E5: bn254 G1 and G2 MSMs of the same 2^16 scalars over k_i
+               G1 and k_i G2, then pairing(A1, G2) == pairing(G1, A2) and
+               the same by ate_pairing on the host; E6: a babybear4
+               ntt_ext at 2^24, forward and inverse, 8 dif_rows launches
+               each way, equal to the component-wise torch NTT. Inputs
+               are 64 points of known logs, tiled, and scalars below r, so
+               each oracle is one host scalar multiply; each path counted
+               (B3 and B4 at the group's instance), E1, E2, E4, E6 profiled;
   6. Merkle  -- the Poseidon2 Merkle main path: MerkleTree([Poseidon2(babybear,
                2)] * 29) over bench.py's 2^29 leaves (bench.py:226-276),
                uploaded once; 29 poseidon2 launches a build and no other
@@ -340,20 +356,40 @@ def big_mont_muls(nl: int) -> int:
     return 4 * nl * nl + nl
 
 
-def add_muls(curve, monts: int) -> int:
-    """Integer multiplies of one curve add of `monts` Montgomery multiplies
-    plus two by b3 (none when b3 is a small integer: an add chain)."""
-    from icicle_tpu_torch.kernels.msm_lib import b3_small
-    b3_monts = 0 if b3_small(curve) is not None else 2
-    return (monts + b3_monts) * big_mont_muls(curve.fq.nlimbs)
+def coord_muls(g) -> tuple[int, int, int]:
+    """Base-field products of one multiply, one squaring and one multiply
+    by b3 in the coordinate field of group g (a Group, or a curve for its
+    G1): over Fp 1, 1 and 1; over Fp2 (Karatsuba) 3, 2 (the complex
+    squaring) and 3, or 2 where b3 has a zero part (bls12_377's (0, b)).
+    A b3 that is a small integer, or k + k u with k small, is an add chain
+    and costs none."""
+    from icicle_tpu_torch.kernels.msm_lib import as_group, b3_small
+    g = as_group(g)
+    if g.degree == 1:
+        return 1, 1, 0 if b3_small(g) is not None else 1
+    b3 = 0 if b3_small(g) is not None else (2 if 0 in g.b3 else 3)
+    return 3, 2, b3
 
 
-def prefix_scan_bound(K: int, C: int, curve) -> tuple[float, str]:
-    return bound(K * C * 5 * curve.fq.nlimbs * 4, K * C * add_muls(curve, MADD_MONTS))
+def add_muls(g, monts: int) -> int:
+    """Integer multiplies of one add of `monts` coordinate multiplies plus
+    two by b3 (coord_muls' costs) in group g, or a curve's G1."""
+    from icicle_tpu_torch.kernels.msm_lib import as_group
+    g = as_group(g)
+    mul, _, b3 = coord_muls(g)
+    return (monts * mul + 2 * b3) * big_mont_muls(g.base_limbs)
 
 
-def ec_reduce_bound(R: int, C: int, curve) -> tuple[float, str]:
-    return bound((R + 1) * C * 3 * curve.fq.nlimbs * 4, R * C * add_muls(curve, PADD_MONTS))
+def prefix_scan_bound(K: int, C: int, g) -> tuple[float, str]:
+    from icicle_tpu_torch.kernels.msm_lib import as_group
+    nl = as_group(g).nlimbs
+    return bound(K * C * 5 * nl * 4, K * C * add_muls(g, MADD_MONTS))
+
+
+def ec_reduce_bound(R: int, C: int, g) -> tuple[float, str]:
+    from icicle_tpu_torch.kernels.msm_lib import as_group
+    nl = as_group(g).nlimbs
+    return bound((R + 1) * C * 3 * nl * 4, R * C * add_muls(g, PADD_MONTS))
 
 
 def suffix_fold_bound(flags: torch.Tensor, curve) -> tuple[float, str]:
@@ -554,45 +590,58 @@ MSM_FULL = [
 SAME_POINTS_ROWS = 256   # rows of a (K, 3L, C) output compared at a time
 
 
-def same_points(curve, a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a, b (..., 3L, C) projective limbs on the card, Montgomery in any
-    domain, values below 4p: equal as projective points (X1 Z2 = X2 Z1,
-    Y1 Z2 = Y2 Z1, X1 Y2 = X2 Y1 by the port's BigField, whose multiply
-    gives canonical products of such values) and neither (0, 0, 0). A
-    (K, 3L, C) pair is compared SAME_POINTS_ROWS rows at a time."""
-    from icicle_tpu_torch.curves.group import get_group
+def same_points(g, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a, b (..., 3W, C) projective points of group g on the card, Montgomery
+    in any domain, values below 4p: equal as projective points (X1 Z2 = X2
+    Z1, Y1 Z2 = Y2 Z1, X1 Y2 = X2 Y1 by the group's field, whose multiply
+    gives canonical products of such values) and neither (0, 0, 0). A (K,
+    3W, C) pair is compared SAME_POINTS_ROWS rows at a time."""
     from icicle_tpu_torch.kernels.msm_lib import split_point
     if a.dim() == 3 and a.shape[0] > SAME_POINTS_ROWS:
-        return all(same_points(curve, a[i:i + SAME_POINTS_ROWS], b[i:i + SAME_POINTS_ROWS])
+        return all(same_points(g, a[i:i + SAME_POINTS_ROWS], b[i:i + SAME_POINTS_ROWS])
                    for i in range(0, a.shape[0], SAME_POINTS_ROWS))
-    m = get_group(curve.name).f.mul_mont
-    nl = curve.fq.nlimbs
-    (x1, y1, z1), (x2, y2, z2) = (split_point(t.transpose(-1, -2), nl) for t in (a, b))
+    m = g.f.mul_mont
+    (x1, y1, z1), (x2, y2, z2) = (split_point(t.transpose(-1, -2), g.nlimbs) for t in (a, b))
     zero = any(bool(((x == 0) & (y == 0) & (z == 0)).all(-1).any())
                for x, y, z in ((x1, y1, z1), (x2, y2, z2)))
     return (not zero and torch.equal(m(x1, z2), m(x2, z1)) and torch.equal(m(y1, z2), m(y2, z1))
             and torch.equal(m(x1, y2), m(x2, y1)))
 
 
-def pool_points(curve, count: int = 64) -> list:
-    """(0x5EED + 977 i) G for i < count as affine Python ints, by adds (a
-    761-bit scalar multiply takes 0.1 s on the host)."""
-    from icicle_tpu_torch.curves.host_ec import ec_add, ec_mul
-    mod = curve.fq.modulus
-    cur = ec_mul((curve.gen_x, curve.gen_y), 0x5EED, mod)
-    step = ec_mul((curve.gen_x, curve.gen_y), 977, mod)
+def group_generator(g):
+    """The generator of group g as affine Python ints."""
+    p = g.curve.params
+    if not g.g2:
+        return g.curve.gen_x, g.curve.gen_y
+    return (p.g2_gen_x, p.g2_gen_y) if g.degree == 2 else (p.g2_gen_x[0], p.g2_gen_y[0])
+
+
+def pool_logs(count: int = 64) -> list:
+    return [0x5EED + 977 * i for i in range(count)]
+
+
+def pool_points(g, count: int = 64) -> list:
+    """k_i G for the k_i of pool_logs, G the generator of group g (or of a
+    curve's G1), as affine Python ints, by adds (a 761-bit scalar multiply
+    takes 0.1 s on the host)."""
+    from icicle_tpu_torch.curves.host_ec import host_ops, scalar_mul
+    from icicle_tpu_torch.kernels.msm_lib import as_group
+    g = as_group(g)
+    add = host_ops(g)[0]
+    G = group_generator(g)
+    cur, step = scalar_mul(g, G, pool_logs(1)[0]), scalar_mul(g, G, 977)
     pool = []
     for _ in range(count):
         pool.append(cur)
-        cur = ec_add(cur, step, mod)
+        cur = add(cur, step)
     return pool
 
 
-def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) -> dict:
+def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
     """The MSM kernels of `checks` and `full` (rows as MSM_CHECKS and
-    MSM_FULL) over curve `cname`: against their plain versions on the card
-    at the MSM routes' lane widths (serial depth cut for the plain side),
-    then timed alone at full depth. B3-B6 take curve points (`pool_points`
+    MSM_FULL) over group g (G1, or G2 for B3 and B4): against their plain
+    versions on the card at the MSM routes' lane widths (serial depth cut
+    for the plain side), then timed alone at full depth. B3-B6 take curve points (`pool_points`
     and their negatives; B4's projective, sums of two, with one
     row of identities; B5's in the R' domain) and are held bit-exact
     against their plain versions at the plan's segment count, and against
@@ -605,24 +654,23 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
     each lane (a lane with one run over every slot, a lane that restarts at
     every slot; at full depth v1 2^20's layout of sorted keys), and is
     compared at the rows it promises (run ends and lane ends)."""
-    from icicle_tpu_torch.curves.group import Affine, Projective, get_group
-    from icicle_tpu_torch.curves.params import get_curve
+    from icicle_tpu_torch.curves.group import Affine, Projective
     from icicle_tpu_torch.kernels import ec_reduce as TR
     from icicle_tpu_torch.kernels import msm_fold2 as TF
     from icicle_tpu_torch.kernels import msm_kernel as TK
     from icicle_tpu_torch.kernels import msm_scan as TS
     from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 
-    curve = get_curve(cname)
-    fq = curve.fq
-    g = get_group(cname)
-    nl = fq.nlimbs
+    curve = g.curve
+    cname = curve.name
+    fq, f = curve.fq, g.coord_field
+    nl = g.nlimbs
     W1 = 12   # windows per B7 launch at the v1 2^20 shape
 
-    pool = pool_points(curve)
-    pool_x = fq.to_mont(fq.from_ints([p[0] for p in pool] * 2, dev))
-    pool_y = fq.to_mont(fq.from_ints([p[1] for p in pool], dev))
-    pool_y = torch.cat([pool_y, fq.neg(pool_y)])                  # P and -P
+    pool = pool_points(g)
+    pool_x = f.to_mont(f.from_ints([p[0] for p in pool] * 2, dev))
+    pool_y = f.to_mont(f.from_ints([p[1] for p in pool], dev))
+    pool_y = torch.cat([pool_y, f.neg(pool_y)])                   # P and -P
     r12 = {}
     pair = torch.randint(0, 128, (2, 128), generator=gen, device=dev)
     one = g.one_mont(dev).expand(128, nl)
@@ -634,12 +682,12 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
         return t.transpose(1, 2).contiguous()
 
     def curve_affine(depth: int, lanes: int, xs=pool_x, ys=pool_y) -> torch.Tensor:
-        """(depth, 2L, lanes) Montgomery x || y of pool points."""
+        """(depth, 2W, lanes) Montgomery x || y of pool points."""
         i = torch.randint(0, 128, (depth, lanes), generator=gen, device=dev)
         return lane_major(torch.cat([xs[i], ys[i]], -1))
 
     def curve_proj(depth: int, lanes: int) -> torch.Tensor:
-        """(depth, 3L, lanes) projective pool points, Z != 1, row 2 the
+        """(depth, 3W, lanes) projective pool points, Z != 1, row 2 the
         identity where depth > 2."""
         pts = pool_proj[torch.randint(0, 128, (depth, lanes), generator=gen, device=dev)]
         if depth > 2:
@@ -718,10 +766,10 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
     kernels = {
         "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
                         lambda d, c: (curve_affine(d, c),),
-                        lambda d, c, a: prefix_scan_bound(d, c, curve), TS.scan_segments),
+                        lambda d, c, a: prefix_scan_bound(d, c, g), TS.scan_segments),
         "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
                       lambda d, c: (curve_proj(d, c),),
-                      lambda d, c, a: ec_reduce_bound(d, c, curve), TR.reduce_segments),
+                      lambda d, c, a: ec_reduce_bound(d, c, g), TR.reduce_segments),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
                             lambda d, c: (r12_affine(d, c),),
                             lambda d, c, a: prefix_scan_bound(d, c, curve), TS12.r12_segments),
@@ -731,54 +779,58 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
                          lambda d, c, a: bucket_accum_bound(a[0], curve),
                          lambda d, c: TK.accum_segments(d, W1 * c), contract),
     }
+    label = f"{cname} G2" if g.g2 else cname
     input_opts = ("stream", "M")
     rows = {name: [] for name, *_ in (*checks, *full)}
     for name, depth, lanes, role, opts in checks:
         fn, ref, make, bnd, plan, *part = kernels[name]
+        on = g if name in ("prefix_scan", "ec_reduce") else curve   # B5-B7 take a curve
         view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
         kw = {k: v for k, v in opts.items() if k not in input_opts}
-        got = view(fn(curve, *args, **kw), args)
+        got = view(fn(on, *args, **kw), args)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = ref(curve, *args, **kw)
+        want = ref(on, *args, **kw)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
         want = view(want, args)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"{name} != its plain version at {role}: max abs err {err}")
-        row = {"role": role, "curve": cname, "depth": depth, "lanes": lanes, "options": opts,
-               "checked": True, "max_abs_diff": err}
+            raise AssertionError(f"{name} != its plain version at {role}, {label}: "
+                                 f"max abs err {err}")
+        row = {"role": role, "curve": cname, "g2": g.g2, "depth": depth, "lanes": lanes,
+               "options": opts, "checked": True, "max_abs_diff": err}
         extra = ""
         if plan is not None:
             row["segments"] = plan(depth, lanes)
             extra = f", S {row['segments']}"
             if depth <= SERIAL_DEPTH:
                 # the kernel's association against the serial fold, as points
-                if not same_points(curve, got, view(ref(curve, *args, segments=1, **kw), args)):
+                if not same_points(g, got, view(ref(on, *args, segments=1, **kw), args)):
                     raise AssertionError(f"{name} != its serial plain version (segments=1) "
                                          f"as projective points at {role}")
                 row["serial_equal_as_points"] = True
                 extra += ", == serial as points"
-        kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw))
+        kernel_ms = cuda_ms(lambda: fn(on, *args, **kw))
         bound_ms, bound_by = bnd(depth, lanes, args)
         row.update(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[0].shape)} {cname} exact{extra}; kernel {kernel_ms:.4f} ms, "
+        log(f"  {name:15s} {tuple(args[0].shape)} {label} exact{extra}; kernel {kernel_ms:.4f} ms, "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{role}]")
         del args, got, want
     for name, depth, lanes, role, opts in full:
         fn, _, make, bnd, plan, *part = kernels[name]
+        on = g if name in ("prefix_scan", "ec_reduce") else curve
         view = part[0] if part else (lambda out, args: out)
         args = make(depth, lanes, **{k: v for k, v in opts.items() if k in input_opts})
         kw = {k: v for k, v in opts.items() if k not in input_opts + ("serial",)}
-        kernel_ms = cuda_ms(lambda: fn(curve, *args, **kw), reps=3)
+        kernel_ms = cuda_ms(lambda: fn(on, *args, **kw), reps=3)
         bound_ms, bound_by = bnd(depth, lanes, args)
-        row = {"role": role, "curve": cname, "depth": depth, "lanes": lanes, "options": opts,
-               "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+        row = {"role": role, "curve": cname, "g2": g.g2, "depth": depth, "lanes": lanes,
+               "options": opts, "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         extra = ""
         if plan is not None:
@@ -786,8 +838,8 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
             extra = f", S {row['segments']}"
         if opts.get("serial"):
             # the plan's split against the serial kernel (the JAX order), as points
-            if not same_points(curve, view(fn(curve, *args, **kw), args),
-                               view(fn(curve, *args, **dict(kw, _segments=1)), args)):
+            if not same_points(g, view(fn(on, *args, **kw), args),
+                               view(fn(on, *args, **dict(kw, _segments=1)), args)):
                 raise AssertionError(f"{name} at its plan != itself at _segments=1 as "
                                      f"projective points at {role}")
             row["serial_equal_as_points"] = True
@@ -802,7 +854,7 @@ def check_msm_kernels(dev, gen, smi: str, cname: str, checks: list, full: list) 
             extra += (f"; both adds on every slot (the Pallas body) "
                       f"{row['bound_all_slots_ms']:.3f} ms")
         rows[name].append(row)
-        log(f"  {name:15s} {tuple(args[0].shape)} {cname} kernel {kernel_ms:.3f} ms, bound "
+        log(f"  {name:15s} {tuple(args[0].shape)} {label} kernel {kernel_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), {kernel_ms / bound_ms:.1f}x{extra}  [{role}] [{smi}]")
         del args
     torch.cuda.empty_cache()
@@ -946,7 +998,8 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     n = 1 << V1_LOG
     scal, px, py, want20 = bench_inputs(n, 2)
     s20, out[V1_MAIN] = run_checked("v1", V1_MAIN, n, scal, px, py, want20)
-    profiles[V1_MAIN] = profile(V1_MAIN, timed_call("v1", s20, px, py), want20)
+    # not profiled: its 216,605 launches took the profile 34-51 s on the H100
+    # (idle share 0.83: host-bound in the torch bucket phase)
     del s20, px, py
 
     # bench.py's distinct-point check (bench.py:158-223) at 2^16, every route
@@ -2303,27 +2356,37 @@ M5_MAIN["unshared batch"] = (f"msm bn254 {M5_BATCH} x 2^{M5_BATCH_LOG} unshared 
                              "(distinct points)")
 
 
-def precompute_bound(curve, n: int, nu: int, shift: int,
+def precompute_bound(g, n: int, nu: int, shift: int,
                      fermat_per_copy: bool = False) -> tuple[float, str]:
-    """precompute_bases' least work: per point 2 Montgomery multiplies into
-    the form; per copy after the first, `shift` doublings of 7 multiplies
-    (Jacobian, a = 0: dbl-2009-l's 2M + 5S, no multiply by b), 3 multiplies
-    of Montgomery's batch inversion and 4 to affine (Z^-2, Z^-3, x Z^-2,
-    y Z^-3); one Fermat inversion (bits(p - 2) squarings, popcount(p - 2)
-    multiplies) for the whole batch. Bytes: n 2L words read, nu n 2L
-    written. fermat_per_copy: the kernel's own algorithm instead (RCB15
-    doublings, DBL_MONTS and the b3 multiply where b3 is not small, and a
-    Fermat inversion and 4 multiplies a copy)."""
-    from icicle_tpu_torch.kernels.msm_lib import b3_small
-    nl = curve.fq.nlimbs
-    e = curve.fq.modulus - 2
+    """precompute_bases' least work over group g (or a curve's G1), in
+    base-field products (coord_muls: an Fp2 multiply 3, a squaring 2):
+    per point 2 D multiplies into the form (D the coordinate field's
+    degree); per copy after the first, `shift` Jacobian doublings at a = 0
+    (dbl-2009-l: 2M + 5S, no multiply by b: 7 over Fp, 16 over Fp2), the
+    batch inversion's share (3 over Fp; over Fp2 inverted through the norm
+    in Fp: 2 squarings for the norm, 3, and 2 for the conjugate) and 4 to
+    affine (Z^-2 a squaring, Z^-3, x Z^-2, y Z^-3: 4 over Fp, 11 over
+    Fp2); one Fermat inversion in Fp (bits(p - 2) squarings, popcount(p -
+    2) multiplies) for the whole batch. Bytes: n 2W words read, nu n 2W
+    written (W a coordinate's words). fermat_per_copy: the kernel's own
+    algorithm instead (RCB15 doublings, DBL_MONTS multiplies and one by b3,
+    and a Fermat inversion, through the norm over Fp2, and 4 multiplies a
+    copy)."""
+    from icicle_tpu_torch.kernels.msm_lib import as_group
+    g = as_group(g)
+    d = g.degree
+    mul, sqr, b3 = coord_muls(g)
+    e = g.curve.fq.modulus - 2
     inversion = e.bit_length() + bin(e).count("1")
     if fermat_per_copy:
-        dbl = DBL_MONTS + (0 if b3_small(curve) is not None else 1)
-        monts = n * (2 + (nu - 1) * (shift * dbl + inversion + 4))
+        dbl = DBL_MONTS * mul + b3
+        inv = inversion + (4 if d == 2 else 0)
+        muls = n * (2 * d + (nu - 1) * (shift * dbl + inv + 4 * mul))
     else:
-        monts = n * (2 + (nu - 1) * (shift * JAC_DBL_MONTS + 3 + 4)) + inversion
-    return bound(n * (1 + nu) * 2 * nl * 4, monts * big_mont_muls(nl))
+        dbl = 2 * mul + 5 * sqr
+        batch_inv = 3 if d == 1 else 2 + 3 + 2
+        muls = n * (2 * d + (nu - 1) * (shift * dbl + batch_inv + sqr + 3 * mul)) + inversion
+    return bound(n * (1 + nu) * 2 * g.nlimbs * 4, muls * big_mont_muls(g.base_limbs))
 
 
 def v3_plan(curve_name: str, n: int, c=None, T=None, nu: int = 1, glv: bool = False,
@@ -2374,106 +2437,105 @@ def fixed_base_mul(table: list, k: int, mod: int):
     return acc if acc is not INF else (0, 0)
 
 
-def limb_checks(nl: int, cname: str, log_n: int) -> tuple[list, list]:
-    """check_msm_kernels' rows for B3 and B4 at nl limbs: the lane widths
-    v3 gives them at 2^log_n points (M1, M2) with the serial depth cut to
-    64 and 61, then those paths' full shapes, timed."""
-    plan = v3_plan(cname, 1 << log_n)
+def plan_checks(g, plan: dict, path: str) -> tuple[list, list]:
+    """check_msm_kernels' rows for B3 and B4 over group g at the lane
+    widths `plan` gives them on `path` (v3's plan for M1 and M2, the
+    generic msm()'s for E1-E3) with the serial depth cut to 64 and 61, then
+    the path's full shapes, timed."""
+    nl = g.base_limbs
+    kind = f"{nl}-limb" + (f" G2, degree {g.degree}" if g.g2 else "")
     K, C = plan["T"], plan["wg"] * plan["tiles"]
     R, CR = plan["tiles"], plan["wg"] * plan["M"]
     w_pad = -(-plan["n_windows"] // plan["wg"]) * plan["wg"]
-    path = "M1" if nl == 12 else "M2"
     groups = -(-plan["n_windows"] // plan["wg"])
-    checks = [("prefix_scan", 64, C, f"B3 {nl}-limb, one {path} window group, K cut from {K}"),
-              ("prefix_scan", 61, C, f"B3 {nl}-limb, K 61: ragged last segment"),
-              ("ec_reduce", 64, CR, f"B4 {nl}-limb, {path} cross-tile fold, R cut from {R}"),
-              ("ec_reduce", 61, CR, f"B4 {nl}-limb, R 61: ragged and empty segments")]
-    full = [("prefix_scan", K, C, f"B3 {nl}-limb at full depth ({groups} per {path} MSM)"),
-            ("ec_reduce", R, CR, f"B4 {nl}-limb cross-tile at full depth ({groups} per "
+    checks = [("prefix_scan", 64, C, f"B3 {kind}, one {path} window group, K cut from {K}"),
+              ("prefix_scan", 61, C, f"B3 {kind}, K 61: ragged last segment"),
+              ("ec_reduce", 64, CR, f"B4 {kind}, {path} cross-tile fold, R cut from {R}"),
+              ("ec_reduce", 61, CR, f"B4 {kind}, R 61: ragged and empty segments")]
+    full = [("prefix_scan", K, C, f"B3 {kind} at full depth ({groups} per {path} MSM)"),
+            ("ec_reduce", R, CR, f"B4 {kind} cross-tile at full depth ({groups} per "
                                  f"{path} MSM)"),
-            ("ec_reduce", plan["M"] // 128, w_pad * 128, f"B4 {nl}-limb, {path} bucket pass 1"),
-            ("ec_reduce", 128, w_pad, f"B4 {nl}-limb, {path} bucket pass 2")]
+            ("ec_reduce", plan["M"] // 128, w_pad * 128, f"B4 {kind}, {path} bucket pass 1"),
+            ("ec_reduce", 128, w_pad, f"B4 {kind}, {path} bucket pass 2")]
     return [r + ({},) for r in checks], [r + ({},) for r in full]
 
 
-def check_precompute_bases(dev, gen, smi: str) -> list:
-    """precompute_bases at 8, 12 and 24 limbs over 2^12 points (two of them
-    the identity, (0, 0)) at nu 2, 4 and 23 (shift from c = 8), bit-exact
-    with its plain version and, at one point a copy, with Python-int
-    doublings; timed at M3's and M4's shapes."""
-    from icicle_tpu_torch.curves.host_ec import ec_add
-    from icicle_tpu_torch.curves.params import get_curve
+def check_precompute_bases(dev, gen, smi: str, groups, chains, timed) -> list:
+    """precompute_bases over each group of `groups` at 2^12 points (two of
+    them the identity, (0, 0)), at each (nu, shift) of chains(group),
+    bit-exact with its plain version and, at one point a copy, with
+    Python-int doublings; then timed alone at each (group, n, nu, shift,
+    role) of `timed`, the main paths' shapes."""
+    from icicle_tpu_torch.curves.host_ec import host_ops
     from icicle_tpu_torch.kernels import precompute_kernel as PB
-    from icicle_tpu_torch.ops.msm import precompute_shift
+
+    def label(g):
+        return f"{g.curve.name}{' G2' if g.g2 else ''} ({g.base_limbs}-limb, degree {g.degree})"
 
     pre = []
-    for nl, cname in PRE_CURVES:
-        curve = get_curve(cname)
-        fq, mod = curve.fq, curve.fq.modulus
-        pool = pool_points(curve)
+    for g in groups:
+        f = g.coord_field
+        cname = g.curve.name
+        pool = pool_points(g)
         idx = torch.randint(0, len(pool), (PRE_CHECK_N,), generator=gen, device=dev)
-        px = fq.from_ints([p[0] for p in pool], dev)[idx]
-        py = fq.from_ints([p[1] for p in pool], dev)[idx]
+        px = f.from_ints([p[0] for p in pool], dev)[idx]
+        py = f.from_ints([p[1] for p in pool], dev)[idx]
         px[:2] = 0
         py[:2] = 0                                               # the identity, (0, 0)
+        _, dbl, _, ident = host_ops(g)
+        read = (lambda v: tuple(int(c) for c in v)) if g.degree == 2 else int
         P = pool[int(idx[2])]
-        nbits = curve.fr.modulus.bit_length()
-        for nu in PRE_CHECK_NU:
-            shift = precompute_shift(nbits, PRE_CHECK_C, nu)
-            got = PB.precompute_bases(curve, px, py, nu, shift)
+        for nu, shift in chains(g):
+            got = PB.precompute_bases(g, px, py, nu, shift)
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            want = PB.precompute_bases_ref(curve, px, py, nu, shift)
+            want = PB.precompute_bases_ref(g, px, py, nu, shift)
             end.record()
             end.synchronize()
             plain_ms = start.elapsed_time(end)
             err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                       for a, b in zip(got, want))
             if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"precompute_bases != its plain version, {cname} nu {nu}: "
-                                     f"max abs err {err}")
-            ox, oy = (fq.to_ints(t[:3 * nu]) for t in got)
+                raise AssertionError(f"precompute_bases != its plain version, {label(g)} nu "
+                                     f"{nu}: max abs err {err}")
+            ox, oy = (f.to_ints(t[:3 * nu]) for t in got)
             Q = P
             for j in range(nu):
                 for _ in range(shift if j else 0):
-                    Q = ec_add(Q, Q, mod)                        # 2^(j shift) P
-                row = 2 * nu + j                                 # copy j of point 2
-                if (int(ox[row]), int(oy[row])) != Q:
-                    raise AssertionError(f"precompute_bases {cname} nu {nu}: copy {j} != "
+                    Q = dbl(Q)                                   # 2^(j shift) P
+                if (read(ox[2 * nu + j]), read(oy[2 * nu + j])) != Q:   # copy j of point 2
+                    raise AssertionError(f"precompute_bases {label(g)} nu {nu}: copy {j} != "
                                          f"2^{j * shift} P by Python ints")
-                if any(int(ox[j2]) or int(oy[j2]) for j2 in (j, nu + j)):
-                    raise AssertionError(f"precompute_bases {cname} nu {nu}: the identity's "
-                                         f"copy {j} is not (0, 0)")
-            kernel_ms = cuda_ms(lambda: PB.precompute_bases(curve, px, py, nu, shift))
-            bound_ms, bound_by = precompute_bound(curve, PRE_CHECK_N, nu, shift)
-            pre.append({"role": f"{cname} {nl}-limb, 2^12 points, nu {nu}", "curve": cname,
-                        "n": PRE_CHECK_N, "nu": nu, "shift": shift, "checked": True,
-                        "max_abs_diff": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
+                if any((read(ox[r]), read(oy[r])) != ident for r in (j, nu + j)):
+                    raise AssertionError(f"precompute_bases {label(g)} nu {nu}: the "
+                                         f"identity's copy {j} is not (0, 0)")
+            kernel_ms = cuda_ms(lambda: PB.precompute_bases(g, px, py, nu, shift))
+            bound_ms, bound_by = precompute_bound(g, PRE_CHECK_N, nu, shift)
+            pre.append({"role": f"{label(g)}, 2^12 points, nu {nu}", "curve": cname,
+                        "g2": g.g2, "n": PRE_CHECK_N, "nu": nu, "shift": shift,
+                        "checked": True, "max_abs_diff": err, "kernel_ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "bound_fermat_per_copy_ms":
-                            precompute_bound(curve, PRE_CHECK_N, nu, shift, True)[0]})
-            log(f"  precompute_bases {cname} ({PRE_CHECK_N}, {nl}) nu {nu} shift {shift} exact, "
-                f"== Python ints at one point; kernel {kernel_ms:.4f} ms, plain "
+                            precompute_bound(g, PRE_CHECK_N, nu, shift, True)[0]})
+            log(f"  precompute_bases {label(g)} ({PRE_CHECK_N}, {g.nlimbs}) nu {nu} shift "
+                f"{shift} exact, == Python ints at one point; kernel {kernel_ms:.4f} ms, plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    # timed at the main paths' shapes: M3 (its bases) and M4 (nu 4)
-    for cname, n, nu, c, role in (
-            ("bls12_377", 1 << M3_LOG, M3_NU, M3_C, "M3's bases"),
-            ("bn254", 1 << M4_LOG, 4, M4_C, "M4's bases at nu 4")):
-        curve = get_curve(cname)
-        fq = curve.fq
-        pts = pool_points(curve, 16)
+        del px, py
+    for g, n, nu, shift, role in timed:
+        f = g.coord_field
+        pts = pool_points(g, 16)
         idx = torch.randint(0, 16, (n,), generator=gen, device=dev)
-        px = fq.from_ints([p[0] for p in pts], dev)[idx]
-        py = fq.from_ints([p[1] for p in pts], dev)[idx]
-        shift = precompute_shift(curve.fr.modulus.bit_length(), c, nu)
-        kernel_ms = cuda_ms(lambda: PB.precompute_bases(curve, px, py, nu, shift), reps=3)
-        bound_ms, bound_by = precompute_bound(curve, n, nu, shift)
-        fermat_ms = precompute_bound(curve, n, nu, shift, True)[0]
-        pre.append({"role": role, "curve": cname, "n": n, "nu": nu, "shift": shift,
-                    "checked": False, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bound_fermat_per_copy_ms": fermat_ms})
-        log(f"  precompute_bases {cname} ({n}, {fq.nlimbs}) nu {nu} shift {shift} kernel "
+        px = f.from_ints([p[0] for p in pts], dev)[idx]
+        py = f.from_ints([p[1] for p in pts], dev)[idx]
+        kernel_ms = cuda_ms(lambda: PB.precompute_bases(g, px, py, nu, shift), reps=3)
+        bound_ms, bound_by = precompute_bound(g, n, nu, shift)
+        fermat_ms = precompute_bound(g, n, nu, shift, True)[0]
+        pre.append({"role": role, "curve": g.curve.name, "g2": g.g2, "n": n, "nu": nu,
+                    "shift": shift, "checked": False, "kernel_ms": kernel_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_fermat_per_copy_ms": fermat_ms})
+        log(f"  precompute_bases {label(g)} ({n}, {g.nlimbs}) nu {nu} shift {shift} kernel "
             f"{kernel_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
             f"{kernel_ms / bound_ms:.1f}x (its own algorithm's multiplies {fermat_ms:.3f} ms)"
             f"  [{role}] [{smi}]")
@@ -2684,6 +2746,226 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
     return out
 
 
+# -- G2 and the extension fields: B3/B4/precompute_bases over Fp2, E1-E6 --------
+
+G2_CURVES = ("bn254", "bls12_381", "bls12_377", "bw6_761")
+E1_LOG, E2_LOG, E3_LOG = 22, 20, 16
+E1_MAIN = f"msm bn254 G2 2^{E1_LOG}"
+E2_MAIN = f"msm bls12_381 G2 2^{E2_LOG}"
+E3_MAIN = {c: f"msm {c} G2 2^{E3_LOG}" for c in ("bls12_377", "bw6_761")}
+E1_OTHER_C = (12, 16)   # E1 also timed at these c: the first runs' explicit c, the closed form's
+E4_LOG, E4_NU, E4_C = 20, 2, 11
+E4_BASES = f"msm_precompute_bases bn254 G2 2^{E4_LOG} x {E4_NU} (c {E4_C})"
+E4_MAIN = f"msm bn254 G2 2^{E4_LOG} precompute_factor {E4_NU} (c {E4_C})"
+E4_BATCH, E4_BATCH_LOG = 8, 12
+E4_BATCHED = f"msm bn254 G2 {E4_BATCH} x 2^{E4_BATCH_LOG} shared"
+E5_LOG = 16
+E5_MAIN = {g: f"msm bn254 {g} 2^{E5_LOG} (the KZG-style pairing identity)" for g in ("G1", "G2")}
+E6_LOG = 24
+E6_MAIN = f"ntt_ext babybear4 2^{E6_LOG} fwd+inv"
+G2_PATH_LOGS = {"bn254": E1_LOG, "bls12_381": E2_LOG, "bls12_377": E3_LOG, "bw6_761": E3_LOG}
+G2_PATH_NAMES = {"bn254": "E1", "bls12_381": "E2", "bls12_377": "E3", "bw6_761": "E3"}
+G2_PRE_N = 1 << 12
+G2_PRE_NU, G2_PRE_SHIFT = 3, 16   # a short shift, as M3's (nu 23, c 8) is
+
+
+def g2_paths(dev, smi: str, launches: dict) -> dict:
+    """E1-E6 on CUDA tensors through the entry points a user calls, each
+    counted (B3 and B4 at the group's instance, precompute_bases where used,
+    dif_rows for E6, nothing else), gated by an oracle, timed and (E1-E4,
+    E6) profiled. Inputs follow pool_points: 64 points k_i Q of known logs,
+    tiled, and scalars below r from the seed, so the oracle is one scalar
+    multiply on the host: E1 bn254 G2 2^22 (Groth16's B query), E2
+    bls12_381 G2 2^20, E3 bls12_377 and bw6_761 G2 2^16, each through
+    MSMConfig(g2=True) at msm()'s default c (E1 also timed at
+    E1_OTHER_C); E4 bn254 G2
+    msm_precompute_bases at nu 2 over 2^20 points, then its MSM with
+    explicit c, and a shared-point batch of 8 x 2^12; E5 bn254 G1 and G2
+    MSMs of one set of scalars over k_i G1 and k_i G2, then e(A1, G2) ==
+    e(G1, A2) by `pairing` and `ate_pairing` on the host; E6 a babybear4
+    ntt_ext 2^24 forward and inverse, 8 dif_rows launches each way, equal
+    to the component-wise torch NTT."""
+    from icicle_tpu_torch import MSMConfig, msm_affine
+    from icicle_tpu_torch.curves import ate, pairing
+    from icicle_tpu_torch.curves.host_ec import ec_mul, host_ops, scalar_mul
+    from icicle_tpu_torch.curves.group import get_group
+    from icicle_tpu_torch.fields.extension import get_ext_field
+    from icicle_tpu_torch.ops import ntt as N
+    from icicle_tpu_torch.ops.msm import default_c, generic_plan, msm_precompute_bases
+    from icicle_tpu_torch.runtime.config import NTTConfig, NTTDir
+
+    out = {}
+    zero = dict.fromkeys(kernel_counters(), 0)
+
+    def run(label, call, want, expect, inst):
+        got = counted(label, call, launches)
+        if launches[label] != dict(zero, **expect):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected {expect}")
+        if got != want:
+            bad = (sum(a != b for a, b in zip(got, want)) if isinstance(want, list)
+                   else f"{got} != {want}")
+            raise AssertionError(f"{label}: result differs from the oracle: {bad}")
+        launched = {k: v for k, v in launches[label].items() if v}
+        log(f"  {label}: == oracle, launches {launched} [{smi}]")
+        return {"instance": inst, "launches": launched}
+
+    def timed(label, call, want, n, per=1, reps=3):
+        ms, last = host_ms(call, reps=reps)
+        if last != want:
+            raise AssertionError(f"{label}: timed result differs from the oracle")
+        log(f"  {label}: timed == oracle, {ms:.1f} ms, {ms / per:.3f} ms an MSM, "
+            f"{n * per / (ms * 1e-3):.4g} points/s [{smi}]")
+        return {"ms": ms, "ms_per_msm": ms / per, "points_per_s": n * per / (ms * 1e-3)}
+
+    def profiled(label, call, want):
+        got, prof = device_profile(label, call, smi)
+        if got != want:
+            raise AssertionError(f"profiled {label}: result differs from the oracle")
+        return prof
+
+    def tiled(g, n, seed):
+        """(px, py) of n points k_(i mod 64) Q on the card, (n, Ls) canonical
+        scalars there and as numpy, and the k_i as weights."""
+        pool, ks = pool_points(g), pool_logs()
+        f = g.coord_field
+        reps = -(-n // 64)
+        px = f.from_ints([p[0] for p in pool], dev).repeat(reps, 1)[:n].contiguous()
+        py = f.from_ints([p[1] for p in pool], dev).repeat(reps, 1)[:n].contiguous()
+        scal = canonical_scalars(np.random.default_rng(seed), (n,), g.curve.fr)
+        w = np.array((ks * reps)[:n], dtype=np.uint64)
+        return px, py, torch.from_numpy(scal.view(np.int32)).to(dev), scal, w
+
+    def oracle(g, scal, w):
+        """sum_i s_i k_i Q: one host scalar multiply (the identity as
+        msm_affine reads it)."""
+        pt = scalar_mul(g, group_generator(g), weighted_total(scal, g.curve.fr.modulus, w))
+        return pt if pt is not None else host_ops(g)[3]
+
+    def inst(g):
+        return f"{g.base_limbs}-limb, degree {g.degree}"
+
+    # E1-E3: a G2 MSM a curve through msm_affine; E1 and E2 timed and profiled
+    for label, cname, log_n, seed in ((E1_MAIN, "bn254", E1_LOG, 21),
+                                      (E2_MAIN, "bls12_381", E2_LOG, 22),
+                                      (E3_MAIN["bls12_377"], "bls12_377", E3_LOG, 23),
+                                      (E3_MAIN["bw6_761"], "bw6_761", E3_LOG, 24)):
+        g = get_group(cname, g2=True)
+        n = 1 << log_n
+        px, py, s, scal, w = tiled(g, n, seed)
+        want = oracle(g, scal, w)
+        call = lambda: msm_affine(cname, s, px, py, MSMConfig(g2=True))
+        c = default_c(n, g2=True)
+        log(f"  {label}: MSMConfig(g2=True), the default c {c}")
+        rec = run(label, call, want, v3_launches(generic_plan(cname, n, c, g2=True)), inst(g))
+        rec.update(timed(label, call, want, n, reps=3 if log_n > E3_LOG else 5), n=n, c=c)
+        if log_n > E3_LOG:
+            rec["profile"] = profiled(label, call, want)
+        if label == E1_MAIN:
+            rec["other_c_ms"] = {c2: timed(f"{label} at c {c2}", lambda: msm_affine(
+                cname, s, px, py, MSMConfig(g2=True, c=c2)), want, n, reps=2)["ms"]
+                for c2 in E1_OTHER_C}
+        out[label] = rec
+        del px, py, s
+        torch.cuda.empty_cache()
+
+    # E4: precomputed G2 bases at nu 2, their MSM with explicit c, and a
+    # shared-point batch
+    g = get_group("bn254", g2=True)
+    n = 1 << E4_LOG
+    px, py, s, scal, w = tiled(g, n, 25)
+    want = oracle(g, scal, w)
+    cfg = MSMConfig(g2=True, c=E4_C, precompute_factor=E4_NU)
+    bx, by = counted(E4_BASES, lambda: msm_precompute_bases("bn254", px, py, cfg), launches)
+    if launches[E4_BASES] != dict(zero, precompute_bases=1):
+        raise AssertionError(f"{E4_BASES}: launched {launches[E4_BASES]}")
+    call = lambda: msm_affine("bn254", s, bx, by, cfg)
+    plan = generic_plan("bn254", E4_NU * n, E4_C, E4_NU, g2=True)
+    rec = run(E4_MAIN, call, want, v3_launches(plan), inst(g))
+    rec.update(timed(E4_MAIN, call, want, n), n=n)
+    rec["profile"] = profiled(E4_MAIN, call, want)
+    out[E4_MAIN] = rec
+    del bx, by
+    nb = 1 << E4_BATCH_LOG
+    sb = s[:E4_BATCH * nb].view(E4_BATCH, nb, -1)
+    wb = [scalar_mul(g, group_generator(g), t) for t in (
+        weighted_total(scal[b * nb:(b + 1) * nb], g.curve.fr.modulus, w[:nb])
+        for b in range(E4_BATCH))]
+    call = lambda: msm_affine("bn254", sb, px[:nb], py[:nb], MSMConfig(g2=True))
+    rec = run(E4_BATCHED, call, wb, v3_launches(generic_plan("bn254", nb, default_c(nb, True),
+                                                             g2=True),
+                                                E4_BATCH), inst(g))
+    rec.update(timed(E4_BATCHED, call, wb, nb, per=E4_BATCH))
+    out[E4_BATCHED] = rec
+    del px, py, s, sb
+    torch.cuda.empty_cache()
+
+    # E5: the same scalars over k_i G1 and k_i G2; e(A1, G2) == e(G1, A2)
+    n = 1 << E5_LOG
+    g2 = get_group("bn254", g2=True)
+    curve = g2.curve
+    fq, mod = curve.fq, curve.fq.modulus
+    g1_pt = (curve.gen_x, curve.gen_y)
+    px2, py2, s, scal, w = tiled(g2, n, 26)
+    g1_pool = pool_points(curve)
+    reps = n // 64
+    px1 = fq.from_ints([p[0] for p in g1_pool], dev).repeat(reps, 1).contiguous()
+    py1 = fq.from_ints([p[1] for p in g1_pool], dev).repeat(reps, 1).contiguous()
+    total = weighted_total(scal, curve.fr.modulus, w)
+    want1, want2 = ec_mul(g1_pt, total, mod), scalar_mul(g2, group_generator(g2), total)
+    msm1 = lambda: msm_affine("bn254", s, px1, py1, MSMConfig())
+    msm2 = lambda: msm_affine("bn254", s, px2, py2, MSMConfig(g2=True))
+    a1 = run(E5_MAIN["G1"], msm1, want1, v3_launches(v3_plan("bn254", n)), "8-limb, degree 1")
+    a2 = run(E5_MAIN["G2"], msm2, want2,
+             v3_launches(generic_plan("bn254", n, default_c(n, g2=True), g2=True)), inst(g2))
+    t0 = time.perf_counter()
+    lhs, rhs = pairing.pairing("bn254", want1, group_generator(g2)), \
+        pairing.pairing("bn254", g1_pt, want2)
+    if lhs != rhs or lhs == pairing.target_one("bn254"):
+        raise AssertionError("E5: pairing(A1, G2) != pairing(G1, A2), or degenerate")
+    if ate.ate_pairing("bn254", want1, group_generator(g2)) != \
+            ate.ate_pairing("bn254", g1_pt, want2):
+        raise AssertionError("E5: ate_pairing(A1, G2) != ate_pairing(G1, A2)")
+    pairing_s = time.perf_counter() - t0
+    log(f"  E5: pairing(A1, G2) == pairing(G1, A2) and the same by ate_pairing, non-degenerate, "
+        f"on the host in {pairing_s:.2f} s")
+    a1.update(timed(E5_MAIN["G1"], msm1, want1, n))
+    a2.update(timed(E5_MAIN["G2"], msm2, want2, n))
+    out[E5_MAIN["G1"]], out[E5_MAIN["G2"]] = a1, dict(a2, pairing_s=pairing_s)
+    del px1, py1, px2, py2, s
+    torch.cuda.empty_cache()
+
+    # E6: babybear4 ntt_ext 2^24 forward and inverse
+    ef = get_ext_field("babybear")
+    f = ef.base
+    x = torch.randint(0, f.modulus, (1 << E6_LOG, ef.degree), dtype=torch.int32, device=dev)
+
+    def fwd_inv():
+        y = N.ntt_ext(ef, x, NTTDir.FORWARD)
+        return y, N.ntt_ext(ef, y, NTTDir.INVERSE)
+
+    y, z = counted(E6_MAIN, fwd_inv, launches)
+    expect = 4 * ef.degree
+    if launches[E6_MAIN] != dict(zero, dif_rows=expect):
+        raise AssertionError(f"{E6_MAIN}: launched {launches[E6_MAIN]}, expected {expect} "
+                             "dif_rows (two a component each way)")
+    ref = torch.stack([N._ntt_torch(f, x[:, i].contiguous(), NTTDir.FORWARD, NTTConfig())
+                       for i in range(ef.degree)], -1)
+    if not torch.equal(y, ref) or not torch.equal(z, x):
+        raise AssertionError(f"{E6_MAIN}: forward != the component-wise torch NTT, or the "
+                             "round trip != x")
+    del ref, z
+    fwd_ms, _ = host_ms(lambda: N.ntt_ext(ef, x, NTTDir.FORWARD))
+    inv_ms, _ = host_ms(lambda: N.ntt_ext(ef, y, NTTDir.INVERSE))
+    _, prof = device_profile(E6_MAIN, lambda: N.ntt_ext(ef, x, NTTDir.FORWARD), smi)
+    log(f"  {E6_MAIN}: == component-wise _ntt_torch, round trip exact, {expect} dif_rows; "
+        f"forward {fwd_ms:.3f} ms, inverse {inv_ms:.3f} ms [{smi}]")
+    out[E6_MAIN] = {"launches": {"dif_rows": expect}, "forward_ms": fwd_ms,
+                    "inverse_ms": inv_ms, "profile": prof}
+    del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
@@ -2735,11 +3017,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from icicle_tpu_torch import NTTConfig, NTTDir, get_field, ntt
+    from icicle_tpu_torch import NTTConfig, NTTDir, get_field, get_group, ntt
     from icicle_tpu_torch.kernels import build, sass
     from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.ops import ntt as N
+    from icicle_tpu_torch.ops.msm import default_c, generic_plan, precompute_shift
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2867,16 +3150,41 @@ def main() -> None:
     wide_rows = check_wide_kernel(dev, gen, smi)
     phase_done("kernels: dif_rows_wide")
     log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
-    msm_rows = check_msm_kernels(dev, gen, smi, "bn254", MSM_CHECKS, MSM_FULL)
+    msm_rows = check_msm_kernels(dev, gen, smi, get_group("bn254"), MSM_CHECKS, MSM_FULL)
     phase_done("kernels: B3-B7")
     log("== kernels: B3 and B4 at 12 and 24 limbs, precompute_bases at 8, 12 and 24, against "
         "their plain versions on the card")
     limb_rows = {}
     for nl, cname, log_n in LIMB_CURVES:
-        curve_rows = check_msm_kernels(dev, gen, smi, cname, *limb_checks(nl, cname, log_n))
+        g = get_group(cname)
+        curve_rows = check_msm_kernels(dev, gen, smi, g, *plan_checks(
+            g, v3_plan(cname, 1 << log_n), "M1" if nl == 12 else "M2"))
         limb_rows.update({f"{k} ({nl}-limb)": v for k, v in curve_rows.items()})
-    limb_rows["precompute_bases"] = check_precompute_bases(dev, gen, smi)
+    nbits = lambda g: g.curve.fr.modulus.bit_length()
+    limb_rows["precompute_bases"] = check_precompute_bases(
+        dev, gen, smi, [get_group(cname) for _, cname in PRE_CURVES],
+        lambda g: [(nu, precompute_shift(nbits(g), PRE_CHECK_C, nu)) for nu in PRE_CHECK_NU],
+        [(get_group(cname), 1 << log_n, nu, precompute_shift(nbits(get_group(cname)), c, nu),
+          role) for cname, log_n, nu, c, role in (
+              ("bls12_377", M3_LOG, M3_NU, M3_C, "M3's bases"),
+              ("bn254", M4_LOG, 4, M4_C, "M4's bases at nu 4"))])
     phase_done("kernels: B3/B4 12, 24 limbs, precompute_bases")
+    log("== kernels: G2 -- B3, B4 and precompute_bases over Fp2 (8 and 12 limbs) and over Fq "
+        "(bw6_761's G2, the 24-limb libraries) against their plain versions on the card")
+    g2_rows = {}
+    for cname in G2_CURVES:
+        g = get_group(cname, g2=True)
+        n = 1 << G2_PATH_LOGS[cname]
+        plan = generic_plan(cname, n, default_c(n, g2=True), g2=True)
+        for k, v in check_msm_kernels(dev, gen, smi, g, *plan_checks(
+                g, plan, G2_PATH_NAMES[cname])).items():
+            g2_rows.setdefault(f"{k} ({g.base_limbs}-limb, degree {g.degree})", []).extend(v)
+    g2b = get_group("bn254", g2=True)
+    g2_rows["precompute_bases"] = check_precompute_bases(
+        dev, gen, smi, [get_group(cname, g2=True) for cname in G2_CURVES],
+        lambda g: [(G2_PRE_NU, G2_PRE_SHIFT)],
+        [(g2b, 1 << E4_LOG, E4_NU, precompute_shift(nbits(g2b), E4_C, E4_NU), "E4's bases")])
+    phase_done("kernels: G2 B3/B4/precompute_bases")
     log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
     p2_rows = check_poseidon2_kernel(dev, gen, smi)
     phase_done("kernels: poseidon2")
@@ -2953,6 +3261,11 @@ def main() -> None:
         "bases, GLV, batches, Montgomery-form inputs, bitsize) on CUDA tensors")
     msm_tail = msm_long_tail_paths(dev, smi, launches)
     phase_done("main path: msm long tail (M1-M5)")
+    log("== main paths: G2 and the extension fields (E1-E6: G2 MSMs over bn254, bls12_381, "
+        "bls12_377 and bw6_761, precomputed G2 bases and a batch, the pairing identity, "
+        "ntt_ext) on CUDA tensors")
+    g2 = g2_paths(dev, smi, launches)
+    phase_done("main path: G2 and extension fields (E1-E6)")
 
     # -- 6. Merkle main path --------------------------------------------------
     log("== main path: the babybear Poseidon2 Merkle tree (MerkleTree.build) on CUDA tensors")
@@ -2982,6 +3295,7 @@ def main() -> None:
 
     # -- 7. main paths line ---------------------------------------------------
     print(json.dumps({"main_paths": {"ntt": paths, "msm": msm, "msm_long_tail": msm_tail,
+                                     "g2_and_extension_fields": g2,
                                      "merkle": merkle, "fri": fri,
                                      "sumcheck": sumcheck, "ntt_limb_fields": wide_ntt,
                                      "merkle_goldilocks": gl_merkle, "polynomials": polys,
@@ -3102,6 +3416,50 @@ def main() -> None:
         "m3_bound_ms": pre_m3["bound_ms"],
         "bound_fermat_per_copy_ms": pre_main["bound_fermat_per_copy_ms"],
         "shapes": pre, "card": smi})
+    # G2: B3 and B4 a (limbs, degree) instance, ms and bound_ms one launch at
+    # the headline path's full-depth shape, plain_ms at the first checked
+    # (cut) shape; bw6_761's G2 through the 24-limb libraries
+    for kname, source, replaces in (
+            ("prefix_scan", "msm_scan.cu", "icicle_tpu/pallas/msm_scan.py:45 (make_prefix_scan)"),
+            ("ec_reduce", "ec_reduce.cu", "icicle_tpu/pallas/ec_reduce.py:63 (make_ec_reduce)")):
+        for inst, label, cname, headline in (
+                ("8-limb, degree 2", f"{kname} (Fp2, 8-limb)", "bn254", E1_MAIN),
+                ("12-limb, degree 2", f"{kname} (Fp2, 12-limb)", "bls12_381", E2_MAIN),
+                ("24-limb, degree 1", f"{kname} (bw6_761 G2 consts, 24-limb)", "bw6_761",
+                 E3_MAIN["bw6_761"])):
+            rows = g2_rows[f"{kname} ({inst})"]
+            main = next(r for r in rows if not r["checked"] and r["curve"] == cname)
+            checked = next(r for r in rows if r["checked"] and r["curve"] == cname)
+            paths_of = [k for k, v in g2.items() if v.get("instance") == inst]
+            entries.append({
+                "name": label, "route": "cuda",
+                "source": f"icicle_tpu_torch/kernels/csrc/{source}", "replaces": replaces,
+                "launches": launches[headline][kname], "headline_path": headline,
+                "launches_per_path": {path: launches[path][kname] for path in paths_of},
+                "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
+                "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None,  # no PyTorch call computes an elliptic-curve add
+                "shape": [main["depth"], main["lanes"]],
+                "plain_shape": [checked["depth"], checked["lanes"]],
+                "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
+    pre2 = g2_rows["precompute_bases"]
+    pre2_main = next(r for r in pre2 if r["role"] == "E4's bases")
+    pre2_checked = pre2[0]
+    entries.append({
+        "name": "precompute_bases (G2: Fp2 8 and 12 limbs; bw6_761 over Fq)", "route": "cuda",
+        "source": "icicle_tpu_torch/kernels/csrc/precompute_bases.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/msm.py:313 msm_precompute_bases chunk_fn "
+                    "(group = get_group(curve, g2=True), ops/msm.py:286)",
+        "launches": launches[E4_BASES]["precompute_bases"], "headline_path": E4_BASES,
+        "launches_per_path": {E4_BASES: launches[E4_BASES]["precompute_bases"]},
+        "max_abs_err": max(r["max_abs_diff"] for r in pre2 if r["checked"]),
+        "ms": pre2_main["kernel_ms"], "plain_ms": pre2_checked["plain_ms"],
+        "bound_ms": pre2_main["bound_ms"], "bound_by": pre2_main["bound_by"],
+        "library_ms": None,  # no PyTorch call computes an elliptic-curve doubling chain
+        "shape": [pre2_main["n"], pre2_main["nu"], pre2_main["shift"]],
+        "plain_shape": [pre2_checked["n"], pre2_checked["nu"], pre2_checked["shift"]],
+        "checked_ms": pre2_checked["kernel_ms"], "shapes": pre2, "card": smi})
     # ms and bound_ms: one launch at the 2^29 tree's leaf layer; plain_ms: the
     # plain version at babybear t = 2, batch 2^16, where it was checked, beside
     # the kernel's ms there ("checked_ms")

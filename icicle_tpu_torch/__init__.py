@@ -13,9 +13,14 @@ Ported so far: the runtime, the field layer (Mont32, goldilocks and
 multi-limb), the NTT over every field, whose four-step row passes run in
 hand-written Hopper kernels (kernels/csrc/ntt_dif.cu for single-word
 fields, ntt_wide.cu for goldilocks and 8-limb fields), the polynomial API
-over it, field matmul, and the G1 MSM over every curve: the v3
+over it, field matmul, the extension fields and the pairing towers
+(fields/extension.py) with the extension-field NTT `ntt_ext`, the G1 and
+G2 groups (curves/group.py), the optimal-ate and Tate pairings on the host
+(curves/ate.py, curves/pairing.py), and the MSM over every curve and both
+groups: the v3
 prefix-scan pipeline, whose scan and EC reductions run in two more
-(kernels/csrc/msm_scan.cu, ec_reduce.cu, each at 8, 12 and 24 limbs) or,
+(kernels/csrc/msm_scan.cu, ec_reduce.cu, each at 8, 12 and 24 limbs,
+and over Fp2 at 8 and 12 for G2) or,
 with the radix-12 engine, a third (msm_scan_r12.cu, bn254); precomputed
 bases (precompute_bases.cu), GLV, batches and Montgomery-form inputs
 through the generic `msm` over the same kernels; the v2 suffix-fold
@@ -27,9 +32,9 @@ blake2s.cu, blake3.cu); and the protocol layer: the Keccak / SHA-3 hashes
 (keccak.cu), field programs and the vector ops (program.cu), proof of
 work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
 
-    fields:   get_field
-    curves:   get_curve
-    ops:      ntt, ntt_jit, NTTConfig, NTTDir, Ordering, matmul, MatMulConfig,
+    fields:   get_field, get_ext_field
+    curves:   get_curve, get_group, Projective, Affine
+    ops:      ntt, ntt_jit, ntt_ext, NTTConfig, NTTDir, Ordering, matmul, MatMulConfig,
               msm, msm_affine, msm_precompute_bases, MSMConfig,
               Poseidon2, Poseidon, Blake2s, Blake3, Keccak256, Keccak512, Sha3_256,
               Sha3_512, HashConfig,
@@ -42,7 +47,9 @@ work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
     runtime:  set_device
 """
 
+from icicle_tpu_torch.curves.group import Affine, Projective, get_group
 from icicle_tpu_torch.curves.params import get_curve
+from icicle_tpu_torch.fields.extension import get_ext_field
 from icicle_tpu_torch.fields.field import get_field
 from icicle_tpu_torch.ops.fri import FriTranscriptConfig, fri_prove, fri_verify
 from icicle_tpu_torch.ops.hash.blake2s import Blake2s
@@ -53,7 +60,7 @@ from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
 from icicle_tpu_torch.ops.mat_ops import MatMulConfig, matmul
 from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
 from icicle_tpu_torch.ops.msm import MSMConfig, msm, msm_affine, msm_precompute_bases
-from icicle_tpu_torch.ops.ntt import ntt, ntt_jit
+from icicle_tpu_torch.ops.ntt import ntt, ntt_ext, ntt_jit
 from icicle_tpu_torch.ops.pow import proof_of_work, proof_of_work_verify
 from icicle_tpu_torch.ops.program import PreDefined, Program, ReturningValueProgram
 from icicle_tpu_torch.ops.sumcheck import (SumcheckTranscriptConfig, sumcheck_prove,
@@ -65,7 +72,8 @@ from icicle_tpu_torch.runtime.config import (FriConfig, HashConfig, MerkleTreeCo
                                              NTTDir, Ordering, SumcheckConfig)
 from icicle_tpu_torch.runtime.device import set_device
 
-__all__ = ["get_curve", "get_field", "ntt", "ntt_jit", "NTTConfig", "NTTDir", "Ordering",
+__all__ = ["get_curve", "get_group", "Projective", "Affine", "get_field", "get_ext_field",
+           "ntt", "ntt_jit", "ntt_ext", "NTTConfig", "NTTDir", "Ordering",
            "matmul", "MatMulConfig", "Polynomial",
            "msm", "msm_affine", "msm_precompute_bases", "MSMConfig", "Poseidon2", "Poseidon", "Blake2s", "Blake3", "Keccak256",
            "Keccak512", "Sha3_256", "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",

@@ -10,7 +10,7 @@ lambda^3 = 1 in Fr. A scalar k then splits as k = k1 + k2*lambda with
 The reference does not ship GLV (its scalar ladders live in the closed CUDA
 backend). Here it feeds the MSM's GLV split (ops/msm_glv.py); in the JAX
 package it also feeds the ECNTT twiddle ladders (ops/ecntt.py), which the
-port has not taken yet.
+port has not taken yet: the ECNTT's GLV ladders are ROADMAP.md queue A item 6.
 
 Constants are DERIVED at first use (no pasted tables): beta/lambda are
 g^((q-1)/3) roots matched against the curve generator via the host EC oracle,

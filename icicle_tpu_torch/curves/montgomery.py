@@ -3,8 +3,8 @@ icicle_tpu/curves/montgomery.py; reference src/curves/montgomery_conversion.cpp
 -- affine/projective, G1/G2 variants).
 
 Montgomery form is the in-kernel representation already; these are the
-explicit API-boundary converters the reference exposes. G2 raises in
-`get_group` (ROADMAP.md queue A item 7).
+explicit API-boundary converters the reference exposes, for G1 and (g2=True)
+G2 points.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ keeps them as int32 tensors holding the same bits: a single-limb element's
 canonical value (< 2^31, never negative), a goldilocks element's (..., 2)
 words [lo, hi] and a multi-limb element's (..., L) little-endian uint32
 limbs, where a word >= 2^31 reads as negative in int32.
-`.view(np.int32)` and back is exact both ways. These functions take numpy
+`.view(np.int32)` and back is exact both ways. Extension elements are flat
+(..., D * B) words, the D components one after the other (fields/
+extension.py), and G2 affine points over Fp2 are x.c0, x.c1, y.c0, y.c1
+of L limbs each. These functions take numpy
 arrays and give numpy arrays or the port's objects: the port imports nothing of JAX, and a caller that holds
 a jax.Array passes `np.asarray(array)`.
 """
@@ -15,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from icicle_tpu_torch.curves.group import get_group
 from icicle_tpu_torch.curves.params import get_curve
+from icicle_tpu_torch.fields.extension import ExtField
 from icicle_tpu_torch.fields.field import Field
 from icicle_tpu_torch.ops.merkle import MerkleTree
 from icicle_tpu_torch.ops.msm import signed_table
@@ -57,9 +62,62 @@ def elements_from_numpy(f: Field, arr_u32, device=None) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(resolve(device))
 
 
-def elements_to_numpy(f: Field, t: torch.Tensor) -> np.ndarray:
-    """int32 element tensor -> uint32 element array with the same bits."""
+def elements_to_numpy(f, t: torch.Tensor) -> np.ndarray:
+    """int32 element tensor -> uint32 element array with the same bits (a
+    `Field`'s or an `ExtField`'s)."""
     return t.cpu().numpy().view(np.uint32)
+
+
+def _ext_canonical(ef, a: np.ndarray) -> bool:
+    """Every component of the flat (..., D*B) uint32 array `a` is canonical
+    in its base field (recursively for towers)."""
+    b = ef.engine.base_width
+    for i in range(ef.degree):
+        comp = a[..., i] if ef.engine.base_flat else a[..., i * b:(i + 1) * b]
+        if not (_ext_canonical(ef.base, comp) if isinstance(ef.base, ExtField)
+                else _below_modulus(ef.base, comp)):
+            return False
+    return True
+
+
+def ext_elements_from_numpy(ef: ExtField, arr_u32, device=None) -> torch.Tensor:
+    """uint32 extension-field array in the JAX package's flat layout
+    (..., D * B), every component canonical -> int32 tensor with the same
+    bits."""
+    a = np.asarray(arr_u32)
+    if a.dtype != np.uint32:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"expected a uint32 element array, got {a.dtype}")
+    if a.ndim == 0 or a.shape[-1] != ef.nlimbs:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"{ef.name}: expected (..., {ef.nlimbs}) words, got {a.shape}")
+    if not _ext_canonical(ef, a):
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"{ef.name}: a component is not canonical")
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(resolve(device))
+
+
+def g2_affine_from_numpy(curve_name: str, q_u32, device=None):
+    """G2 affine points as uint32 words (..., 2W): x then y, each W words of
+    the G2 coordinate field (over Fp2: x.c0, x.c1, y.c0, y.c1 of L limbs, the
+    layout of the JAX package's G2 arrays and of the reference's pairing
+    ABI; bw6_761's G2, over Fq: x, y of L limbs) -> (x, y) int32 tensors,
+    (..., W) each, for `msm(..., MSMConfig(g2=True))`."""
+    f = get_group(curve_name, g2=True).coord_field
+    a = np.asarray(q_u32)
+    if a.ndim == 0 or a.shape[-1] != 2 * f.nlimbs:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"{curve_name} G2: expected (..., {2 * f.nlimbs}) words, "
+                              f"got {a.shape}")
+    load = ext_elements_from_numpy if isinstance(f, ExtField) else elements_from_numpy
+    return (load(f, a[..., :f.nlimbs], device), load(f, a[..., f.nlimbs:], device))
+
+
+def g2_affine_to_numpy(curve_name: str, x: torch.Tensor, y: torch.Tensor) -> np.ndarray:
+    """(x, y) G2 coordinate tensors -> the (..., 2W) uint32 words of
+    `g2_affine_from_numpy`."""
+    get_group(curve_name, g2=True)                   # the curve has a G2
+    return np.concatenate([x.cpu().numpy(), y.cpu().numpy()], -1).view(np.uint32)
 
 
 def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
@@ -83,6 +141,7 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     plan = {k: prepared[k] for k in ("engine", "nbits", "c", "M", "T", "tiles",
                                      "n_windows", "wg", "n_pad", "nu")}
     plan["glv"] = bool(prepared.get("glv", False))
+    plan["g2"] = False                                # the JAX pipeline's bases are G1
     xy = torch.from_numpy(limbs.view(np.int32)).to(resolve(device))
     return dict(plan, pts=signed_table(get_curve(curve_name).fq, xy), n=prepared["n"])
 

@@ -28,12 +28,17 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # library name -> its sources in CSRC (headers: every *.cuh in CSRC); one
 # source per library, so that every source compiles in its own nvcc. The
-# 12- and 24-limb instances of B3 and B4 are their sources compiled again
-# with another ICICLE_EC_LIMBS (DEFINES), each in its own nvcc.
+# 12- and 24-limb instances of B3 and B4, and their G2 instances over Fp2
+# (8 and 12 limbs) and precompute_bases' over Fp2, are their sources
+# compiled again with another ICICLE_EC_LIMBS / ICICLE_EC_DEGREE (DEFINES),
+# each in its own nvcc.
 LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["msm_scan.cu"],
              "msm_scan_l12": ["msm_scan.cu"], "msm_scan_l24": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "ec_reduce_l12": ["ec_reduce.cu"],
-             "ec_reduce_l24": ["ec_reduce.cu"], "precompute_bases": ["precompute_bases.cu"],
+             "ec_reduce_l24": ["ec_reduce.cu"], "msm_scan_fp2": ["msm_scan.cu"],
+             "msm_scan_fp2_l12": ["msm_scan.cu"], "ec_reduce_fp2": ["ec_reduce.cu"],
+             "ec_reduce_fp2_l12": ["ec_reduce.cu"], "precompute_bases": ["precompute_bases.cu"],
+             "precompute_bases_fp2": ["precompute_bases.cu"],
              "msm_scan_r12": ["msm_scan_r12.cu"],
              "msm_fold2": ["msm_fold2.cu"], "bucket_accum": ["bucket_accum.cu"],
              "poseidon2": ["poseidon2.cu"], "poseidon2_limbs": ["poseidon2_limbs.cu"],
@@ -43,9 +48,13 @@ LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["m
              "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
              "program": ["program.cu"]}
 
-# library name -> its extra nvcc flags
-DEFINES = {f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
-           for kernel in ("msm_scan", "ec_reduce") for nl in (12, 24)}
+# library name -> its extra nvcc flags: the limb count and, for the G2
+# instances over Fp2, the degree (ec_field.cuh)
+DEFINES = {**{f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
+              for kernel in ("msm_scan", "ec_reduce") for nl in (12, 24)},
+           **{f"{kernel}_fp2{sfx}": [f"-DICICLE_EC_LIMBS={nl}", "-DICICLE_EC_DEGREE=2"]
+              for kernel in ("msm_scan", "ec_reduce") for nl, sfx in ((8, ""), (12, "_l12"))},
+           "precompute_bases_fp2": ["-DICICLE_EC_DEGREE=2"]}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

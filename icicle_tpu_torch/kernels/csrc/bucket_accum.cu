@@ -80,9 +80,9 @@ accum_kernel(const int32_t* __restrict__ keys, const uint32_t* __restrict__ in,
   bool open = k0 > 0 && cur == prev;  // the first run began in an earlier segment
   bool reset = false;
   int first_fix = -1;
-  const Point<L> e = fold_slots<L, false>(
+  const Point<L> e = fold_slots<false>(
       in + static_cast<size_t>(w) * K * 2 * L * row, nullptr, k0, k1, lane, row,
-      identity<L>(c), c,
+      identity(c), c,
       [&](int k, int32_t, const Point<L>& acc) {
         const int32_t next = k + 1 < K ? key[static_cast<size_t>(k + 1) * row] : cur;
         if (k + 1 == K || next != cur) {  // a run end or the lane's last slot
@@ -121,7 +121,7 @@ fixup_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ carries,
   uint32_t* p = out + (static_cast<size_t>(w) * K + k) * 3 * L * row + (t - w * C);
   const Point<L> carry =
       load_point<L>(carries + static_cast<size_t>(seg - 1) * 3 * L * pairs + t, pairs);
-  store_point<L>(p, row, padd<L>(carry, load_point<L>(p, row), c));
+  store_point<L>(p, row, padd(carry, load_point<L>(p, row), c));
 }
 
 }  // namespace
@@ -152,7 +152,7 @@ int icicle_msm_bucket_accum(const void* keys, const void* in, void* out, void* c
       K, C, S, (K + S - 1) / S, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  err = launch_carry_scan<8>(car, W * C, S, c, st, rst);
+  err = launch_carry_scan(car, W * C, S, c, st, rst);
   if (err != cudaSuccess) return static_cast<int>(err);
   fixup_kernel<8><<<dim3(pair_blocks, S - 1), kSplitThreads, 0, st>>>(dst, car, fx, W, K, C, c);
   return static_cast<int>(cudaGetLastError());

@@ -1,25 +1,35 @@
-// Multi-limb Montgomery field arithmetic and complete elliptic-curve adds
-// on one thread's registers, for NVIDIA Hopper (sm_90a). Shared by the MSM
-// kernels msm_scan.cu (B3), ec_reduce.cu (B4), msm_fold2.cu (B6),
-// bucket_accum.cu (B7) and precompute_bases.cu; templated on the limb count
-// L. B3, B4 and precompute_bases are instantiated for L = 8 (bn254,
+// Multi-limb Montgomery field arithmetic, its quadratic extension, and
+// complete elliptic-curve adds on one thread's registers, for NVIDIA Hopper
+// (sm_90a). Shared by the MSM kernels msm_scan.cu (B3), ec_reduce.cu (B4),
+// msm_fold2.cu (B6), bucket_accum.cu (B7) and precompute_bases.cu;
+// templated on the limb count L and, for the curve formulas, on the
+// coordinate field. G1 points (and bw6_761's G2, which lies over Fq) take
+// Fp<L>: B3, B4 and precompute_bases are instantiated for L = 8 (bn254,
 // grumpkin), 12 (bls12_377, bls12_381) and 24 (bw6_761); B6 and B7 for
-// L = 8.
+// L = 8. G2 points over Fp2 = Fp[u]/(u^2 - nr) take Fp2<L>: B3, B4 and
+// precompute_bases at L = 8 (bn254) and 12 (bls12_377, bls12_381).
 //
 // Elements are L little-endian uint32 limbs of the canonical value in
 // [0, p), Montgomery form with R = 2^(32 L): the bits that the torch side
-// keeps as int32 (icicle_tpu_torch/math/bigint.py). Every function returns
-// canonical limbs, so results are bit-equal to the torch engine's and the
-// JAX package's.
+// keeps as int32 (icicle_tpu_torch/math/bigint.py). An Fp2 element is two
+// of them, c0 then c1 (c0 + c1 u), as icicle_tpu_torch/fields/extension.py
+// lays them out flat. Every function returns canonical limbs, so results
+// are bit-equal to the torch engine's and the JAX package's whatever the
+// route (an Fp2 product here is Karatsuba's three multiplies, the torch
+// engine's its schoolbook four).
 //
 // The curve formulas are the complete projective formulas for a = 0
-// (Renes-Costello-Batina 2015): Alg 7 (`padd`, 12 Montgomery multiplies + 2
-// by b3), Alg 8 (`madd`, 11 + 2) and Alg 9 (`dbl`, 8 + 1), line for line as
-// icicle_tpu/curves/group.py. b3 = 3b is a small signed integer on every
-// curve built here (9 on bn254, -51 on grumpkin, 3 on bls12_377, 12 on
-// bls12_381, -3 on bw6_761), so a multiply by it is a short chain of
-// modular adds (`mul_small`), as in the Pallas bodies
-// (icicle_tpu/pallas/msm_kernel.py: _ListField.mul_small, _b3_small).
+// (Renes-Costello-Batina 2015): Alg 7 (`padd`, 12 multiplies + 2 by b3),
+// Alg 8 (`madd`, 11 + 2) and Alg 9 (`dbl`, 8 + 1), line for line as
+// icicle_tpu/curves/group.py. Over Fp, b3 = 3b is a small signed integer on
+// every curve built here (9 on bn254, -51 on grumpkin, 3 on bls12_377, 12
+// on bls12_381, -3 on bw6_761, 12 on bw6_761's G2), so a multiply by it is
+// a short chain of modular adds (`mul_small`), as in the Pallas bodies
+// (icicle_tpu/pallas/msm_kernel.py: _ListField.mul_small, _b3_small). Over
+// Fp2, b3 is a general constant in the kernel's consts (bn254's G2: both
+// parts 254 bits; bls12_377's: (0, a full element)), except where it is
+// k + k u with a small k (bls12_381's G2: 12 + 12 u), which takes add
+// chains again.
 
 #pragma once
 
@@ -32,6 +42,7 @@ namespace icicle_ec {
 // live in the constant bank).
 template <int L>
 struct CurveConsts {
+  static constexpr int kBaseLimbs = L;
   uint32_t p[L];    // the base-field modulus
   uint32_t one[L];  // 1 in Montgomery form (R mod p)
   uint32_t inv32;   // -p^-1 mod 2^32
@@ -40,13 +51,55 @@ struct CurveConsts {
 
 template <int L>
 struct Fp {
+  static constexpr int kWords = L;
   uint32_t v[L];
+  __device__ __forceinline__ uint32_t& w(int j) { return v[j]; }
+  __device__ __forceinline__ const uint32_t& w(int j) const { return v[j]; }
+};
+
+// c0 + c1 u over Fp<L>, u^2 = nr: 2L words, c0's limbs first.
+template <int L>
+struct Fp2 {
+  static constexpr int kWords = 2 * L;
+  Fp<L> c0, c1;
+  __device__ __forceinline__ uint32_t& w(int j) { return j < L ? c0.v[j] : c1.v[j - L]; }
+  __device__ __forceinline__ const uint32_t& w(int j) const {
+    return j < L ? c0.v[j] : c1.v[j - L];
+  }
+};
+
+// An Fp2 coordinate field's constants: its base field's (f.b3 is k where
+// b3 = k + k u with a small k, else 0), the non-residue and b3 in
+// Montgomery form.
+template <int L>
+struct Fp2Consts {
+  static constexpr int kBaseLimbs = L;
+  CurveConsts<L> f;
+  int32_t nr;   // u^2 = nr, a small negative integer (-1 or -5)
+  Fp2<L> b3;
+};
+
+// The coordinate field that a consts type serves.
+template <class C>
+struct CoordOf;
+template <int L>
+struct CoordOf<CurveConsts<L>> {
+  using type = Fp<L>;
+};
+template <int L>
+struct CoordOf<Fp2Consts<L>> {
+  using type = Fp2<L>;
+};
+template <class C>
+using Coord = typename CoordOf<C>::type;
+
+template <class F>
+struct ECPoint {  // homogeneous projective; the identity is (0, 1, 0)
+  F x, y, z;
 };
 
 template <int L>
-struct Point {  // homogeneous projective; the identity is (0, 1, 0)
-  Fp<L> x, y, z;
-};
+using Point = ECPoint<Fp<L>>;
 
 // s + over * 2^(32 L) < 2p -> s mod p.
 template <int L>
@@ -168,90 +221,164 @@ __device__ __forceinline__ Fp<L> mul_small(const Fp<L>& x, int32_t k,
   return acc;
 }
 
+// The field operations the curve formulas take, over Fp<L> (CurveConsts)
+// and over Fp2<L> (Fp2Consts); overloads picked by the consts' type.
 template <int L>
-__device__ __forceinline__ Point<L> identity(const CurveConsts<L>& c) {
-  Point<L> e;
+__device__ __forceinline__ Fp<L> f_add(const Fp<L>& a, const Fp<L>& b, const CurveConsts<L>& c) {
+  return add_mod<L>(a, b, c);
+}
+
+template <int L>
+__device__ __forceinline__ Fp<L> f_sub(const Fp<L>& a, const Fp<L>& b, const CurveConsts<L>& c) {
+  return sub_mod<L>(a, b, c);
+}
+
+template <int L>
+__device__ __forceinline__ Fp<L> f_mul(const Fp<L>& a, const Fp<L>& b, const CurveConsts<L>& c) {
+  return mont_mul<L>(a, b, c);
+}
+
+template <int L>
+__device__ __forceinline__ Fp<L> f_mul_b3(const Fp<L>& x, const CurveConsts<L>& c) {
+  return mul_small<L>(x, c.b3, c);
+}
+
+template <int L>
+__device__ __forceinline__ Fp<L> f_zero(const CurveConsts<L>&) {
+  Fp<L> a;
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
-    e.x.v[j] = 0;
-    e.y.v[j] = c.one[j];
-    e.z.v[j] = 0;
+  for (int j = 0; j < L; ++j) a.v[j] = 0;
+  return a;
+}
+
+template <int L>
+__device__ __forceinline__ Fp<L> f_one(const CurveConsts<L>& c) {  // Montgomery form
+  Fp<L> a;
+#pragma unroll
+  for (int j = 0; j < L; ++j) a.v[j] = c.one[j];
+  return a;
+}
+
+template <int L>
+__device__ __forceinline__ Fp2<L> f_add(const Fp2<L>& a, const Fp2<L>& b, const Fp2Consts<L>& c) {
+  return {add_mod<L>(a.c0, b.c0, c.f), add_mod<L>(a.c1, b.c1, c.f)};
+}
+
+template <int L>
+__device__ __forceinline__ Fp2<L> f_sub(const Fp2<L>& a, const Fp2<L>& b, const Fp2Consts<L>& c) {
+  return {sub_mod<L>(a.c0, b.c0, c.f), sub_mod<L>(a.c1, b.c1, c.f)};
+}
+
+// Karatsuba: v0 = a0 b0, v1 = a1 b1, c0 = v0 + nr v1 (nr < 0: v0 - |nr|
+// v1 by an add chain), c1 = (a0 + a1)(b0 + b1) - v0 - v1. Three Montgomery
+// multiplies.
+template <int L>
+__device__ __forceinline__ Fp2<L> f_mul(const Fp2<L>& a, const Fp2<L>& b, const Fp2Consts<L>& c) {
+  const Fp<L> v0 = mont_mul<L>(a.c0, b.c0, c.f);
+  const Fp<L> v1 = mont_mul<L>(a.c1, b.c1, c.f);
+  const Fp<L> t = mont_mul<L>(add_mod<L>(a.c0, a.c1, c.f), add_mod<L>(b.c0, b.c1, c.f), c.f);
+  return {sub_mod<L>(v0, mul_small<L>(v1, -c.nr, c.f), c.f),
+          sub_mod<L>(t, add_mod<L>(v0, v1, c.f), c.f)};
+}
+
+// x b3: where b3 = k + k u, (k (x0 + nr x1), k (x0 + x1)) by add chains;
+// else a multiply by the constant.
+template <int L>
+__device__ __forceinline__ Fp2<L> f_mul_b3(const Fp2<L>& x, const Fp2Consts<L>& c) {
+  if (c.f.b3 != 0) {
+    const Fp<L> u = sub_mod<L>(x.c0, mul_small<L>(x.c1, -c.nr, c.f), c.f);
+    return {mul_small<L>(u, c.f.b3, c.f), mul_small<L>(add_mod<L>(x.c0, x.c1, c.f), c.f.b3, c.f)};
   }
-  return e;
+  return f_mul<L>(x, c.b3, c);
+}
+
+template <int L>
+__device__ __forceinline__ Fp2<L> f_zero(const Fp2Consts<L>& c) {
+  return {f_zero<L>(c.f), f_zero<L>(c.f)};
+}
+
+template <int L>
+__device__ __forceinline__ Fp2<L> f_one(const Fp2Consts<L>& c) {
+  return {f_one<L>(c.f), f_zero<L>(c.f)};
+}
+
+template <class C>
+__device__ __forceinline__ ECPoint<Coord<C>> identity(const C& c) {
+  return {f_zero(c), f_one(c), f_zero(c)};
 }
 
 // Complete mixed add, RCB15 Alg 8 (a = 0): p + (x2, y2, 1). (x2, y2) must
 // be a curve point (affine cannot encode the identity).
-template <int L>
-__device__ __forceinline__ Point<L> madd(const Point<L>& p, const Fp<L>& x2,
-                                         const Fp<L>& y2, const CurveConsts<L>& c) {
-  Fp<L> t0 = mont_mul<L>(p.x, x2, c);
-  Fp<L> t1 = mont_mul<L>(p.y, y2, c);
-  const Fp<L> t3 = sub_mod<L>(
-      mont_mul<L>(add_mod<L>(p.x, p.y, c), add_mod<L>(x2, y2, c), c),
-      add_mod<L>(t0, t1, c), c);                                  // x1y2 + x2y1
-  const Fp<L> t4 = add_mod<L>(mont_mul<L>(y2, p.z, c), p.y, c);   // y1 + y2z1
-  Fp<L> y3 = add_mod<L>(mont_mul<L>(x2, p.z, c), p.x, c);         // x1 + x2z1
-  t0 = add_mod<L>(add_mod<L>(t0, t0, c), t0, c);                  // 3 x1x2
-  const Fp<L> t2 = mul_small<L>(p.z, c.b3, c);                   // 3b z1
-  Fp<L> z3 = add_mod<L>(t1, t2, c);
-  t1 = sub_mod<L>(t1, t2, c);
-  y3 = mul_small<L>(y3, c.b3, c);
-  Point<L> r;
-  r.x = sub_mod<L>(mont_mul<L>(t3, t1, c), mont_mul<L>(t4, y3, c), c);
-  r.y = add_mod<L>(mont_mul<L>(t1, z3, c), mont_mul<L>(y3, t0, c), c);
-  r.z = add_mod<L>(mont_mul<L>(z3, t4, c), mont_mul<L>(t0, t3, c), c);
+template <class C>
+__device__ __forceinline__ ECPoint<Coord<C>> madd(const ECPoint<Coord<C>>& p,
+                                                  const Coord<C>& x2, const Coord<C>& y2,
+                                                  const C& c) {
+  using F = Coord<C>;
+  F t0 = f_mul(p.x, x2, c);
+  F t1 = f_mul(p.y, y2, c);
+  const F t3 = f_sub(f_mul(f_add(p.x, p.y, c), f_add(x2, y2, c), c),
+                     f_add(t0, t1, c), c);                        // x1y2 + x2y1
+  const F t4 = f_add(f_mul(y2, p.z, c), p.y, c);                  // y1 + y2z1
+  F y3 = f_add(f_mul(x2, p.z, c), p.x, c);                        // x1 + x2z1
+  t0 = f_add(f_add(t0, t0, c), t0, c);                            // 3 x1x2
+  const F t2 = f_mul_b3(p.z, c);                                  // 3b z1
+  F z3 = f_add(t1, t2, c);
+  t1 = f_sub(t1, t2, c);
+  y3 = f_mul_b3(y3, c);
+  ECPoint<F> r;
+  r.x = f_sub(f_mul(t3, t1, c), f_mul(t4, y3, c), c);
+  r.y = f_add(f_mul(t1, z3, c), f_mul(y3, t0, c), c);
+  r.z = f_add(f_mul(z3, t4, c), f_mul(t0, t3, c), c);
   return r;
 }
 
 // Complete projective add, RCB15 Alg 7 (a = 0): p + q.
-template <int L>
-__device__ __forceinline__ Point<L> padd(const Point<L>& p, const Point<L>& q,
-                                         const CurveConsts<L>& c) {
-  Fp<L> t0 = mont_mul<L>(p.x, q.x, c);
-  Fp<L> t1 = mont_mul<L>(p.y, q.y, c);
-  Fp<L> t2 = mont_mul<L>(p.z, q.z, c);
-  const Fp<L> t3 = sub_mod<L>(
-      mont_mul<L>(add_mod<L>(p.x, p.y, c), add_mod<L>(q.x, q.y, c), c),
-      add_mod<L>(t0, t1, c), c);                                  // x1y2 + x2y1
-  const Fp<L> t4 = sub_mod<L>(
-      mont_mul<L>(add_mod<L>(p.y, p.z, c), add_mod<L>(q.y, q.z, c), c),
-      add_mod<L>(t1, t2, c), c);                                  // y1z2 + y2z1
-  Fp<L> y3 = sub_mod<L>(
-      mont_mul<L>(add_mod<L>(p.x, p.z, c), add_mod<L>(q.x, q.z, c), c),
-      add_mod<L>(t0, t2, c), c);                                  // x1z2 + x2z1
-  t0 = add_mod<L>(add_mod<L>(t0, t0, c), t0, c);                  // 3 x1x2
-  t2 = mul_small<L>(t2, c.b3, c);                                 // 3b z1z2
-  Fp<L> z3 = add_mod<L>(t1, t2, c);
-  t1 = sub_mod<L>(t1, t2, c);
-  y3 = mul_small<L>(y3, c.b3, c);                                 // 3b (x1z2 + x2z1)
-  Point<L> r;
-  r.x = sub_mod<L>(mont_mul<L>(t3, t1, c), mont_mul<L>(t4, y3, c), c);
-  r.y = add_mod<L>(mont_mul<L>(t1, z3, c), mont_mul<L>(y3, t0, c), c);
-  r.z = add_mod<L>(mont_mul<L>(z3, t4, c), mont_mul<L>(t0, t3, c), c);
+template <class C>
+__device__ __forceinline__ ECPoint<Coord<C>> padd(const ECPoint<Coord<C>>& p,
+                                                  const ECPoint<Coord<C>>& q, const C& c) {
+  using F = Coord<C>;
+  F t0 = f_mul(p.x, q.x, c);
+  F t1 = f_mul(p.y, q.y, c);
+  F t2 = f_mul(p.z, q.z, c);
+  const F t3 = f_sub(f_mul(f_add(p.x, p.y, c), f_add(q.x, q.y, c), c),
+                     f_add(t0, t1, c), c);                        // x1y2 + x2y1
+  const F t4 = f_sub(f_mul(f_add(p.y, p.z, c), f_add(q.y, q.z, c), c),
+                     f_add(t1, t2, c), c);                        // y1z2 + y2z1
+  F y3 = f_sub(f_mul(f_add(p.x, p.z, c), f_add(q.x, q.z, c), c),
+               f_add(t0, t2, c), c);                              // x1z2 + x2z1
+  t0 = f_add(f_add(t0, t0, c), t0, c);                            // 3 x1x2
+  t2 = f_mul_b3(t2, c);                                           // 3b z1z2
+  F z3 = f_add(t1, t2, c);
+  t1 = f_sub(t1, t2, c);
+  y3 = f_mul_b3(y3, c);                                           // 3b (x1z2 + x2z1)
+  ECPoint<F> r;
+  r.x = f_sub(f_mul(t3, t1, c), f_mul(t4, y3, c), c);
+  r.y = f_add(f_mul(t1, z3, c), f_mul(y3, t0, c), c);
+  r.z = f_add(f_mul(z3, t4, c), f_mul(t0, t3, c), c);
   return r;
 }
 
 // Complete doubling, RCB15 Alg 9 (a = 0): 2p, as icicle_tpu/curves/group.py
 // pdbl.
-template <int L>
-__device__ __forceinline__ Point<L> dbl(const Point<L>& p, const CurveConsts<L>& c) {
-  Fp<L> t0 = mont_mul<L>(p.y, p.y, c);
-  Fp<L> z3 = add_mod<L>(t0, t0, c);
-  z3 = add_mod<L>(z3, z3, c);
-  z3 = add_mod<L>(z3, z3, c);                                     // 8 y^2
-  Fp<L> t1 = mont_mul<L>(p.y, p.z, c);
-  Fp<L> t2 = mul_small<L>(mont_mul<L>(p.z, p.z, c), c.b3, c);     // 3b z^2
-  Fp<L> x3 = mont_mul<L>(t2, z3, c);
-  Fp<L> y3 = add_mod<L>(t0, t2, c);
-  z3 = mont_mul<L>(t1, z3, c);
-  t1 = add_mod<L>(t2, t2, c);
-  t2 = add_mod<L>(t1, t2, c);                                     // 9b z^2
-  t0 = sub_mod<L>(t0, t2, c);                                     // y^2 - 9b z^2
-  y3 = add_mod<L>(mont_mul<L>(t0, y3, c), x3, c);
-  x3 = mont_mul<L>(t0, mont_mul<L>(p.x, p.y, c), c);
-  Point<L> r;
-  r.x = add_mod<L>(x3, x3, c);
+template <class C>
+__device__ __forceinline__ ECPoint<Coord<C>> dbl(const ECPoint<Coord<C>>& p, const C& c) {
+  using F = Coord<C>;
+  F t0 = f_mul(p.y, p.y, c);
+  F z3 = f_add(t0, t0, c);
+  z3 = f_add(z3, z3, c);
+  z3 = f_add(z3, z3, c);                                          // 8 y^2
+  F t1 = f_mul(p.y, p.z, c);
+  F t2 = f_mul_b3(f_mul(p.z, p.z, c), c);                         // 3b z^2
+  F x3 = f_mul(t2, z3, c);
+  F y3 = f_add(t0, t2, c);
+  z3 = f_mul(t1, z3, c);
+  t1 = f_add(t2, t2, c);
+  t2 = f_add(t1, t2, c);                                          // 9b z^2
+  t0 = f_sub(t0, t2, c);                                          // y^2 - 9b z^2
+  y3 = f_add(f_mul(t0, y3, c), x3, c);
+  x3 = f_mul(t0, f_mul(p.x, p.y, c), c);
+  ECPoint<F> r;
+  r.x = f_add(x3, x3, c);
   r.y = y3;
   r.z = z3;
   return r;
@@ -271,34 +398,88 @@ inline CurveConsts<L> consts_from(const unsigned int* h) {
   return c;
 }
 
-// Points in the MSM kernels' lane-minor layout: limb j of a coordinate at
-// src[j * row], x / y / z in rows 0..L-1 / L..2L-1 / 2L..3L-1, so a warp's
+// Copies a host array {p[L], one[L], inv32, k, nr, b3.c0[L], b3.c1[L]}
+// (k, nr as two's-complement bits; k is 0 unless b3 = k + k u) into the
+// struct.
+template <int L>
+inline Fp2Consts<L> fp2_consts_from(const unsigned int* h) {
+  Fp2Consts<L> c;
+  c.f = consts_from<L>(h);
+  c.nr = static_cast<int32_t>(h[2 * L + 2]);
+  for (int j = 0; j < L; ++j) {
+    c.b3.c0.v[j] = h[2 * L + 3 + j];
+    c.b3.c1.v[j] = h[3 * L + 3 + j];
+  }
+  return c;
+}
+
+// A consts type's host array, read by the overload of its type; and its
+// length in words.
+template <int L>
+inline void read_consts(const unsigned int* h, CurveConsts<L>& c) {
+  c = consts_from<L>(h);
+}
+
+template <int L>
+inline void read_consts(const unsigned int* h, Fp2Consts<L>& c) {
+  c = fp2_consts_from<L>(h);
+}
+
+template <class C>
+struct ConstsWords;
+template <int L>
+struct ConstsWords<CurveConsts<L>> {
+  static constexpr int value = 2 * L + 2;
+};
+template <int L>
+struct ConstsWords<Fp2Consts<L>> {
+  static constexpr int value = 4 * L + 3;
+};
+
+// Points in the MSM kernels' lane-minor layout: word j of a coordinate at
+// src[j * row], x / y / z in rows 0..W-1 / W..2W-1 / 2W..3W-1 for a
+// coordinate of W words (L for Fp<L>, 2L for Fp2<L>), so a warp's
 // neighbouring lanes read and write neighbouring words.
+template <class F>
+__device__ __forceinline__ F load_coord(const uint32_t* src, size_t row) {
+  F a;
+#pragma unroll
+  for (int j = 0; j < F::kWords; ++j) a.w(j) = src[j * row];
+  return a;
+}
+
+template <class F>
+__device__ __forceinline__ ECPoint<F> load_pt(const uint32_t* src, size_t row) {
+  constexpr int W = F::kWords;
+  return {load_coord<F>(src, row), load_coord<F>(src + W * row, row),
+          load_coord<F>(src + 2 * W * row, row)};
+}
+
+template <class F>
+__device__ __forceinline__ void store_pt(uint32_t* dst, size_t row, const ECPoint<F>& p) {
+  constexpr int W = F::kWords;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    dst[j * row] = p.x.w(j);
+    dst[(W + j) * row] = p.y.w(j);
+    dst[(2 * W + j) * row] = p.z.w(j);
+  }
+}
+
+// The Fp<L> forms the single-field kernels (B6, B7) call.
 template <int L>
 __device__ __forceinline__ Fp<L> load_fp(const uint32_t* src, size_t row) {
-  Fp<L> a;
-#pragma unroll
-  for (int j = 0; j < L; ++j) a.v[j] = src[j * row];
-  return a;
+  return load_coord<Fp<L>>(src, row);
 }
 
 template <int L>
 __device__ __forceinline__ Point<L> load_point(const uint32_t* src, size_t row) {
-  Point<L> p;
-  p.x = load_fp<L>(src, row);
-  p.y = load_fp<L>(src + L * row, row);
-  p.z = load_fp<L>(src + 2 * L * row, row);
-  return p;
+  return load_pt<Fp<L>>(src, row);
 }
 
 template <int L>
 __device__ __forceinline__ void store_point(uint32_t* dst, size_t row, const Point<L>& p) {
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    dst[j * row] = p.x.v[j];
-    dst[(L + j) * row] = p.y.v[j];
-    dst[(2 * L + j) * row] = p.z.v[j];
-  }
+  store_pt<Fp<L>>(dst, row, p);
 }
 
 // Threads per block of the kernels that keep one thread per lane over the

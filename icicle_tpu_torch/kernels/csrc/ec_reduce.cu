@@ -7,17 +7,20 @@
 // computing the same function: per lane, the sum over R rows by the
 // complete projective add (RCB15 Alg 7, a = 0), starting from the identity
 // (0, 1, 0) as the Pallas kernel does (ec_reduce.py:106-111).
-//   in  (R, 3L, C) uint32 projective Montgomery points, x / y / z in rows
-//       0..L-1 / L..2L-1 / 2L..3L-1;
-//   out (3L, C) uint32.
+//   in  (R, 3W, C) uint32 projective Montgomery points, x / y / z in rows
+//       0..W-1 / W..2W-1 / 2W..3W-1, W words a coordinate (L over Fp, 2L
+//       over Fp2);
+//   out (3W, C) uint32.
 // The Pallas kernel pads C to 128 lanes and R to a multiple of its VMEM
 // row block with identity points; neither is needed here (each added
 // identity would scale the projective coordinates by Y).
 //
 // Bound: per row 12 Montgomery multiplies of 4L^2 + L 32-bit multiplies
-// each (the two by b3 are add chains) against 3L * 4 bytes read; at every
-// L the multiplies bound it (chip_smoke.py computes both from each run's
-// shapes). The tree's S - 1 extra adds per lane are not part of the bound.
+// each (the two by b3 are add chains) against 3L * 4 bytes read (over
+// Fp2: 12 Fp2 products of three, plus two by a general b3, against 6L * 4
+// bytes); at every L the multiplies bound it (chip_smoke.py computes both
+// from each run's shapes). The tree's S - 1 extra adds per lane are not
+// part of the bound.
 //
 // Design: one thread per lane would run R dependent adds on C threads (at
 // the MSM's cross-tile shape R 2048 on 2048 threads: half the SMs idle, the
@@ -44,88 +47,102 @@ namespace {
 
 using namespace icicle_ec;
 
-template <int L>
+// C: CurveConsts<L> (Fp<L>) or Fp2Consts<L> (Fp2<L>); W words a coordinate.
+template <class C>
 __global__ void __launch_bounds__(kSplitThreads, 1)
 ec_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                 int R, int C, int S, int n, const CurveConsts<L> c) {
-  // per segment 3L words x G lanes, plus G words of padding so that the
-  // 32 / G segments of one warp fall in distinct banks: part_bytes<L>()
-  // of dynamic shared memory (74,752 bytes at L = 24, over the 48 KB that
+                 int R, int lanes, int S, int n, const C c) {
+  using F = Coord<C>;
+  constexpr int W = F::kWords;
+  // per segment 3W words x G lanes, plus G words of padding so that the
+  // 32 / G segments of one warp fall in distinct banks: part_bytes<W>()
+  // of dynamic shared memory (74,752 bytes at W = 24, over the 48 KB that
   // static shared memory may take)
   extern __shared__ uint32_t part[];
   const int G = kSplitThreads / S;
   const int g = threadIdx.x % G;
   const int seg = threadIdx.x / G;
   const int lane = blockIdx.x * G + g;
-  const bool live = lane < C;
-  const size_t row = static_cast<size_t>(C);
-  Point<L> acc = identity<L>(c);
+  const bool live = lane < lanes;
+  const size_t row = static_cast<size_t>(lanes);
+  ECPoint<F> acc = identity(c);
   if (live) {
     const int r1 = min(R, (seg + 1) * n);
     for (int r = seg * n; r < r1; ++r)
-      acc = padd<L>(acc, load_point<L>(in + static_cast<size_t>(r) * 3 * L * row + lane, row), c);
+      acc = padd(acc, load_pt<F>(in + static_cast<size_t>(r) * 3 * W * row + lane, row), c);
   }
-  const size_t slot = static_cast<size_t>(G) * (3 * L + 1);
+  const size_t slot = static_cast<size_t>(G) * (3 * W + 1);
   for (int h = S / 2; h >= 1; h /= 2) {
     // segments [h, 2h) hand their partials to [0, h); the next level's
     // writers [h/2, h) write slots this level does not read
-    if (seg >= h && seg < 2 * h) store_point<L>(part + seg * slot + g, G, acc);
+    if (seg >= h && seg < 2 * h) store_pt<F>(part + seg * slot + g, G, acc);
     __syncthreads();
-    if (seg < h) acc = padd<L>(acc, load_point<L>(part + (seg + h) * slot + g, G), c);
+    if (seg < h) acc = padd(acc, load_pt<F>(part + (seg + h) * slot + g, G), c);
   }
-  if (seg == 0 && live) store_point<L>(out + lane, row, acc);
+  if (seg == 0 && live) store_pt<F>(out + lane, row, acc);
 }
 
-template <int L>
+template <int W>
 constexpr size_t part_bytes() {
-  return sizeof(uint32_t) * kSplitThreads * (3 * L + 1);
+  return sizeof(uint32_t) * kSplitThreads * (3 * W + 1);
 }
 
-template <int L>
-int launch_reduce(const void* in, void* out, int R, int C, int S, const unsigned int* consts,
-                  cudaStream_t st) {
-  if (part_bytes<L>() > 48 * 1024) {
+}  // namespace
+
+// The library's instance: build.py compiles this source once per (limb
+// count, degree) (libec_reduce: 8, libec_reduce_l12: 12, libec_reduce_l24:
+// 24 over Fp; libec_reduce_fp2: 8, libec_reduce_fp2_l12: 12 over Fp2).
+#ifndef ICICLE_EC_LIMBS
+#define ICICLE_EC_LIMBS 8
+#endif
+#ifndef ICICLE_EC_DEGREE
+#define ICICLE_EC_DEGREE 1
+#endif
+
+namespace {
+
+#if ICICLE_EC_DEGREE == 2
+using Consts = icicle_ec::Fp2Consts<ICICLE_EC_LIMBS>;
+#else
+using Consts = icicle_ec::CurveConsts<ICICLE_EC_LIMBS>;
+#endif
+
+int launch_reduce(const void* in, void* out, int R, int lanes, int S,
+                  const unsigned int* consts, cudaStream_t st) {
+  constexpr size_t bytes = part_bytes<icicle_ec::Coord<Consts>::kWords>();
+  if (bytes > 48 * 1024) {
     // above 48 KB a kernel takes dynamic shared memory only after this, on
     // each device it runs on
     const cudaError_t set = cudaFuncSetAttribute(
-        ec_reduce_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(part_bytes<L>()));
+        ec_reduce_kernel<Consts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
     if (set != cudaSuccess) return static_cast<int>(set);
   }
+  Consts c;
+  read_consts(consts, c);
   const int G = kSplitThreads / S;
   const int n = (R + S - 1) / S;
-  ec_reduce_kernel<L><<<(C + G - 1) / G, kSplitThreads, part_bytes<L>(), st>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), R, C, S, n,
-      consts_from<L>(consts));
+  ec_reduce_kernel<Consts><<<(lanes + G - 1) / G, kSplitThreads, bytes, st>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), R, lanes, S, n, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The library's limb count: build.py compiles this source once per
-// instance (libec_reduce: 8, libec_reduce_l12: 12, libec_reduce_l24: 24).
-#ifndef ICICLE_EC_LIMBS
-#define ICICLE_EC_LIMBS 8
-#endif
-
 extern "C" {
 
 // Launches the reduction on `stream` without synchronising. in, out: device
-// pointers, (R, 3L, C) and (3L, C) uint32. S: segments per lane, a power of
-// two <= 32. consts: host array {p[L], one[L], inv32, b3}. L must be the
-// library's ICICLE_EC_LIMBS. Returns the launch's cudaError_t (0 on
-// success).
-int icicle_msm_ec_reduce(const void* in, void* out, int R, int C, int S, int L,
+// pointers, (R, 3W, C) and (3W, C) uint32, W = D L words a coordinate. S:
+// segments per lane, a power of two <= 32. L, D: the base field's limbs
+// and the coordinate field's degree over it, which must be the library's
+// ICICLE_EC_LIMBS and ICICLE_EC_DEGREE. consts: as icicle_msm_prefix_scan's.
+// Returns the launch's cudaError_t (0 on success).
+int icicle_msm_ec_reduce(const void* in, void* out, int R, int C, int S, int L, int D,
                          const unsigned int* consts, void* stream) {
-  if (R < 1 || C < 1 || S < 1 || S > 32 || (S & (S - 1)))
+  if (R < 1 || C < 1 || S < 1 || S > 32 || (S & (S - 1)) || L != ICICLE_EC_LIMBS ||
+      D != ICICLE_EC_DEGREE)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (L) {
-    case ICICLE_EC_LIMBS:
-      return launch_reduce<ICICLE_EC_LIMBS>(in, out, R, C, S, consts, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_reduce(in, out, R, C, S, consts, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

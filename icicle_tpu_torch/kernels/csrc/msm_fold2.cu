@@ -82,12 +82,12 @@ fold_kernel(const uint32_t* __restrict__ in, const int32_t* __restrict__ flags,
   const size_t row = static_cast<size_t>(C);
   const int seg = blockIdx.y;
   int rank = starts[static_cast<size_t>(seg) * row + lane];
-  const Point<L> id = identity<L>(c);
+  const Point<L> id = identity(c);
   if (seg == 0)
     for (int r = 0; r < rank; ++r) store_point<L>(end_row<L>(ends, r, lane, row), row, id);
   int k0, k1;
   segment_slots(seg, n, K, k0, k1);
-  const Point<L> e = fold_slots<L, true>(
+  const Point<L> e = fold_slots<true>(
       in, flags, k0, k1, lane, row, id, c, [&](int, int32_t fl, const Point<L>& acc) {
         if (fl & kRunEnd) {
           if (rank >= 0) store_point<L>(end_row<L>(ends, rank, lane, row), row, acc);
@@ -115,7 +115,7 @@ fixup_kernel(uint32_t* __restrict__ ends, const uint32_t* __restrict__ carries,
     uint32_t* p = end_row<L>(ends, r, lane, row);
     const Point<L> carry =
         load_point<L>(carries + static_cast<size_t>(seg - 1) * 3 * L * row + lane, row);
-    store_point<L>(p, row, padd<L>(carry, load_point<L>(p, row), c));
+    store_point<L>(p, row, padd(carry, load_point<L>(p, row), c));
   }
 }
 
@@ -145,7 +145,7 @@ int icicle_msm_suffix_fold(const void* in, const void* flags, const void* starts
       S, (K + S - 1) / S, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
-  err = launch_carry_scan<8>(car, C, S, c, st);
+  err = launch_carry_scan(car, C, S, c, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   fixup_kernel<8><<<dim3(lane_blocks, R < 65535 ? R : 65535), kSplitThreads, 0, st>>>(
       out, car, st0, C, S, R, c);

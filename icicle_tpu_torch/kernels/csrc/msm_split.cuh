@@ -42,26 +42,28 @@ struct NoRestart {
 // e += slot k's point by madd for k in [k0, k1), where the slot's flag has
 // kReal (every slot when kFlags is false: flags is then unused); where
 // restart(k), e becomes the point (x, y, 1) instead. After each slot,
-// visit(k, flag, e). in is (K, 2L, C): x rows then y rows.
-template <int L, bool kFlags, class Visit, class Restart = NoRestart>
-__device__ __forceinline__ Point<L> fold_slots(const uint32_t* __restrict__ in,
-                                               const int32_t* __restrict__ flags, int k0,
-                                               int k1, int lane, size_t row, Point<L> e,
-                                               const CurveConsts<L>& c, Visit&& visit,
-                                               Restart restart = {}) {
+// visit(k, flag, e). in is (K, 2W, C): x rows then y rows, W the words of
+// the consts' coordinate field.
+template <bool kFlags, class C, class Visit, class Restart = NoRestart>
+__device__ __forceinline__ ECPoint<Coord<C>> fold_slots(const uint32_t* __restrict__ in,
+                                                        const int32_t* __restrict__ flags,
+                                                        int k0, int k1, int lane, size_t row,
+                                                        ECPoint<Coord<C>> e, const C& c,
+                                                        Visit&& visit, Restart restart = {}) {
+  using F = Coord<C>;
+  constexpr int W = F::kWords;
   for (int k = k0; k < k1; ++k) {
     const int32_t fl = kFlags ? flags[static_cast<size_t>(k) * row + lane] : kReal;
     if (fl & kReal) {
-      const uint32_t* src = in + static_cast<size_t>(k) * 2 * L * row + lane;
-      const Fp<L> x = load_fp<L>(src, row);
-      const Fp<L> y = load_fp<L>(src + L * row, row);
+      const uint32_t* src = in + static_cast<size_t>(k) * 2 * W * row + lane;
+      const F x = load_coord<F>(src, row);
+      const F y = load_coord<F>(src + W * row, row);
       if (restart(k)) {
         e.x = x;
         e.y = y;
-#pragma unroll
-        for (int j = 0; j < L; ++j) e.z.v[j] = c.one[j];
+        e.z = f_one(c);
       } else {
-        e = madd<L>(e, x, y, c);
+        e = madd(e, x, y, c);
       }
     }
     visit(k, fl, e);
@@ -70,32 +72,33 @@ __device__ __forceinline__ Point<L> fold_slots(const uint32_t* __restrict__ in,
 }
 
 // One thread per lane over the S - 1 segment totals in `carries` ((S - 1,
-// 3L, C)), in place: row s becomes carry_{s+1} = padd(carry_s, total_s),
+// 3W, C)), in place: row s becomes carry_{s+1} = padd(carry_s, total_s),
 // carry_0 the identity; where `resets` (S rows of C, or null) is nonzero
 // at segment s, whose total then starts at a reset, carry_{s+1} = total_s.
-template <int L>
+template <class C>
 __global__ void __launch_bounds__(kLaneThreads)
-carry_scan_kernel(uint32_t* __restrict__ carries, const int32_t* __restrict__ resets, int C,
-                  int S, const CurveConsts<L> c) {
+carry_scan_kernel(uint32_t* __restrict__ carries, const int32_t* __restrict__ resets, int lanes,
+                  int S, const C c) {
+  using F = Coord<C>;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= C) return;
-  const size_t row = static_cast<size_t>(C);
-  Point<L> carry = identity<L>(c);
+  if (lane >= lanes) return;
+  const size_t row = static_cast<size_t>(lanes);
+  ECPoint<F> carry = identity(c);
   for (int s = 0; s < S - 1; ++s) {
-    uint32_t* p = carries + static_cast<size_t>(s) * 3 * L * row + lane;
-    const Point<L> total = load_point<L>(p, row);
+    uint32_t* p = carries + static_cast<size_t>(s) * 3 * F::kWords * row + lane;
+    const ECPoint<F> total = load_pt<F>(p, row);
     carry = resets != nullptr && resets[static_cast<size_t>(s) * row + lane] != 0
                 ? total
-                : padd<L>(carry, total, c);
-    store_point<L>(p, row, carry);
+                : padd(carry, total, c);
+    store_pt<F>(p, row, carry);
   }
 }
 
-template <int L>
-inline cudaError_t launch_carry_scan(uint32_t* carries, int C, int S, const CurveConsts<L>& c,
+template <class C>
+inline cudaError_t launch_carry_scan(uint32_t* carries, int lanes, int S, const C& c,
                                      cudaStream_t st, const int32_t* resets = nullptr) {
-  carry_scan_kernel<L><<<(C + kLaneThreads - 1) / kLaneThreads, kLaneThreads, 0, st>>>(
-      carries, resets, C, S, c);
+  carry_scan_kernel<C><<<(lanes + kLaneThreads - 1) / kLaneThreads, kLaneThreads, 0, st>>>(
+      carries, resets, lanes, S, c);
   return cudaGetLastError();
 }
 

@@ -16,15 +16,17 @@ given S; segments=1 is the serial fold. Other S give other projective
 coordinates of the same point, as does the JAX XLA twin
 `make_ec_reduce_xla`, which starts from row 0.
 
-Layout: in (R, 3L, C) int32 projective Montgomery limbs (x / y / z rows),
-out (3L, C). Neither lanes nor rows are padded.
+Layout: in (R, 3W, C) int32 projective Montgomery words (x / y / z rows; W
+words a coordinate, L over Fp, 2L over Fp2 for G2), out (3W, C). Neither
+lanes nor rows are padded. `curve` is a curve name, a `Curve` (its G1) or a
+`Group` (G2: `get_group(name, g2=True)`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from icicle_tpu_torch.curves.group import Projective, get_group, pselect
+from icicle_tpu_torch.curves.group import Projective, pselect
 from icicle_tpu_torch.kernels import msm_lib
 
 # a block is 256 threads, 256 / S lanes by S segments; at S <= 32 a warp
@@ -50,23 +52,23 @@ def _check_segments(R: int, C: int, segments) -> int:
 
 
 def ec_reduce(curve, pts: torch.Tensor, *, _segments: int | None = None) -> torch.Tensor:
-    """(R, 3L, C) int32 projective points -> (3L, C) per-lane sums, split
+    """(R, 3W, C) int32 projective points -> (3W, C) per-lane sums, split
     into `reduce_segments(R, C)` segments a lane (`_segments` overrides the
     plan, to time other splits).
 
     On a CUDA tensor this launches the kernel on the current stream (no
     synchronisation), counts the launch in `ec_reduce.launches` and raises
-    if the launch is refused or the curve has no instantiation. On a CPU
+    if the launch is refused or the group has no instance. On a CPU
     tensor it computes `ec_reduce_ref`."""
-    curve = msm_lib.as_curve(curve)
-    nl = curve.fq.nlimbs
+    group = msm_lib.as_group(curve)
+    nl = group.nlimbs
     msm_lib.check_points("ec_reduce", pts, 3 * nl)
     R, _, C = pts.shape
     S = _check_segments(R, C, _segments)
     if not pts.is_cuda:
-        return ec_reduce_ref(curve, pts, S)
+        return ec_reduce_ref(group, pts, S)
     out = torch.empty((3 * nl, C), dtype=torch.int32, device=pts.device)
-    msm_lib.launch("ec_reduce", curve, [pts, out], [R, C, S])
+    msm_lib.launch("ec_reduce", group, [pts, out], [R, C, S])
     ec_reduce.launches += 1
     return out
 
@@ -78,9 +80,8 @@ def ec_reduce_ref(curve, pts: torch.Tensor, segments: int | None = None) -> torc
     """`ec_reduce` in plain torch, with the kernel's association of adds at
     S = `segments` (None: the plan's): a Python loop over ceil(R/S) rows of
     all S * C (segment, lane) pairs, then the log2(S) levels of the tree."""
-    curve = msm_lib.as_curve(curve)
-    g = get_group(curve.name)
-    nl = curve.fq.nlimbs
+    g = msm_lib.as_group(curve)
+    nl = g.nlimbs
     R, _, C = pts.shape
     S = _check_segments(R, C, segments)
     n = -(-R // S)

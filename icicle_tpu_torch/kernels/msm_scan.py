@@ -18,16 +18,19 @@ bit for bit at a given S. The split changes which projective
 representative of each E_k comes out, not the point: at segments=1 both
 are the serial fold, and segment 0's rows are always the serial ones.
 
-Layout: in (K, 2L, C) int32 Montgomery limbs, x rows then (sign-applied) y
-rows; out (K, 3L, C), x / y / z rows. This is the Pallas kernel's
-(n_groups, K, 2L, G) with its lane groups folded into C.
+Layout: in (K, 2W, C) int32 Montgomery words, x rows then (sign-applied) y
+rows; out (K, 3W, C), x / y / z rows; W words a coordinate (L limbs over
+Fp, 2L over Fp2 for G2). This is the Pallas kernel's (n_groups, K, 2L, G)
+with its lane groups folded into C. `curve` is a curve name, a `Curve` (its
+G1) or a `Group` (G2: `get_group(name, g2=True)`), whose engine the plain
+version runs over.
 """
 
 from __future__ import annotations
 
 import torch
 
-from icicle_tpu_torch.curves.group import Affine, Projective, get_group, pselect
+from icicle_tpu_torch.curves.group import Affine, Projective, pselect
 from icicle_tpu_torch.kernels import msm_lib
 
 MAX_SEGMENTS = 65535   # the CUDA grid's y extent: one block row per segment
@@ -54,24 +57,24 @@ def check_segments(kernel: str, segments, planned: int) -> int:
 
 
 def prefix_scan(curve, plimbs: torch.Tensor, *, _segments: int | None = None) -> torch.Tensor:
-    """(K, 2L, C) int32 permuted Montgomery points -> (K, 3L, C) E-stream,
+    """(K, 2W, C) int32 permuted Montgomery points -> (K, 3W, C) E-stream,
     split into `scan_segments(K, C)` segments a lane (`_segments` overrides
     the plan, to time other splits).
 
     On a CUDA tensor this launches the kernel's passes on the current stream
     (no synchronisation), counts one launch in `prefix_scan.launches` per
-    call and raises if a launch is refused or the curve has no
-    instantiation. On a CPU tensor it computes `prefix_scan_ref`."""
-    curve = msm_lib.as_curve(curve)
-    nl = curve.fq.nlimbs
+    call and raises if a launch is refused or the group has no
+    instance. On a CPU tensor it computes `prefix_scan_ref`."""
+    group = msm_lib.as_group(curve)
+    nl = group.nlimbs
     msm_lib.check_points("prefix_scan", plimbs, 2 * nl)
     K, _, C = plimbs.shape
     S = check_segments("prefix_scan", _segments, scan_segments(K, C))
     if not plimbs.is_cuda:
-        return prefix_scan_ref(curve, plimbs, S)
+        return prefix_scan_ref(group, plimbs, S)
     out = torch.empty((K, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
     carries = torch.empty((S - 1, 3 * nl, C), dtype=torch.int32, device=plimbs.device)
-    msm_lib.launch("prefix_scan", curve, [plimbs, out, carries], [K, C, S])
+    msm_lib.launch("prefix_scan", group, [plimbs, out, carries], [K, C, S])
     prefix_scan.launches += 1
     return out
 
@@ -84,9 +87,8 @@ def prefix_scan_ref(curve, plimbs: torch.Tensor, segments: int | None = None) ->
     at S = `segments` (None: the plan's): a Python loop over ceil(K/S) steps
     of all S * C (segment, lane) pairs, the S - 1 carry adds, then the
     rescan. segments=1 is the serial fold."""
-    curve = msm_lib.as_curve(curve)
-    g = get_group(curve.name)
-    nl = curve.fq.nlimbs
+    g = msm_lib.as_group(curve)
+    nl = g.nlimbs
     K, _, C = plimbs.shape
     S = check_segments("prefix_scan", segments, scan_segments(K, C))
     dev = plimbs.device

@@ -224,7 +224,9 @@ def kernel_consts(curve):
     whose schedule the kernel hard-codes."""
     if curve.name != KERNEL_CURVE:
         raise msm_lib.not_built("prefix_scan_r12", curve,
-                                f"the CUDA kernel hard-codes {KERNEL_CURVE}'s radix-12 schedule")
+                                f"the CUDA kernel hard-codes {KERNEL_CURVE}'s radix-12 schedule "
+                                "(other curves' schedules, like the limb-count template's "
+                                "other kernels: ROADMAP.md queue A item 6)")
     return _consts(curve.name)
 
 

@@ -10,7 +10,10 @@ is the identity) and copy j < nu, row nu i + j of the output is
 `Group.dbl` chain and `to_affine_canonical`. A canonical affine point is
 unique, so the two agree bit for bit.
 
-Layout: px, py (n, L) int32 canonical limbs; out (nu n, L) each.
+Layout: px, py (n, W) int32 canonical words; out (nu n, W) each; W words a
+coordinate (L limbs over Fp; 2L over Fp2 for G2, c0 then c1, where the
+kernel inverts through the norm in Fp). `curve` is a curve name, a `Curve`
+(its G1) or a `Group` (G2: `get_group(name, g2=True)`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import functools
 
 import torch
 
-from icicle_tpu_torch.curves.group import Projective, get_group
+from icicle_tpu_torch.curves.group import Group, Projective
 from icicle_tpu_torch.kernels import msm_lib
 from icicle_tpu_torch.math.params import limbs_of
 
@@ -36,34 +39,35 @@ def _check(px: torch.Tensor, py: torch.Tensor, nl: int, nu: int, shift: int) -> 
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_consts(curve_name: str):
-    """ec_field.cuh's {p, one, inv32, b3}, then R^2 mod p, p - 2 and the bit
-    count of p - 2 (the Fermat exponent), as a host uint32 array."""
-    fp = get_group(curve_name).coord_field.params
-    base = list(msm_lib._consts(curve_name))
+def kernel_consts(group: Group):
+    """The group's ec_field.cuh consts (msm_lib.consts_values), then R^2 mod
+    p, p - 2 and the bit count of p - 2 (the Fermat exponent) of its base
+    field, as a host uint32 array."""
+    fp = group.curve.fq.params
     e = fp.modulus - 2
-    values = base + limbs_of(fp.r2, fp.nlimbs) + limbs_of(e, fp.nlimbs) + [e.bit_length()]
+    values = (msm_lib.consts_values(group) + limbs_of(fp.r2, fp.nlimbs)
+              + limbs_of(e, fp.nlimbs) + [e.bit_length()])
     return (ctypes.c_uint32 * len(values))(*values)
 
 
 def precompute_bases(curve, px: torch.Tensor, py: torch.Tensor, nu: int, shift: int):
-    """(n, L) int32 canonical affine coordinates -> (ox, oy), (nu n, L) each:
+    """(n, W) int32 canonical affine coordinates -> (ox, oy), (nu n, W) each:
     row nu i + j is 2^(j shift) (px[i], py[i]), canonical affine.
 
     On a CUDA tensor this launches the kernel on the current stream (no
     synchronisation), counts the launch in `precompute_bases.launches` and
-    raises if the launch is refused or the curve has no instance. On a CPU
+    raises if the launch is refused or the group has no instance. On a CPU
     tensor it computes `precompute_bases_ref`."""
-    curve = msm_lib.as_curve(curve)
-    nl = curve.fq.nlimbs
+    group = msm_lib.as_group(curve)
+    nl = group.nlimbs
     _check(px, py, nl, nu, shift)
     if not px.is_cuda:
-        return precompute_bases_ref(curve, px, py, nu, shift)
+        return precompute_bases_ref(group, px, py, nu, shift)
     n = px.shape[0]
     ox = torch.empty((nu * n, nl), dtype=torch.int32, device=px.device)
     oy = torch.empty_like(ox)
-    msm_lib.launch("precompute_bases", curve, [px, py, ox, oy], [n, nu, shift],
-                   kernel_consts(curve.name))
+    msm_lib.launch("precompute_bases", group, [px, py, ox, oy], [n, nu, shift],
+                   kernel_consts(group))
     precompute_bases.launches += 1
     return ox, oy
 
@@ -74,9 +78,8 @@ precompute_bases.launches = 0
 def precompute_bases_ref(curve, px: torch.Tensor, py: torch.Tensor, nu: int, shift: int):
     """`precompute_bases` in plain torch: each copy `shift` doublings of the
     last (Group.dbl), then one `to_affine_canonical` over all copies."""
-    curve = msm_lib.as_curve(curve)
-    g = get_group(curve.name)
-    nl = curve.fq.nlimbs
+    g = msm_lib.as_group(curve)
+    nl = g.nlimbs
     _check(px, py, nl, nu, shift)
     n = px.shape[0]
     cur = g.from_affine_canonical(px, py)

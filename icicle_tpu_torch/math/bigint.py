@@ -60,6 +60,10 @@ def carry_resolve(v: torch.Tensor, bits: int):
 
 
 _LOOKAHEAD_COLUMNS = 62  # carries travel as bits of one int64
+# bytes of a multiply's largest buffer, its (rows, 2L, 4L) int64 product
+# columns, above which it runs in chunks of rows: 2^19 elements at L = 8,
+# about 2^18 at 12, 2^16 at 24
+_MUL_BYTES = 2 << 30
 
 
 def _normalize(v: torch.Tensor, bits: int, carry_in: int = 0):
@@ -196,7 +200,20 @@ class BigField:
         operands may be any values whose product is below p R (T + m p
         < 2 p R, so one conditional subtract suffices): canonical ones, or
         one in [0, 4p) with the other canonical where 4p <= R, as the r12
-        engine's values in [0, 4p) are (bn254: 4p < 2^256)."""
+        engine's values in [0, 4p) are (bn254: 4p < 2^256). Over many
+        elements it runs a chunk of them at a time, so that its int64
+        column buffers stay near _MUL_BYTES."""
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        rows = shape.numel() // self.nlimbs
+        chunk = max(1, _MUL_BYTES // (16 * self.nh * self.nh))
+        if rows > chunk:
+            a2 = a.expand(shape).reshape(rows, self.nlimbs)
+            b2 = b.expand(shape).reshape(rows, self.nlimbs)
+            return torch.cat([self._mul_mont(a2[s:s + chunk], b2[s:s + chunk])
+                              for s in range(0, rows, chunk)]).view(shape)
+        return self._mul_mont(a, b)
+
+    def _mul_mont(self, a, b):
         nh = self.nh
         a16, b16 = torch.broadcast_tensors(self._split16(a), self._split16(b))
         t, _ = _normalize(_settle(F.pad(_product_columns(a16, b16), (0, 1)), 16), 16)

@@ -10,10 +10,16 @@ the hand-written kernels, "torch" their plain versions, "auto" picks
 inputs, with precompute_factor 1 or a power of two with an explicit c,
 takes the v3 prefix-scan pipeline (ops/msm_tpu3.py; under
 ICICLE_TPU_MSM_PIPELINE=v2 and factor 1 the v2 suffix-fold pipeline,
-ops/msm_tpu2.py); batches, Montgomery-form inputs and other factors take
-the generic `msm()`. G2 raises: it needs the extension-field towers
-(ROADMAP.md queue A item 7). The v1 pipeline (ops/msm_tpu.py `msm_tpu`)
-is called directly, as there.
+ops/msm_tpu2.py); G2 (`MSMConfig(g2=True)`), batches, Montgomery-form
+inputs and other factors take the generic `msm()`. The v1 pipeline
+(ops/msm_tpu.py `msm_tpu`) is called directly, as there.
+
+G2 points have coordinates over Fp2 (fields/extension.py: (N, 2L) words,
+c0's limbs then c1's) for bn254, bls12_377 and bls12_381, and over Fq for
+bw6_761; they run through the same stages over the group's engine, and B3,
+B4 and `precompute_bases` have Fp2 instances (kernels/msm_lib.py). A G2
+`msm_affine` returns ((x0, x1), (y0, y1)); the JAX package's returns the
+c0 parts alone (int(...[0]) of each coordinate), a difference by design.
 
 The generic `msm()` runs v3's stages (ops/msm_tpu3.py `msm_stages`: B3
 and B4 on a CUDA tensor) per batch element over one prepared table
@@ -26,9 +32,9 @@ own rows iN..(i+1)N, a batched `msm_affine` returns every element's
 point, and `bitsize` holds on every route.
 
 `_auto_c`, `_segmented_scan_add` and `_prefix_scan_add` serve the v1
-pipeline and the generic `msm()`'s window size; `_auto_c` is the JAX
-function's closed form only (its tuning table, measured on the TPU, is
-not carried over). The pipelines share the rest of this module: the
+pipeline and the generic `msm()`'s window size (`default_c`); `_auto_c`
+is the JAX function's closed form only (its tuning table, measured on the
+TPU, is not carried over). The pipelines share the rest of this module: the
 signed digits, the +-P point table (`point_table`, `signed_table`),
 `resolve_backend`, the B4 fold `fold_rows` and `horner`.
 """
@@ -41,8 +47,8 @@ import os
 import numpy as np
 import torch
 
-from icicle_tpu_torch.curves.group import Group, Projective, pselect
-from icicle_tpu_torch.curves.host_ec import INF, ec_add, ec_dbl
+from icicle_tpu_torch.curves.group import Group, Projective, get_group, pselect
+from icicle_tpu_torch.curves.host_ec import INF, fp2_inv, fp2_mul, host_ops
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.kernels.msm_scan_r12 import r12_engine
 from icicle_tpu_torch.math.bigint import widen
@@ -78,6 +84,21 @@ def _auto_c(n: int) -> int:
         if cost < best_cost:
             best_c, best_cost = c, cost
     return best_c
+
+
+G2_MAX_C = 11
+
+
+def default_c(n: int, g2: bool = False) -> int:
+    """The generic msm()'s window bits where cfg.c is 0, for n scalars:
+    `_auto_c(n)`, and at most G2_MAX_C for G2. The closed form counts a
+    window's bucket work as 4 2^(c-1) adds; the generic plan folds tiles x
+    2^(c-1) buckets a window across tiles, each of G2's rows twice as wide
+    as G1's, so above c 11 that fold costs more than the windows saved (a
+    bn254 G2 MSM of 2^22 points on an H100 at c 16, the closed form's
+    choice, takes 1.6 times as long as at c 11: PERF.md)."""
+    c = _auto_c(n)
+    return min(c, G2_MAX_C) if g2 else c
 
 
 def _row_index(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -207,9 +228,10 @@ def _mul_const_chunked(fq, a: torch.Tensor, value: int) -> torch.Tensor:
 
 
 def signed_table(fq, xy_mont: torch.Tensor) -> torch.Tensor:
-    """The point table the MSM pipelines gather from: xy_mont (n_pad, 2L)
-    int32 Montgomery limbs (x || y) -> (2 n_pad, 2L), rows n_pad.. holding
-    (x, -y), so a negative digit costs nothing per MSM."""
+    """The point table the MSM pipelines gather from: xy_mont (n_pad, 2W)
+    int32 Montgomery words (x || y, W words a coordinate of the field fq)
+    -> (2 n_pad, 2W), rows n_pad.. holding (x, -y), so a negative digit
+    costs nothing per MSM (over Fp2 both parts of y negate; 0 stays 0)."""
     nl = fq.nlimbs
     neg = xy_mont.clone()
     for s in range(0, neg.shape[0], _PREP_ROWS):
@@ -218,17 +240,18 @@ def signed_table(fq, xy_mont: torch.Tensor) -> torch.Tensor:
 
 
 def point_table(curve_name: str, px: torch.Tensor, py: torch.Tensor, n_pad: int,
-                engine: str = "u32") -> torch.Tensor:
-    """Canonical affine (n, L) coordinates -> `signed_table` of the points
-    in the engine's Montgomery domain, zero rows padding them to n_pad."""
-    fq = get_curve(curve_name).fq
-    nl = fq.nlimbs
+                engine: str = "u32", g2: bool = False) -> torch.Tensor:
+    """Canonical affine (n, W) coordinates -> `signed_table` of the points
+    in the engine's Montgomery domain, zero rows padding them to n_pad; G2's
+    Fp2 coordinates part by part."""
+    group = get_group(curve_name, g2)
+    nl = group.nlimbs
     n = px.shape[0]
     xy = torch.zeros((n_pad, 2, nl), dtype=torch.int32, device=px.device)
     xy[:n, 0] = px
     xy[:n, 1] = py
-    xy[:n] = _mul_const_chunked(fq, xy[:n], _mont_factor(curve_name, engine))
-    return signed_table(fq, xy.view(-1, 2 * nl))
+    xy[:n] = _mul_const_chunked(group.curve.fq, xy[:n], _mont_factor(curve_name, engine))
+    return signed_table(group.coord_field, xy.view(-1, 2 * nl))
 
 
 def resolve_backend(backend: str | None, scalars: torch.Tensor, who: str) -> bool:
@@ -259,26 +282,37 @@ def fold_rows(reduce, curve, pts: torch.Tensor) -> torch.Tensor:
     return reduce(curve, pts.contiguous())
 
 
-def horner(fq, wsums: torch.Tensor, c: int):
-    """(W, 3, L) Montgomery projective window sums -> canonical affine
-    sum_w 2^(c w) W_w as Python ints, (0, 0) for the identity."""
-    p = fq.modulus
-    rinv = pow(1 << (32 * fq.nlimbs), -1, p)
-    ints = fq.to_ints(wsums)                                    # (W, 3)
+def horner(group, wsums: torch.Tensor, c: int):
+    """(W, 3, W_words) Montgomery projective window sums of `group`'s points
+    -> canonical affine sum_w 2^(c w) W_w as Python ints: (x, y) over Fp,
+    ((x0, x1), (y0, y1)) over Fp2; the identity (0, 0) or ((0, 0), (0, 0))."""
+    p = group.curve.fq.modulus
+    rinv = pow(1 << (32 * group.base_limbs), -1, p)
+    add, dbl, _, ident = host_ops(group)
+    ints = group.coord_field.to_ints(wsums)                     # (W, 3[, 2])
     pts = []
     for x, y, z in ints:
-        z = z * rinv % p
-        if z == 0:
+        if group.degree == 1:
+            z = z * rinv % p
+            if z == 0:
+                pts.append(INF)
+                continue
+            zi = pow(z, -1, p)
+            pts.append((x * rinv % p * zi % p, y * rinv % p * zi % p))
+            continue
+        x, y, z = (tuple(int(v) * rinv % p for v in t) for t in (x, y, z))
+        if z == (0, 0):
             pts.append(INF)
             continue
-        zi = pow(z, -1, p)
-        pts.append((x * rinv % p * zi % p, y * rinv % p * zi % p))
+        nr = group.coord_field.engine.w
+        zi = fp2_inv(z, p, nr)
+        pts.append((fp2_mul(x, zi, p, nr), fp2_mul(y, zi, p, nr)))
     acc = pts[-1]
     for w in range(len(pts) - 2, -1, -1):
         for _ in range(c):
-            acc = ec_dbl(acc, p)
-        acc = ec_add(acc, pts[w], p)
-    return acc if acc is not INF else (0, 0)
+            acc = dbl(acc)
+        acc = add(acc, pts[w])
+    return acc if acc is not INF else ident
 
 
 def _precompute_digit_remap(digits: torch.Tensor, nu: int, n: int, G0: int):
@@ -300,21 +334,20 @@ def _precompute_digit_remap(digits: torch.Tensor, nu: int, n: int, G0: int):
 
 def msm_precompute_bases(curve_name: str, points_x, points_y, cfg: MSMConfig | None = None):
     """Reference msm_precompute_bases (msm.h:107; cpu_msm.hpp:455-481):
-    (N, L) canonical affine coordinates -> interleaved (nu N, L) canonical
+    (N, W) canonical affine coordinates -> interleaved (nu N, W) canonical
     affine coordinates with row nu i + j = 2^(j shift) P_i,
-    shift = precompute_shift(bitsize, c, nu). On a CUDA tensor the
-    `precompute_bases` kernel computes the copies, on the CPU its plain
-    version (cfg.backend may say "torch" or "cuda").
+    shift = precompute_shift(bitsize, c, nu); G2 points with cfg.g2 (W =
+    2L over Fp2, as JAX builds its copies over `group.coord_field`). On a
+    CUDA tensor the `precompute_bases` kernel computes the copies, on the
+    CPU its plain version (cfg.backend may say "torch" or "cuda").
 
     The window size must match the later msm() call: pass an explicit cfg.c
-    (0 takes `_auto_c(N)`, the port's closed form; the JAX package's may
-    differ). Torch tensors are used where they lie; numpy uint32 arrays go
+    (0 takes `default_c(N, cfg.g2)`, msm()'s own default; the JAX
+    package's may differ). Torch tensors are used where they lie; numpy uint32 arrays go
     to the default device. nu = 1 returns the points as they are."""
     from icicle_tpu_torch.kernels.precompute_kernel import (precompute_bases,
                                                             precompute_bases_ref)
     cfg = cfg or MSMConfig()
-    if cfg.g2:
-        raise _g2_unported("msm_precompute_bases")
     px = _limb_tensor(points_x, None).contiguous()
     py = _limb_tensor(points_y, px.device).contiguous()
     nu = cfg.precompute_factor
@@ -322,16 +355,10 @@ def msm_precompute_bases(curve_name: str, points_x, points_y, cfg: MSMConfig | N
         return px, py
     curve = get_curve(curve_name)
     nbits = cfg.bitsize or curve.fr.modulus.bit_length()
-    shift = precompute_shift(nbits, cfg.c or _auto_c(px.shape[0]), nu)
+    shift = precompute_shift(nbits, cfg.c or default_c(px.shape[0], cfg.g2), nu)
     fn = precompute_bases if resolve_backend(cfg.backend, px, "msm_precompute_bases") \
         else precompute_bases_ref
-    return fn(curve, px, py, nu, shift)
-
-
-def _g2_unported(who: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{who}: G2 needs the extension-field towers, which are not ported yet "
-        "(ROADMAP.md queue A item 7)")
+    return fn(get_group(curve_name, cfg.g2), px, py, nu, shift)
 
 
 GENERIC_TILES = 128
@@ -346,16 +373,19 @@ def generic_tile(rows: int) -> int:
     return min(8192, 1 << max(4, (-(-rows // GENERIC_TILES) - 1).bit_length()))
 
 
-def generic_plan(curve_name: str, rows: int, c: int, nu: int = 1, nbits: int = 0) -> dict:
+def generic_plan(curve_name: str, rows: int, c: int, nu: int = 1, nbits: int = 0,
+                 g2: bool = False) -> dict:
     """The generic msm()'s plan over `rows` bases (nu N rows of copies for
     nu > 1): v3's at tile generic_tile(rows), its wg picked on the windows
     left after the copies merge them, where v3 (and the JAX package) pick
     it before, so no group scans windows of zero digits (at 2^10 x 23, c 8:
-    2 windows, not 8). nbits: the scalars' bits, 0 for the scalar field's."""
+    2 windows, not 8). nbits: the scalars' bits, 0 for the scalar field's.
+    g2: G2's bases, whose rows are wider (pick_wg's row_words)."""
     from icicle_tpu_torch.ops.msm_tpu3 import _resolve_plan, pick_wg
     T = generic_tile(rows)
-    plan = _resolve_plan(curve_name, rows, c, T, None, "u32", nu, False, nbits)
-    return dict(plan, wg=pick_wg(plan["n_windows"], plan["tiles"], T))
+    plan = _resolve_plan(curve_name, rows, c, T, None, "u32", nu, False, nbits, g2)
+    return dict(plan, wg=pick_wg(plan["n_windows"], plan["tiles"], T,
+                                 get_group(curve_name, g2).nlimbs))
 
 
 def _generic_points(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig):
@@ -368,10 +398,8 @@ def _generic_points(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig
     [i nu N, (i + 1) nu N) (reference msm.h); nu N rows are the output of
     msm_precompute_bases where nu = cfg.precompute_factor > 1."""
     from icicle_tpu_torch.ops.msm_tpu3 import msm_stages, msm_tpu3_prepare, plan_digits
-    if cfg.g2:
-        raise _g2_unported("msm")
-    curve = get_curve(curve_name)
-    fr, fq = curve.fr, curve.fq
+    fr = get_curve(curve_name).fr
+    fq = get_group(curve_name, cfg.g2).coord_field
     scalars = _limb_tensor(scalars, None)
     px = _limb_tensor(points_x, scalars.device)
     py = _limb_tensor(points_y, scalars.device)
@@ -400,12 +428,12 @@ def _generic_points(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig
     if cfg.are_points_montgomery_form:
         px, py = fq.from_mont(px), fq.from_mont(py)
     nbits = cfg.bitsize or fr.modulus.bit_length()
-    plan = generic_plan(curve_name, rows, cfg.c or _auto_c(N), nu, nbits)
+    plan = generic_plan(curve_name, rows, cfg.c or default_c(N, cfg.g2), nu, nbits, cfg.g2)
 
     def prepare(x, y):
         return msm_tpu3_prepare(curve_name, x.contiguous(), y.contiguous(), c=plan["c"],
                                 T=plan["T"], engine="u32", precompute_factor=nu,
-                                wg=plan["wg"], bitsize=nbits)
+                                wg=plan["wg"], bitsize=nbits, g2=cfg.g2)
 
     table = prepare(px, py) if shared else None
     # every element's digits at once: (W, B, N), or (G, B, nu N) merged
@@ -420,24 +448,31 @@ def _generic_points(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig
 def msm(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig | None = None) -> Projective:
     """MSM over canonical-form inputs (or Montgomery-form ones, as cfg
     says). Returns a Montgomery-form projective point on the scalars'
-    device, (x R, y R, R) or the identity (0, R, 0); (B, L) coordinates
-    for a batch (use Group.to_affine_canonical to read out).
+    device, (x R, y R, R) or the identity (0, R, 0), its coordinates of the
+    group's field (G2 with cfg.g2: (2L,) words over Fp2); (B, W)
+    coordinates for a batch (use Group.to_affine_canonical to read out).
 
     scalars: (N, Ls) limbs, (B, N, Ls), or (B N, Ls) with cfg.batch_size =
-    B; points (N, L) each, (B N, L) with are_points_shared_in_batch=False
+    B; points (N, W) each, (B N, W) with are_points_shared_in_batch=False
     (element i takes rows iN..(i+1)N). With cfg.precompute_factor = nu > 1
-    the points are the interleaved (nu N, L) output of msm_precompute_bases
+    the points are the interleaved (nu N, W) output of msm_precompute_bases
     with the same cfg.c (per element when unshared). Torch tensors are used
     where they lie; numpy uint32 arrays go to the default device. Backend:
     cfg.backend, else the scalars' device."""
     cfg = cfg or MSMConfig()
     pts, batched = _generic_points(curve_name, scalars, points_x, points_y, cfg)
-    fq = get_curve(curve_name).fq
-    to_mont = fq.params.to_mont_int
-    one = to_mont(1)
-    coords = [(0, one, 0) if p == (0, 0) else (to_mont(p[0]), to_mont(p[1]), one) for p in pts]
+    group = get_group(curve_name, cfg.g2)
+    to_mont = group.curve.fq.params.to_mont_int
+    _, _, _, ident = host_ops(group)
+    zero = (0, 0) if group.degree == 2 else 0
+
+    def mont(v):
+        return tuple(to_mont(c) for c in v) if group.degree == 2 else to_mont(v)
+
+    coords = [(zero, group.one_int, zero) if p == ident else (mont(p[0]), mont(p[1]), group.one_int)
+              for p in pts]
     dev = _limb_tensor(scalars, None).device
-    xyz = fq.from_ints([v for p in coords for v in p], dev).view(len(pts), 3, fq.nlimbs)
+    xyz = group.coord_field.from_ints(coords, dev)              # (B, 3, W)
     if not batched:
         xyz = xyz[0]
     return Projective(*xyz.unbind(-2))
@@ -445,12 +480,10 @@ def msm(curve_name: str, scalars, points_x, points_y, cfg: MSMConfig | None = No
 
 def _msm_affine_pipeline(backend: str):
     def run(curve_name, scalars, points_x, points_y, cfg):
-        if cfg.g2:
-            raise _g2_unported("msm")
         cfg = dataclasses.replace(cfg, backend=backend)
         nu = cfg.precompute_factor
         v3_pre = nu > 1 and cfg.c and nu & (nu - 1) == 0
-        if (scalars.dim() == 3 or cfg.batch_size > 1 or (nu > 1 and not v3_pre)
+        if (cfg.g2 or scalars.dim() == 3 or cfg.batch_size > 1 or (nu > 1 and not v3_pre)
                 or cfg.are_scalars_montgomery_form or cfg.are_points_montgomery_form):
             pts, batched = _generic_points(curve_name, scalars, points_x, points_y, cfg)
             return pts if batched else pts[0]
@@ -471,7 +504,8 @@ _dispatcher.register_impl("msm", _dispatcher.CUDA, _msm_affine_pipeline("cuda"))
 def msm_affine(curve_name: str, scalars, points_x, points_y,
                cfg: MSMConfig | None = None):
     """Dispatched MSM returning the canonical affine result as python ints
-    ((0, 0) = identity); for a batch, the list of every element's result.
+    ((0, 0) = identity; G2 over Fp2: ((x0, x1), (y0, y1)), ((0, 0), (0, 0)));
+    for a batch, the list of every element's result.
 
     scalars: (N, Ls) canonical limbs, (B, N, Ls), or (B N, Ls) with
     cfg.batch_size = B; points_x, points_y: (N, L) canonical affine

@@ -167,4 +167,4 @@ def msm_tpu(curve_name: str, scalars, points_x, points_y, c: int | None = None,
     if n_chunks * g != total_windows:
         digits = torch.cat([digits, digits.new_zeros((n_chunks * g - total_windows, n))])
     wsums = torch.cat([run_chunk(digits[i * g:(i + 1) * g]) for i in range(n_chunks)])
-    return horner(fq, wsums[:total_windows].view(total_windows, 3, nl).cpu(), c)
+    return horner(group, wsums[:total_windows].view(total_windows, 3, nl).cpu(), c)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from icicle_tpu_torch.curves.group import get_group
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 from icicle_tpu_torch.kernels.ec_reduce import ec_reduce, ec_reduce_ref
@@ -150,4 +151,4 @@ def msm_tpu2(curve_name: str, scalars, points_x, points_y,
         tiles, 3 * nl, w_pad)
     total = fold_rows(reduce, curve, pts)                       # (3L, w_pad)
     wsums = total[:, :n_windows].T.reshape(n_windows, 3, nl).cpu()
-    return horner(fq, wsums, c)
+    return horner(get_group(curve_name), wsums, c)

@@ -76,13 +76,14 @@ _KEY_SHIFT = 14
 ENGINES = ("u32", "r12")
 
 
-def pick_wg(n_windows: int, tiles: int, T: int) -> int:
+def pick_wg(n_windows: int, tiles: int, T: int, row_words: int = 8) -> int:
     """Windows per group: powers of two up to 8 whose in-flight permuted
-    points and E-stream (~160 B a slot) stay within 6 GiB; the one that
-    fills the most of 1024 lanes (wg * tiles), then pads the fewest
-    windows, then makes the fewest groups."""
+    points and E-stream (5 coordinates of `row_words` words a slot: 160 B
+    at the JAX plan's 8, G2's rows twice their base's) stay within 6 GiB;
+    the one that fills the most of 1024 lanes (wg * tiles), then pads the
+    fewest windows, then makes the fewest groups."""
     byte_budget = 6 << 30
-    per_window = tiles * T * 160
+    per_window = tiles * T * 20 * row_words
     wg_cap = max(1, min(n_windows, byte_budget // max(per_window, 1), 8))
     best = None
     for cand in (8, 4, 2, 1):
@@ -97,7 +98,7 @@ def pick_wg(n_windows: int, tiles: int, T: int) -> int:
 
 
 def _plan3(n: int, c: int | None, nbits: int, T: int | None,
-           wg: int | None = None):
+           wg: int | None = None, row_words: int = 8):
     T = T or min(8192, max(256, n))
     T = min(T, 1 << _IDX_BITS)
     if c is None:
@@ -113,7 +114,7 @@ def _plan3(n: int, c: int | None, nbits: int, T: int | None,
     n_windows = signed_window_count(nbits, c)
     tiles = -(-n // T)
     tiles = 1 << max(0, (tiles - 1).bit_length())
-    return c, M, T, tiles, n_windows, wg or pick_wg(n_windows, tiles, T)
+    return c, M, T, tiles, n_windows, wg or pick_wg(n_windows, tiles, T, row_words)
 
 
 def _check_engine(engine) -> None:
@@ -135,11 +136,18 @@ def _resolve_engine(curve_name: str, engine: str | None) -> str:
     return engine
 
 
-def _resolve_plan(curve_name, n, c, T, wg, engine, nu, glv=False, bitsize=0):
+def _resolve_plan(curve_name, n, c, T, wg, engine, nu, glv=False, bitsize=0, g2=False):
     """The plan of n bases (for nu > 1, n rows of precomputed copies): the
     JAX `_resolve_plan` without its TPU tuning table. glv doubles the point
     set and takes the split halves' width; nu > 1 needs the bases' c and
-    merges the windows into max(G0, W - (nu - 1) G0)."""
+    merges the windows into max(G0, W - (nu - 1) G0). g2: G2's bases, on
+    the "u32" engine (B5 has no Fp2 arithmetic), wg sized by their rows."""
+    if g2:
+        _check_engine(engine)
+        if engine == "r12" or glv:
+            raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                                  "msm_tpu3: G2 takes the u32 engine and no glv")
+        engine = "u32"
     engine = _resolve_engine(curve_name, engine)
     if glv and nu > 1:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
@@ -154,18 +162,20 @@ def _resolve_plan(curve_name, n, c, T, wg, engine, nu, glv=False, bitsize=0):
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
                               "msm_tpu3: precomputed bases need the explicit c they were "
                               "made with")
-    c, M, T, tiles, n_windows, wg = _plan3(n, c, nbits, T, wg)
+    rows = (get_group(curve_name, g2).nlimbs,) if g2 else ()   # G2's wider rows
+    c, M, T, tiles, n_windows, wg = _plan3(n, c, nbits, T, wg, *rows)
     if nu > 1:
         G0 = precompute_shift(nbits, c, nu) // c
         n_windows = max(G0, n_windows - (nu - 1) * G0)
     return dict(engine=engine, nbits=nbits, c=c, M=M, T=T, tiles=tiles,
-                n_windows=n_windows, wg=wg, n_pad=tiles * T, nu=nu, glv=glv)
+                n_windows=n_windows, wg=wg, n_pad=tiles * T, nu=nu, glv=glv, g2=g2)
 
 
 def msm_tpu3_prepare(curve_name: str, points_x, points_y,
                      c: int | None = None, T: int | None = None,
                      engine: str | None = None, precompute_factor: int = 1,
-                     wg: int | None = None, glv: bool = False, bitsize: int = 0) -> dict:
+                     wg: int | None = None, glv: bool = False, bitsize: int = 0,
+                     g2: bool = False) -> dict:
     """One-time base preparation: pad, convert into the engine's Montgomery
     domain and keep the u32 limbs on the points' device. The result feeds
     msm_tpu3(prepared=...), so repeated MSMs over the same bases skip this
@@ -177,17 +187,19 @@ def msm_tpu3_prepare(curve_name: str, points_x, points_y,
     precompute_factor = nu > 1, the interleaved (nu N, L) output of
     msm_precompute_bases made with the same c. glv=True interleaves
     [P_i, phi(P_i)], phi = (beta x, y), one canonical multiply a point.
-    bitsize: the scalars' bits, 0 for the scalar field's."""
+    bitsize: the scalars' bits, 0 for the scalar field's. g2: G2 points,
+    (n, W) words of its coordinate field (2L over Fp2)."""
     px = _limb_tensor(points_x, None)
     py = _limb_tensor(points_y, px.device)
     n = px.shape[0]
-    plan = _resolve_plan(curve_name, n, c, T, wg, engine, precompute_factor, glv, bitsize)
+    plan = _resolve_plan(curve_name, n, c, T, wg, engine, precompute_factor, glv, bitsize, g2)
     if glv:
         g = get_group(curve_name)
         phi_x = g.f.mul_mont(px, g.glv_beta_mont(px.device))        # beta x, canonical
         px = torch.stack([px, phi_x], 1).view(2 * n, -1)
         py = torch.stack([py, py], 1).view(2 * n, -1)
-    return dict(plan, pts=point_table(curve_name, px, py, plan["n_pad"], plan["engine"]), n=n)
+    return dict(plan, pts=point_table(curve_name, px, py, plan["n_pad"], plan["engine"], g2),
+                n=n)
 
 
 def _kernels(backend: str, scalars: torch.Tensor, engine: str):
@@ -229,8 +241,8 @@ def msm_stages(curve_name: str, digits: torch.Tensor, prepared: dict,
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
                               f"msm_tpu3: scalars on {digits.device}, bases on {table.device}")
     curve = get_curve(curve_name)
-    fq = curve.fq
-    nl = fq.nlimbs
+    group = get_group(curve_name, plan.get("g2", False))
+    nl = group.nlimbs
     dev = digits.device
     c, M, T, tiles, wg = plan["c"], plan["M"], plan["T"], plan["tiles"], plan["wg"]
     n_windows, n_pad = plan["n_windows"], plan["n_pad"]
@@ -247,7 +259,7 @@ def msm_stages(curve_name: str, digits: torch.Tensor, prepared: dict,
     shift = r12_engine(curve_name).rbits - 32 * nl if plan["engine"] == "r12" else None
 
     ident_row = torch.cat([torch.zeros(nl, dtype=torch.int32, device=dev),
-                           get_group(curve_name).one_mont(dev),
+                           group.one_mont(dev),
                            torch.zeros(nl, dtype=torch.int32, device=dev)])
     iota_t = torch.arange(T, dtype=torch.int32, device=dev)
     tile_base = torch.arange(tiles, dtype=torch.int64, device=dev).view(1, tiles, 1) * T
@@ -269,16 +281,16 @@ def msm_stages(curve_name: str, digits: torch.Tensor, prepared: dict,
         src = sidx + tile_base + sneg * n_pad                   # rows of `table`
         src = src.permute(2, 1, 0).reshape(K * C)               # slot-major lanes
         perm = table.index_select(0, src).view(K, C, 2 * nl).transpose(1, 2).contiguous()
-        estream = scan(curve, perm)                             # (K, 3L, C)
+        estream = scan(group if shift is None else curve, perm)  # (K, 3L, C)
 
         end = torch.searchsorted(spack, bounds) - 1             # (wg, tiles, M)
         rows = estream[end.clamp(min=0), :, lanes]              # (wg, tiles, M, 3L)
         if shift is not None:
-            rows = fq.engine.div_pow2(rows.reshape(wg, tiles, M, 3, nl), shift).view(
+            rows = curve.fq.engine.div_pow2(rows.reshape(wg, tiles, M, 3, nl), shift).view(
                 wg, tiles, M, 3 * nl)
         rows = torch.where((end >= 0).unsqueeze(-1), rows, ident_row)
         buckets = rows.permute(1, 3, 0, 2).reshape(tiles, 3 * nl, wg * M)
-        return reduce(curve, buckets.contiguous())              # lane = w*M + q
+        return reduce(group, buckets.contiguous())              # lane = w*M + q
 
     full = digits.new_zeros((w_pad, n_pad))
     full[:n_windows, :digits.shape[1]] = digits
@@ -288,9 +300,9 @@ def msm_stages(curve_name: str, digits: torch.Tensor, prepared: dict,
     # window sum = sum over all M filled prefixes: B4 over the bucket axis,
     # lane = g*wg + w
     bk = sums.view(n_groups, 3 * nl, wg, M).permute(3, 1, 0, 2).reshape(M, 3 * nl, w_pad)
-    total = fold_rows(reduce, curve, bk)                        # (3L, w_pad)
+    total = fold_rows(reduce, group, bk)                        # (3L, w_pad)
     wsums = total[:, :n_windows].T.reshape(n_windows, 3, nl).cpu()
-    return horner(fq, wsums, c)
+    return horner(group, wsums, c)
 
 
 def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=None,
@@ -315,7 +327,8 @@ def msm_tpu3(curve_name: str, scalars: torch.Tensor, points_x=None, points_y=Non
     the device (ops/msm_glv.py) over the [P, phi(P)] bases; not with
     nu > 1. bitsize: the scalars' bits, 0 for the scalar field's (ignored
     with glv, whose digits take the split's width). `prepared` must have
-    been made with the same nu, glv and bitsize."""
+    been made with the same nu, glv and bitsize; bases prepared with g2 give
+    G2's ((x0, x1), (y0, y1)) over Fp2."""
     _check_engine(engine)
     nu = precompute_factor
     if nu < 1 or nu & (nu - 1):

@@ -370,3 +370,31 @@ def ntt_jit(f: Field, x: torch.Tensor, dir: NTTDir = NTTDir.FORWARD,
     device), which is what `ntt_jit` threads through its compiled program,
     so this is `ntt`."""
     return ntt(f, x, dir, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Extension-field NTT (reference EXT_FIELD ntt, backend/cpu/src/field/
+# cpu_ntt.cpp:41). The NTT is linear over the base field, so an
+# extension-field NTT is a component-wise base-field NTT over the base
+# field's twiddle domain.
+# ---------------------------------------------------------------------------
+
+
+def ntt_ext(ef, x: torch.Tensor, dir: NTTDir = NTTDir.FORWARD,
+            cfg: NTTConfig = _DEFAULT) -> torch.Tensor:
+    """NTT over extension-field elements (babybear4 etc.; counterpart of the
+    JAX package's ops/ntt.py `ntt_ext`, which computes the same function).
+
+    x: (batch..., n, D) int32 elements of `ef` over a single-word base, or
+    (batch..., n, D * B) over a B-word base (goldilocks, whose quadratic
+    extension the JAX function refuses). Each of the D components goes
+    through `ntt` as its own vector over the base field: a single
+    natural-order vector of 2^16 or more on a CUDA tensor takes `_ntt_cuda`'s
+    two `dif_rows` launches a component (`_ntt_cuda` sends a batch of
+    vectors to `_ntt_torch`)."""
+    comps = [c.contiguous() for c in ef.engine.comps(x)]
+    return ef.engine.restack([ntt(ef.base, c, dir, cfg) for c in comps])
+
+
+dispatcher.register_impl("extension_ntt", dispatcher.TORCH, ntt_ext)
+dispatcher.register_impl("extension_ntt", dispatcher.CUDA, ntt_ext)

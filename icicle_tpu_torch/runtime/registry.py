@@ -3,7 +3,8 @@ reference include/icicle/backend/*.h REGISTER_* macros).
 
 Ops register their "torch" and "cuda" implementations with the dispatcher at
 their definition site; importing this module imports every op the port has.
-So far that is the NTT (ops/ntt.py), the MSM (ops/msm.py), the hashes
+So far that is the NTT (ops/ntt.py; the extension-field NTT `ntt_ext`
+under the JAX registry's name "extension_ntt"), the MSM (ops/msm.py), the hashes
 Poseidon2 (ops/hash/poseidon2.py, api "poseidon2"), Poseidon
 (ops/hash/poseidon.py, api "poseidon"), Keccak (ops/hash/keccak.py, api
 "keccak"), Blake2s (ops/hash/blake2s.py, api "blake2s") and Blake3

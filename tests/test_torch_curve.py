@@ -9,6 +9,7 @@ operands, P + P and P + (-P) included. Tolerance: exact equality.
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -162,10 +163,20 @@ def test_montgomery_converters_match_jax():
 
 
 def test_g2_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tgroup.get_group(CURVE, g2=True)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tmont.affine_to_montgomery(CURVE, None, None, g2=True)
+    """G2 no longer raises (queue A item 7 is done): the port's G2 group has
+    the JAX package's constants, and its Montgomery conversion equals
+    JAX's."""
+    jg, tg = jgroup.get_group(CURVE, g2=True), tgroup.get_group(CURVE, g2=True)
+    assert tg.nlimbs == jg.nlimbs == 16
+    for j, t in ((jg.b3_mont, tg.b3_mont("cpu")), (jg.one_mont, tg.one_mont("cpu")),
+                 (jg.gen_mont.x, tg.generator((), "cpu").x)):
+        assert np.array_equal(np.asarray(j).view(np.int32), t.numpy())
+    x = tg.coord_field.rand(np.random.default_rng(3), (2,), "cpu")
+    jx = jnp.asarray(x.numpy().view(np.uint32))
+    got = tmont.affine_to_montgomery(CURVE, x, x, g2=True)
+    want = jmont.affine_to_montgomery(CURVE, jx, jx, g2=True)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b).view(np.int32))
 
 
 @pytest.mark.parametrize("name", jparams.curve_names())

@@ -10,6 +10,8 @@ import torch
 
 from icicle_tpu.curves.params import get_curve as jcurve
 from icicle_tpu_torch import MSMConfig, msm_affine
+from icicle_tpu_torch.curves import host_ec
+from icicle_tpu_torch.curves.group import get_group
 from icicle_tpu_torch.ops.msm import msm_precompute_bases
 from icicle_tpu_torch.kernels import ec_reduce as TR
 from icicle_tpu_torch.kernels import msm_scan as TS
@@ -96,9 +98,10 @@ def test_msm_affine_dispatch_on_cpu():
     (MSMConfig(bitsize=64, c=6), "bitsize 64"),
 ])
 def test_msm_affine_unported_configurations_raise(cfg, match):
-    """The seven configurations the port refused before its generic msm():
-    G2 still raises (it needs the extension-field towers, queue A item 7);
-    the other six now run and equal the oracle. A batch (batch_size 2 over
+    """The seven configurations the port refused before its generic msm()
+    and its extension fields all run and equal the oracle: G2 over Fp2
+    (8 multiples of bn254's G2 generator, the host's Fp2 oracle) and the
+    six G1 ones. A batch (batch_size 2 over
     flat scalars; unshared points over a (2, N) batch) gives one point an
     element, unshared elements on their own rows."""
     c = jcurve("bn254")
@@ -109,8 +112,14 @@ def test_msm_affine_unported_configurations_raise(cfg, match):
     scalars = [(v << (bits - 62)) + 3 for v in scalars]
     s, x, y = _tensors(scalars, pts)
     if cfg.g2:
-        with pytest.raises(NotImplementedError, match=f"(?s){match}.*queue A item 7"):
-            msm_affine("bn254", s, x, y, cfg)
+        g = get_group("bn254", g2=True)
+        gen = (c.params.g2_gen_x, c.params.g2_gen_y)
+        qs = [host_ec.scalar_mul(g, gen, 3 + 2 * i) for i in range(8)]
+        want = host_ec.INF
+        for k, q in zip(scalars, qs):
+            want = host_ec.ec2_add(want, host_ec.scalar_mul(g, q, k), c.fq.modulus, -1)
+        x, y = (g.coord_field.from_ints([q[i] for q in qs], "cpu") for i in (0, 1))
+        assert msm_affine("bn254", s, x, y, cfg) == want
         return
     want = _want(scalars, pts)
     if cfg.are_scalars_montgomery_form:

@@ -178,9 +178,11 @@ def test_generic_plan_is_the_plan_msm_runs(monkeypatch):
 
 def test_g2_and_bad_shapes_raise():
     pts, scalars = _points(4, 11), _scalars(4, 12)
-    with pytest.raises(NotImplementedError, match="G2.*queue A item 7"):
+    # G2 runs (queue A item 7 is done), and takes Fp2 coordinates: G1's
+    # (N, 8) limbs are refused before any work
+    with pytest.raises(IcicleException, match="coordinates"):
         TM.msm(CURVE, _s(scalars), *_xy(pts), MSMConfig(g2=True))
-    with pytest.raises(NotImplementedError, match="G2.*queue A item 7"):
+    with pytest.raises(IcicleException, match=r"expected \(4, 16\)"):
         TM.msm_precompute_bases(CURVE, *_xy(pts), MSMConfig(g2=True, precompute_factor=2))
     x, y = _xy(pts)
     with pytest.raises(IcicleException, match="coordinates"):
