@@ -216,6 +216,31 @@ multiplies; a BLAKE compression its integer instructions, the non-adds on
 the ALU pipe (64 lanes a clock an SM) and all of them through the
 schedulers (128), its adds free to issue on the FMA pipe as IMAD.IADD.
 
+Phase 3 also holds the new kernels to their plain versions, bit-exact, at
+the shapes the paths give them, and times each alone there: the ECNTT
+kernel (kernels/csrc/ecntt.cu) at 8, 12 and 24 limbs on EC1's inputs
+(bn254 2^16, bls12_381 2^13, bw6_761 2^8; x, y and z): stage 1 (no
+ladder), the last stage with the GLV and the plain ladder, and the GLV
+scale of n lanes by random scalars below r; rq_ntt (rq_ntt.cu) over L1's
+2^16 R_q polynomials both ways with rows of 0 and q - 1; the three mlkem
+ops (mlkem.cu) at ML-KEM-768 2^16 (196,608 and 589,824 polynomials) with
+rows of 0 and 3328; keccak.cu's icicle_keccak_sponge for every sponge
+ML-KEM calls at Q1's batch for it and a 31-block squeeze (row 0 also
+against hashlib). An ECNTT ladder's bound counts the least multiplies its
+digits need (ladder_monts); rq_ntt 256 64-bit Montgomery multiplies of 11
+32-bit products a polynomial; the sponge its permutations on the ALU pipe.
+After the hashes: EC1, the ECNTT through icicle_tpu_torch.ecntt (bn254
+2^16 forward, a coset forward and its inverse, bls12_381 2^13 forward and
+inverse, bw6_761 2^8 forward; sampled lanes against (NTT(a)_k) G, the
+inverses against the inputs as affine points; a stage launch a stage, a
+scale launch a coset shift or inverse; timed, one forward profiled); L1,
+the rings and lattice ops (ntt_rns 2^24: 8 dif_rows; negacyclic_ntt over
+2^16 polynomials: 2 rq_ntt; rq_matmul (64 x 256) by (256 x 64): 3 rq_ntt,
+equal to the plain version; decomposition, a JL projection and norm
+checks over 2^22 elements); Q1, batched ML-KEM (768 at 2^16, 512 and
+1024 at 2^12: every secret decapsulated, tampered ciphertexts rejected,
+64 items against the host oracle byte for byte; operations/s).
+
 Launch counts: every kernel's count is set to 0 just before each checked
 main-path call (one NTT forward + inverse, one MSM, one Merkle build, one
 FRI prove, one claimed sum and sumcheck prove; one limb-field NTT forward +
@@ -276,7 +301,10 @@ Keccak-256 word-row kernel (one block's path and the loop around it).
 from __future__ import annotations
 
 import contextlib
+import functools
+import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -489,6 +517,9 @@ def kernel_counters() -> dict:
     from icicle_tpu_torch.kernels import precompute_kernel as PB
     from icicle_tpu_torch.kernels import program_kernel as PGK
     from icicle_tpu_torch.kernels import sumcheck_kernel as SK
+    from icicle_tpu_torch.kernels import ecntt_kernel as EK
+    from icicle_tpu_torch.kernels import mlkem_kernel as MK
+    from icicle_tpu_torch.kernels import rq_ntt_kernel as RK
     return {"dif_rows": K.dif_rows, "dif_rows_wide": NW.dif_rows_wide,
             "prefix_scan": TS.prefix_scan, "ec_reduce": TR.ec_reduce,
             "precompute_bases": PB.precompute_bases,
@@ -496,7 +527,10 @@ def kernel_counters() -> dict:
             "bucket_accum": TK.bucket_accum, "poseidon2": PK.poseidon2, "keccak": KK.keccak,
             "fri_fold": FK.fri_fold, "sumcheck_round": SK.sumcheck_round,
             "program": PGK.execute_program_kernel, "poseidon": PSK.poseidon,
-            "blake2s": B2.blake2s, "blake3": B3.blake3}
+            "blake2s": B2.blake2s, "blake3": B3.blake3, "ecntt_stage": EK.ecntt_stage,
+            "ecntt_scale": EK.ecntt_scale, "rq_ntt": RK.rq_ntt, "mlkem_ntt": MK.mlkem_ntt,
+            "mlkem_intt": MK.mlkem_intt, "mlkem_multiply_ntts": MK.mlkem_multiply_ntts,
+            "keccak_sponge": KK.keccak_sponge}
 
 
 def counted(path: str, fn, launches: dict):
@@ -2966,6 +3000,591 @@ def g2_paths(dev, smi: str, launches: dict) -> dict:
     return out
 
 
+# -- the ECNTT, the babykoala rings and lattice ops, ML-KEM (EC1, L1, Q1) ------------
+
+ECNTT_STEP = 0x9E3779B97F4A7C15F39CC0605CEDC835  # EC1's input: the log step between blocks of 64
+ECNTT_COSET = 5             # EC1's coset generator
+# (curve, log n, samples held to the oracle, inverse): EC1's transforms; the
+# kernel checks run at the same sizes
+EC1_PATHS = (("bn254", 16, 64, True), ("bls12_381", 13, 64, True), ("bw6_761", 8, 16, False))
+EC1_MAIN = "ecntt bn254 2^16 fwd"
+RNS_LOG = 24
+RQ_POLYS_LOG = 16           # negacyclic NTTs over 2^16 R_q polynomials (2^22 coefficients)
+RQ_MATMUL = (64, 256, 64)   # (n, m, k) R_q matrices
+LATTICE_LOG = 22
+LATTICE_BASE = 1 << 16
+JL_ROWS = 32                # JL output rows at 2^22 inputs: 2^19 host Keccak-512 calls
+NORM_MAX = 1 << 15          # the norm check's entries lie in [-NORM_MAX, NORM_MAX]
+RNS_MAIN = f"ntt_rns 2^{RNS_LOG} fwd+inv"
+RQ_MAIN = f"negacyclic_ntt 2^{RQ_POLYS_LOG} polynomials fwd+inv"
+RQ_MATMUL_MAIN = "rq_matmul (64 x 256) by (256 x 64)"
+MLKEM_CASES = (("768", 16), ("512", 12), ("1024", 12))   # (parameter set, log batch)
+MLKEM_MAIN = "ml-kem-768 2^16"
+MLKEM_SAMPLES = 64
+# the ring ops at ML-KEM-768 2^16: (B, k) vectors, (B, k, k) products
+MLKEM_POLYS = {"ntt": 3 << 16, "intt": 3 << 16, "multiply_ntts": 9 << 16}
+# (role, log batch, message bytes, rate, pad byte, output bytes): every
+# sponge ML-KEM calls, at Q1's largest batch for it (ML-KEM-768's at 2^16;
+# ML-KEM-512's eta 3 PRF and 512's and 1024's ek and ciphertext lengths at
+# 2^12), and a squeeze of many blocks
+SPONGE_CHECKS = (
+    ("SHA3-512 G(d || k)", 16, 33, 72, 0x06, 64), ("SHA3-512 G(m || h)", 16, 64, 72, 0x06, 64),
+    ("SHA3-256 H(ek) 512", 12, 800, 136, 0x06, 32),
+    ("SHA3-256 H(ek) 768", 16, 1184, 136, 0x06, 32),
+    ("SHA3-256 H(ek) 1024", 12, 1568, 136, 0x06, 32),
+    ("SHAKE128 XOF(rho || j || i)", 16, 34, 168, 0x1F, 504 * 3),
+    ("SHAKE256 PRF eta 2", 16, 33, 136, 0x1F, 128),
+    ("SHAKE256 PRF eta 3", 12, 33, 136, 0x1F, 192),
+    ("SHAKE256 J(z || c) 512", 12, 32 + 768, 136, 0x1F, 32),
+    ("SHAKE256 J(z || c) 768", 16, 32 + 1088, 136, 0x1F, 32),
+    ("SHAKE256 J(z || c) 1024", 12, 32 + 1568, 136, 0x1F, 32),
+    ("SHAKE256 31 blocks out", 12, 5, 136, 0x1F, 4200))
+SPONGE_MAIN = "SHAKE128 XOF(rho || j || i)"   # the kernels line's sponge: the matrix XOF
+
+
+def check_against_plain(label: str, fn, ref, args: tuple, bound_of: tuple,
+                        reps: int = REPS) -> dict:
+    """fn(*args), a kernel's wrapper, against ref(*args), its plain
+    version, on the card: bit-exact (a tensor, or each coordinate of a
+    tuple); then fn timed alone on the same inputs. bound_of is the
+    launch's (bound ms, bound_by)."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+    err = max(_exact(label, u, v) for u, v in pairs)
+    del got, want
+    kernel_ms = cuda_ms(lambda: fn(*args), reps)
+    return {"max_abs_diff": err, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
+            "bound_ms": bound_of[0], "bound_by": bound_of[1]}
+
+
+TABLE_DBLS = TABLE_ADDS = 7   # a 16-entry table from P: 2i by a doubling, 2i + 1 by an add
+
+
+def ladder_monts(rows, glv: bool) -> int:
+    """Montgomery multiplies of the ladders over the columns of `rows`, the
+    least this run's digits need: for each lane whose scalar is not 0, a
+    table of TABLE_DBLS doublings and TABLE_ADDS adds (entry 1 is P), and
+    with GLV 15 multiplies by beta for phi's table (its entry i is (beta x,
+    +-y, z) of entry i); then from the first row with a nonzero digit, 4
+    doublings a later row and an add a nonzero digit after the first. b3
+    is an add chain on every G1 curve."""
+    digits = torch.stack(rows[:2]) if glv else rows.unsqueeze(0)   # (tables, ndig, lanes)
+    nz = digits != 0
+    live = nz.any(0)
+    used = live.any(0)
+    first = live.to(torch.int32).argmax(0)
+    ndig = digits.shape[1]
+    dbls = int(torch.where(used, 4 * (ndig - 1 - first), 0).sum())
+    lanes = int(used.sum())
+    adds = int(nz.sum()) - lanes
+    return ((dbls + TABLE_DBLS * lanes) * DBL_MONTS + (adds + TABLE_ADDS * lanes) * PADD_MONTS
+            + (15 * lanes if glv else 0))
+
+
+def ecntt_bound(g, lanes: int, rows, glv: bool, stage: bool) -> tuple[float, str]:
+    """One launch's least time: its points read and written once (2 lanes
+    points for a stage, `lanes` for the scale), its digit rows read once;
+    the ladders' multiplies (ladder_monts over the rows' columns, each
+    serving lanes / columns lanes; none for stage 1, rows None) and a
+    stage's two adds a lane."""
+    nl = g.nlimbs
+    nbytes = lanes * (2 if stage else 1) * 3 * nl * 4 * 2
+    monts = 2 * PADD_MONTS * lanes if stage else 0
+    if rows is not None:
+        parts = rows if glv else (rows,)
+        nbytes += sum(t.numel() * t.element_size() for t in parts)
+        monts += ladder_monts(rows, glv) * (lanes // parts[0].shape[1])
+    return bound(nbytes, monts * big_mont_muls(nl))
+
+
+def ecntt_transform_bound(g, logn: int, stage_rows: list, scale_rows: list) -> float:
+    """Sum of the bounds of a GLV transform's launches: stage 1 (no
+    ladder), stages 2..logn over their digit rows, a scale launch for each
+    of scale_rows."""
+    n = 1 << logn
+    total = ecntt_bound(g, n // 2, None, True, True)[0]
+    total += sum(ecntt_bound(g, n // 2, r, True, True)[0] for r in stage_rows)
+    return total + sum(ecntt_bound(g, n, r, True, False)[0] for r in scale_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _ecntt_affine(cname: str, n: int) -> tuple:
+    """(affine Python ints of n points a_j G of G1 of cname, the a_j):
+    a_j = k_(j mod 64) + (j div 64) ECNTT_STEP, the 64 pool points plus a
+    multiple of S = ECNTT_STEP G that changes every 64 lanes, so the input
+    has no period; by host adds, once a size."""
+    from icicle_tpu_torch import get_group
+    from icicle_tpu_torch.curves.host_ec import INF, ec_add, scalar_mul
+    g = get_group(cname)
+    pool, logs = pool_points(g), pool_logs()
+    mod, r = g.curve.fq.modulus, g.curve.fr.modulus
+    step = scalar_mul(g, group_generator(g), ECNTT_STEP)
+    pts, shift = [], INF
+    while len(pts) < n:
+        pts.extend(ec_add(p, shift, mod) for p in pool)
+        shift = ec_add(shift, step, mod)
+    if any(p is INF for p in pts[:n]):
+        raise AssertionError("ecntt_points: an input point is the identity")
+    return pts[:n], [(logs[j % len(logs)] + ECNTT_STEP * (j // len(logs))) % r for j in range(n)]
+
+
+def ecntt_points(g, n: int, dev):
+    """(n points a_j G (_ecntt_affine) as Montgomery projective coordinates
+    on dev, z = 1; the a_j)."""
+    pts, logs = _ecntt_affine(g.curve.name, n)
+    fq = g.curve.fq
+    x = fq.from_ints([p[0] for p in pts], dev)
+    y = fq.from_ints([p[1] for p in pts], dev)
+    return g.from_affine_canonical(x, y), logs
+
+
+def check_ecntt_kernels(dev, smi: str) -> list:
+    """ecntt_stage and ecntt_scale against their plain versions, bit-exact
+    (x, y and z), at every limb count and at the shapes EC1 gives them: on
+    each EC1 curve's 2^logn input points, stage 1 (n / 2 lanes, no
+    ladder), the last stage (n / 2 lanes, its twiddles' digit rows) with
+    the GLV and with the plain ladder, and the GLV scale (the scale's only
+    ladder, as in the JAX package) of n lanes by random scalars below r;
+    each timed alone there."""
+    from icicle_tpu_torch.kernels import ecntt_kernel as EK
+    from icicle_tpu_torch.ops import ecntt as E
+    from icicle_tpu_torch import get_group
+
+    rows = []
+    for cname, logn, _, _ in EC1_PATHS:
+        g = get_group(cname)
+        n = 1 << logn
+        P, _ = ecntt_points(g, n, dev)
+        r = g.curve.fr.modulus
+        rng = np.random.default_rng(logn)
+        scalars = [int.from_bytes(rng.bytes(r.bit_length() // 8 + 8), "little") % r
+                   for _ in range(n)]
+        scale_rows = E._to_device(E._glv_rows(cname, scalars), dev)
+        last = {glv: E._stage_rows(cname, logn, False, glv, dev)[-1] for glv in (True, False)}
+        for entry, glv, rws in (("stage 1", True, None), ("stage", True, last[True]),
+                                ("stage", False, last[False]), ("scale", True, scale_rows)):
+            if entry == "scale":
+                fn, ref, args, lanes = EK.ecntt_scale, EK.ecntt_scale_ref, (rws,), n
+            else:
+                m = 1 if rws is None else n // 2
+                fn, ref, args, lanes = EK.ecntt_stage, EK.ecntt_stage_ref, (m, rws, glv), n // 2
+            label = f"ecntt_{entry} {cname} {'no' if rws is None else 'GLV' if glv else 'plain'}"
+            ndig = 0 if rws is None else (rws[0] if glv else rws).shape[0]
+            row = check_against_plain(label, lambda *a: fn(g, P, *a), lambda *a: ref(g, P, *a),
+                                      args, ecntt_bound(g, lanes, rws, glv, entry != "scale"),
+                                      reps=3)
+            row.update(curve=cname, limbs=g.nlimbs, entry=entry, glv=glv, logn=logn,
+                       lanes=lanes, digit_rows=ndig)
+            rows.append(row)
+            log(f"  {label} ladder ({g.nlimbs} limbs), {lanes} lanes x {ndig} digit rows: exact; "
+                f"kernel {row['kernel_ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+        del P, scale_rows
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _affine_rows(g, pts, lanes) -> list:
+    """Affine Python ints of the sampled lanes of Montgomery projective pts
+    ((0, 0) for the identity): X / Z, Y / Z on the host (R cancels)."""
+    fq = g.curve.fq
+    idx = torch.tensor(lanes, dtype=torch.int64, device=pts.x.device)
+    xs, ys, zs = (fq.to_ints(c.index_select(0, idx)) for c in pts)
+    p = fq.modulus
+    out = []
+    for x, y, z in zip(xs, ys, zs):
+        zi = pow(int(z), -1, p) if int(z) else 0
+        out.append((int(x) * zi % p, int(y) * zi % p))
+    return out
+
+
+def _ecntt_oracle(g, pts, logs, coset, samples: int, label: str) -> list:
+    """Holds the sampled lanes k of an ECNTT of a_j G to (NTT(a)_k) G: the
+    scalar NTT by the port's ntt over the scalar field (backend "torch"),
+    the multiply on the host from a table of 2^i G."""
+    from icicle_tpu_torch import NTTConfig, NTTDir, ntt
+    from icicle_tpu_torch.curves.host_ec import ec_add
+    fr = g.curve.fr
+    n = len(logs)
+    a = fr.from_ints(logs, pts.x.device)
+    scal = fr.to_ints(ntt(fr, a, NTTDir.FORWARD, NTTConfig(coset_gen=coset, backend="torch")))
+    rng = np.random.default_rng(n)
+    lanes = sorted({0, n - 1, *rng.choice(n, size=min(samples, n) - 2, replace=False).tolist()})
+    mod = g.curve.fq.modulus
+    table = [group_generator(g)]
+    for _ in range(fr.modulus.bit_length()):
+        table.append(ec_add(table[-1], table[-1], mod))
+    got = _affine_rows(g, pts, lanes)
+    for k, pt in zip(lanes, got):
+        if pt != fixed_base_mul(table, int(scal[k]), mod):
+            raise AssertionError(f"{label}: lane {k} != NTT(a)_{k} G")
+    return lanes
+
+
+def _equals_input(g, out, P) -> bool:
+    """out equals the affine input points P (z = 1) lane for lane:
+    x_out == x z_out and y_out == y z_out in Montgomery form, z_out != 0."""
+    m = g.f.mul_mont
+    return (not bool(g.f.is_zero(out.z).any()) and torch.equal(out.x, m(P.x, out.z))
+            and torch.equal(out.y, m(P.y, out.z)))
+
+
+def ecntt_paths(dev, smi: str, launches: dict) -> dict:
+    """EC1: the ECNTT through icicle_tpu_torch.ecntt on CUDA tensors. bn254
+    at 2^16 points a_j G (ecntt_points: no period): a forward in natural
+    order, a forward on the coset g = ECNTT_COSET and its inverse, which
+    must give every input back; bls12_381 at 2^13 (an FK20 all-proofs
+    circulant over one 4096-element blob), forward and inverse; bw6_761 at
+    2^8, forward. Each forward's sampled lanes k equal (NTT(a)_k) G; each
+    call counted (a stage launch a stage, a scale launch for the coset
+    shift and for the inverse's n^-1 and unscale), the forwards and the
+    inverses timed on the host clock, a bn254 forward profiled."""
+    from icicle_tpu_torch import NTTConfig, NTTDir, ecntt, get_group
+    from icicle_tpu_torch.ops.ecntt import _scale_rows, _stage_rows
+
+    out = {}
+    zero = dict.fromkeys(kernel_counters(), 0)
+    for cname, logn, samples, inverse in EC1_PATHS:
+        g = get_group(cname)
+        n = 1 << logn
+        P, logs = ecntt_points(g, n, dev)
+        label = f"ecntt {cname} 2^{logn} fwd"
+        y = counted(label, lambda: ecntt(cname, P, NTTDir.FORWARD), launches)
+        if launches[label] != dict(zero, ecntt_stage=logn):
+            raise AssertionError(f"{label}: launched {launches[label]}, expected {logn} stages")
+        lanes = _ecntt_oracle(g, y, logs, None, samples, label)
+        fwd_ms, _ = host_ms(lambda: ecntt(cname, P, NTTDir.FORWARD), reps=3)
+        row = {"curve": cname, "logn": logn, "forward_ms": fwd_ms, "oracle_lanes": len(lanes),
+               "forward_bound_ms": ecntt_transform_bound(
+                   g, logn, _stage_rows(cname, logn, False, True, dev), [])}
+        log(f"  {label}: {logn} ecntt_stage launches, {len(lanes)} sampled lanes == NTT(a)_k G; "
+            f"forward {fwd_ms:.2f} ms (bound {row['forward_bound_ms']:.3f} ms) [{smi}]")
+        cfg = NTTConfig()
+        if cname == "bn254":
+            cfg = NTTConfig(coset_gen=ECNTT_COSET)
+            clabel = f"ecntt {cname} 2^{logn} fwd coset {ECNTT_COSET}"
+            y = counted(clabel, lambda: ecntt(cname, P, NTTDir.FORWARD, cfg), launches)
+            if launches[clabel] != dict(zero, ecntt_stage=logn, ecntt_scale=1):
+                raise AssertionError(f"{clabel}: launched {launches[clabel]}")
+            _ecntt_oracle(g, y, logs, ECNTT_COSET, samples, clabel)
+            _, row["profile"] = device_profile(label, lambda: ecntt(cname, P, NTTDir.FORWARD),
+                                               smi)
+            if row["profile"]["launch_calls"] < logn:
+                raise AssertionError(f"{label}: the profile saw {row['profile']['launch_calls']} "
+                                     "launch calls")
+        if inverse:
+            ilabel = (f"ecntt {cname} 2^{logn} inv" +
+                      (f" coset {cfg.coset_gen}" if cfg.coset_gen else ""))
+            back = counted(ilabel, lambda: ecntt(cname, y, NTTDir.INVERSE, cfg), launches)
+            if launches[ilabel] != dict(zero, ecntt_stage=logn, ecntt_scale=1):
+                raise AssertionError(f"{ilabel}: launched {launches[ilabel]}")
+            if not _equals_input(g, back, P):
+                raise AssertionError(f"{ilabel}: inverse(forward(P)) != P as affine points")
+            inv_ms, _ = host_ms(lambda: ecntt(cname, y, NTTDir.INVERSE, cfg), reps=3)
+            row.update(inverse_ms=inv_ms, inverse_coset=cfg.coset_gen,
+                       inverse_bound_ms=ecntt_transform_bound(
+                           g, logn, _stage_rows(cname, logn, True, True, dev),
+                           [_scale_rows(cname, n, cfg.coset_gen, True, dev)]))
+            log(f"  {ilabel}: {logn} stages + 1 scale, every point back as an affine point; "
+                f"inverse {inv_ms:.2f} ms (bound {row['inverse_bound_ms']:.3f} ms) [{smi}]")
+            del back
+        out[label] = row
+        del P, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def zq_elements(shape: tuple, gen, dev) -> torch.Tensor:
+    """Random canonical Z_q elements as (*shape, 2) int32 limbs on the card,
+    the first row 0 and the second q - 1."""
+    from icicle_tpu_torch.rings.babykoala import Q
+    v = torch.randint(0, Q, shape, generator=gen, device=dev, dtype=torch.int64)
+    v[0], v[1] = 0, Q - 1
+    return torch.stack([(v & 0xFFFFFFFF).to(torch.int32), (v >> 32).to(torch.int32)], -1)
+
+
+def rq_ntt_bound(polys: int) -> tuple[float, str]:
+    """rq_ntt's least time: each polynomial's 64 words of 8 bytes read and
+    written once, against its 256 Montgomery multiplies of 11 32-bit
+    products."""
+    from icicle_tpu_torch.kernels.rq_ntt_kernel import MONT64_MULS, POLY_MONTS
+    return bound(polys * 64 * 8 * 2, polys * POLY_MONTS * MONT64_MULS)
+
+
+MLKEM_MULS = {"ntt": 7 * 128, "intt": 7 * 128 + 256, "multiply_ntts": 5 * 128}
+
+
+def mlkem_bound(op: str, polys: int) -> tuple[float, str]:
+    """The ring op's least time: its polynomials of 256 int32 read (two for
+    the product) and one written, against its multiplies (a butterfly's
+    one, the inverse's scale, a pair's five)."""
+    reads = 2 if op == "multiply_ntts" else 1
+    return bound(polys * 256 * 4 * (reads + 1), polys * MLKEM_MULS[op])
+
+
+def sponge_bound(batch: int, in_bytes: int, rate: int, out_bytes: int,
+                 clock_mhz: float) -> tuple[float, str]:
+    """The messages read and the digests written once, against the
+    permutations' logic and shift instructions on the ALU pipe."""
+    from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS, sponge_blocks
+    absorb, squeeze = sponge_blocks(in_bytes, rate, out_bytes)
+    byte_ms = batch * (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    op_ms = batch * (absorb + squeeze - 1) * PERMUTATION_OPS / alu_ops_per_s(clock_mhz) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def check_lattice_pqc_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
+    """Each kernel against its plain version on the card, bit-exact, at
+    the shapes the paths give it, then timed alone there: rq_ntt forward
+    and inverse over L1's 2^16 polynomials (rows of 0 and q - 1), the
+    three mlkem ops at ML-KEM-768 2^16 (MLKEM_POLYS; rows of 0 and 3328)
+    and icicle_keccak_sponge for every (length, rate, pad, output) ML-KEM
+    calls at Q1's batch for it, and a long squeeze (SPONGE_CHECKS), row 0
+    also held to hashlib."""
+    from icicle_tpu_torch.kernels import keccak_kernel as KK
+    from icicle_tpu_torch.kernels import mlkem_kernel as MK
+    from icicle_tpu_torch.kernels import rq_ntt_kernel as RK
+    from icicle_tpu_torch import NTTDir
+
+    rows = {"rq_ntt": [], "mlkem": [], "keccak_sponge": []}
+    x = zq_elements((1 << RQ_POLYS_LOG, 64), gen, dev)
+    for d in (NTTDir.FORWARD, NTTDir.INVERSE):
+        row = check_against_plain(f"rq_ntt {d.value}", RK.rq_ntt, RK.rq_ntt_ref, (x, d),
+                                  rq_ntt_bound(x.shape[0]))
+        rows["rq_ntt"].append(dict(row, dir=d.value, polys=x.shape[0]))
+        log(f"  rq_ntt {d.value} 2^{RQ_POLYS_LOG} polynomials: exact; kernel "
+            f"{row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+    del x
+
+    for op, fn, ref in (("ntt", MK.mlkem_ntt, MK.ntt_ref), ("intt", MK.mlkem_intt, MK.intt_ref),
+                        ("multiply_ntts", MK.mlkem_multiply_ntts, MK.multiply_ntts_ref)):
+        polys = MLKEM_POLYS[op]
+        args = tuple(torch.randint(0, MK.Q, (polys, 256), generator=gen, device=dev,
+                                   dtype=torch.int32)
+                     for _ in range(2 if op == "multiply_ntts" else 1))
+        args[0][0], args[0][1], args[-1][2] = 0, MK.Q - 1, MK.Q - 1
+        row = check_against_plain(f"mlkem {op}", fn, ref, args, mlkem_bound(op, polys))
+        rows["mlkem"].append(dict(row, op=op, polys=polys))
+        log(f"  mlkem {op} {polys} polynomials: exact; kernel {row['kernel_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.2f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+            f"[{smi}]")
+        del args
+
+    for role, log_batch, nbytes, rate, pad, outb in SPONGE_CHECKS:
+        data = torch.randint(0, 256, (1 << log_batch, nbytes), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        row = check_against_plain(f"keccak_sponge {role}", KK.keccak_sponge, KK.keccak_sponge_ref,
+                                  (data, rate, pad, outb),
+                                  sponge_bound(1 << log_batch, nbytes, rate, outb, clock_mhz))
+        hl = {72: hashlib.sha3_512, 136: hashlib.sha3_256 if pad == 0x06 else hashlib.shake_256,
+              168: hashlib.shake_128}[rate]
+        row0 = bytes(data[0].cpu().numpy())
+        digest = hl(row0).digest(outb) if pad == 0x1F else hl(row0).digest()
+        if bytes(KK.keccak_sponge(data[:1], rate, pad, outb)[0].cpu().numpy()) != digest:
+            raise AssertionError(f"keccak_sponge {role}: row 0 != hashlib")
+        rows["keccak_sponge"].append(dict(row, role=role, batch=1 << log_batch, in_bytes=nbytes,
+                                          rate=rate, pad=pad, out_bytes=outb))
+        log(f"  keccak_sponge {role}: {nbytes} -> {outb} bytes, batch 2^{log_batch}: exact, row 0 "
+            f"== hashlib; kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+        del data
+    return rows
+
+
+def lattice_paths(dev, gen, smi: str, launches: dict) -> dict:
+    """L1: the rings and lattice ops on CUDA tensors. ntt_rns at 2^24
+    (forward, inverse: 2 dif_rows a plane a direction, the forward equal to
+    _ntt_torch on each plane, the inverse giving the input back);
+    negacyclic_ntt over 2^16 R_q polynomials (one rq_ntt a direction, the
+    round trip exact, the forward equal to the plain version); rq_matmul of
+    (64 x 256) by (256 x 64) R_q matrices (3 rq_ntt), equal to the plain
+    version; decompose_balanced / recompose_balanced of 2^22 elements at
+    base 2^16 (round trip exact, digits balanced), a JL projection of them
+    to JL_ROWS rows (two rows held to a numpy sum on the host) and the
+    norm checks (against an exact host sum). Host-clock ms each."""
+    from icicle_tpu_torch import NTTConfig, NTTDir
+    from icicle_tpu_torch.kernels.rq_ntt_kernel import rq_ntt_ref
+    from icicle_tpu_torch.ops import lattice as LT
+    from icicle_tpu_torch.ops.mat_ops import rq_matmul
+    from icicle_tpu_torch.ops.ntt import _ntt_torch, _rns_plane_fields, ntt_rns
+    from icicle_tpu_torch.rings.babykoala import P_BB, P_KB, Q
+    from icicle_tpu_torch.rings.rq import NegacyclicNTTConfig, negacyclic_ntt
+
+    out = {}
+    zero = dict.fromkeys(kernel_counters(), 0)
+    n = 1 << RNS_LOG
+    x = torch.stack([torch.randint(0, p, (n,), generator=gen, device=dev, dtype=torch.int32)
+                     for p in (P_BB, P_KB)], -1)
+    y, z = counted(RNS_MAIN, lambda: (lambda y: (y, ntt_rns(y, NTTDir.INVERSE)))(ntt_rns(x)),
+                   launches)
+    if launches[RNS_MAIN] != dict(zero, dif_rows=8):
+        raise AssertionError(f"{RNS_MAIN}: launched {launches[RNS_MAIN]}, expected 8 dif_rows")
+    for i, f in enumerate(_rns_plane_fields()):
+        if not torch.equal(y[..., i], _ntt_torch(f, x[..., i].contiguous(), NTTDir.FORWARD,
+                                                 NTTConfig())):
+            raise AssertionError(f"{RNS_MAIN}: plane {f.name} != _ntt_torch")
+    if not torch.equal(z, x):
+        raise AssertionError(f"{RNS_MAIN}: inverse(forward(x)) != x")
+    fwd_ms, _ = host_ms(lambda: ntt_rns(x))
+    inv_ms, _ = host_ms(lambda: ntt_rns(y, NTTDir.INVERSE))
+    out[RNS_MAIN] = {"forward_ms": fwd_ms, "inverse_ms": inv_ms}
+    log(f"  {RNS_MAIN}: 8 dif_rows, each plane == _ntt_torch, round trip exact; forward "
+        f"{fwd_ms:.3f} ms, inverse {inv_ms:.3f} ms [{smi}]")
+    del x, y, z
+
+    v = zq_elements((1 << RQ_POLYS_LOG, 64), gen, dev)
+    e, back = counted(RQ_MAIN, lambda: (lambda e: (e, negacyclic_ntt(e, NTTDir.INVERSE)))(
+        negacyclic_ntt(v)), launches)
+    if launches[RQ_MAIN] != dict(zero, rq_ntt=2):
+        raise AssertionError(f"{RQ_MAIN}: launched {launches[RQ_MAIN]}, expected 2 rq_ntt")
+    if not torch.equal(back, v) or not torch.equal(e, rq_ntt_ref(v, NTTDir.FORWARD)):
+        raise AssertionError(f"{RQ_MAIN}: round trip or forward != the plain version")
+    fwd_ms, _ = host_ms(lambda: negacyclic_ntt(v))
+    inv_ms, _ = host_ms(lambda: negacyclic_ntt(e, NTTDir.INVERSE))
+    plain_ms, _ = host_ms(lambda: rq_ntt_ref(v, NTTDir.FORWARD), reps=1)
+    out[RQ_MAIN] = {"forward_ms": fwd_ms, "inverse_ms": inv_ms, "plain_forward_ms": plain_ms}
+    log(f"  {RQ_MAIN}: 2 rq_ntt, round trip exact, forward == plain; forward {fwd_ms:.3f} ms, "
+        f"inverse {inv_ms:.3f} ms (plain forward {plain_ms:.1f} ms) [{smi}]")
+    del v, e, back
+
+    nm, mm, km = RQ_MATMUL
+    a = zq_elements((nm, mm, 64), gen, dev)
+    b = zq_elements((mm, km, 64), gen, dev)
+    c = counted(RQ_MATMUL_MAIN, lambda: rq_matmul(a, b), launches)
+    if launches[RQ_MATMUL_MAIN] != dict(zero, rq_ntt=3):
+        raise AssertionError(f"{RQ_MATMUL_MAIN}: launched {launches[RQ_MATMUL_MAIN]}")
+    if not torch.equal(c, rq_matmul(a, b, NegacyclicNTTConfig(backend="torch"))):
+        raise AssertionError(f"{RQ_MATMUL_MAIN}: != the plain version")
+    ms, _ = host_ms(lambda: rq_matmul(a, b), reps=3)
+    out[RQ_MATMUL_MAIN] = {"ms": ms}
+    log(f"  {RQ_MATMUL_MAIN}: 3 rq_ntt, == the plain version; {ms:.1f} ms [{smi}]")
+    del a, b, c
+    torch.cuda.empty_cache()
+
+    m = 1 << LATTICE_LOG
+    w = zq_elements((m,), gen, dev)
+    label = f"decompose_balanced / recompose_balanced 2^{LATTICE_LOG} base 2^16"
+    digits = counted(label, lambda: LT.decompose_balanced(w, LATTICE_BASE), launches)
+    nd = LT.compute_nof_digits(LATTICE_BASE)
+    dv = LT._to_i64(digits)
+    if digits.shape != (nd * m, 2) or bool((torch.minimum(dv, Q - dv) > LATTICE_BASE // 2).any()):
+        raise AssertionError(f"{label}: digits not balanced")
+    if not torch.equal(LT.recompose_balanced(digits, LATTICE_BASE, m), w):
+        raise AssertionError(f"{label}: recompose(decompose(w)) != w")
+    dec_ms, _ = host_ms(lambda: LT.decompose_balanced(w, LATTICE_BASE), reps=3)
+    rec_ms, _ = host_ms(lambda: LT.recompose_balanced(digits, LATTICE_BASE, m), reps=3)
+    seed = b"icicle-lattice-L1"
+    t0 = time.perf_counter()
+    proj = LT.jl_projection(w, seed, JL_ROWS)
+    torch.cuda.synchronize()
+    jl_ms = (time.perf_counter() - t0) * 1e3
+    vals = LT._to_i64(w).cpu().numpy()
+    pieces = [(vals >> (21 * k)) & ((1 << 21) - 1) for k in range(3)]
+    for r in (0, JL_ROWS - 1):
+        e = LT._jl_entries(seed, r, 1, m)[0]
+        total = sum((int(p[e == 1].sum()) - int(p[e == 2].sum())) << (21 * k)
+                    for k, p in enumerate(pieces))
+        if int(LT._to_i64(proj[r])) != total % Q:
+            raise AssertionError(f"JL projection row {r} != the host's sum")
+    small = torch.randint(-NORM_MAX, NORM_MAX + 1, (m,), generator=gen, device=dev,
+                          dtype=torch.int64)
+    sq = int((small.cpu().numpy().astype(np.int64) ** 2).sum())
+    linf = int(small.abs().max())
+    sv = LT._from_i64(torch.where(small < 0, small + Q, small))
+    t0 = time.perf_counter()
+    checks = [LT.check_norm_bound(sv, LT.NormType.L2, math.isqrt(sq) + 1),
+              not LT.check_norm_bound(sv, LT.NormType.L2, math.isqrt(sq)),
+              LT.check_norm_bound(sv, LT.NormType.LInfinity, linf + 1),
+              not LT.check_norm_bound(sv, LT.NormType.LInfinity, linf)]
+    norm_ms = (time.perf_counter() - t0) * 1e3 / 4
+    if not all(checks):
+        raise AssertionError(f"norm checks at 2^{LATTICE_LOG}: {checks}")
+    out[label] = {"digits": nd, "decompose_ms": dec_ms, "recompose_ms": rec_ms,
+                  "jl_rows": JL_ROWS, "jl_projection_ms": jl_ms, "norm_check_ms": norm_ms}
+    log(f"  {label}: {nd} digits, balanced, round trip exact; decompose {dec_ms:.2f} ms, "
+        f"recompose {rec_ms:.2f} ms; JL projection to {JL_ROWS} rows {jl_ms:.0f} ms (host "
+        f"Keccak-512 seed expansion), two rows == the host's sum; L2 and L-inf norm checks at "
+        f"their bounds, {norm_ms:.2f} ms each [{smi}]")
+    return out
+
+
+def mlkem_expected(op: str, k: int) -> dict:
+    """Kernel launches of one batched ML-KEM op at module rank k: sponges
+    (G, H, J, the PRFs, the k^2 matrix XOFs) and ring ops."""
+    enc = {"keccak_sponge": k * k + 2 * k + 1, "mlkem_ntt": 1, "mlkem_multiply_ntts": 2,
+           "mlkem_intt": 2}
+    if op == "keygen":
+        return {"keccak_sponge": k * k + 2 * k + 2, "mlkem_ntt": 2, "mlkem_multiply_ntts": 1}
+    if op == "encaps":
+        return dict(enc, keccak_sponge=enc["keccak_sponge"] + 2)
+    return {"keccak_sponge": enc["keccak_sponge"] + 2, "mlkem_ntt": 2, "mlkem_multiply_ntts": 3,
+            "mlkem_intt": 3}
+
+
+def ml_kem_paths(dev, smi: str, launches: dict) -> dict:
+    """Q1: batched ML-KEM on CUDA tensors: ML-KEM-768 at a batch of 2^16,
+    ML-KEM-512 and ML-KEM-1024 at 2^12. keygen, encaps and decaps each
+    counted (mlkem_expected); every decapsulated secret equals the
+    encapsulated one; a batch with one bit of every ciphertext flipped
+    decapsulates to the implicit-rejection secret; MLKEM_SAMPLES items of
+    each step equal the host oracle (ops/pqc/ml_kem.py, hashlib) byte for
+    byte; host-clock ms an operation batch, per operation and operations/s."""
+    from icicle_tpu_torch.ops.pqc import ml_kem as H
+    from icicle_tpu_torch.ops.pqc import ml_kem_tpu as D
+
+    out = {}
+    zero = dict.fromkeys(kernel_counters(), 0)
+    for cat, log_b in MLKEM_CASES:
+        B = 1 << log_b
+        k = H.PARAMS[cat].k
+        rng = np.random.default_rng(int(cat))
+        ent = torch.from_numpy(rng.integers(0, 256, (B, 64), dtype=np.uint8)).to(dev)
+        msg = torch.from_numpy(rng.integers(0, 256, (B, 32), dtype=np.uint8)).to(dev)
+        base = f"ml-kem-{cat} 2^{log_b}"
+        ek, dk = counted(f"{base} keygen", lambda: D.keygen(cat, ent), launches)
+        c, K = counted(f"{base} encaps", lambda: D.encaps(cat, msg, ek), launches)
+        K2 = counted(f"{base} decaps", lambda: D.decaps(cat, c, dk), launches)
+        for op in ("keygen", "encaps", "decaps"):
+            if launches[f"{base} {op}"] != dict(zero, **mlkem_expected(op, k)):
+                raise AssertionError(f"{base} {op}: launched {launches[f'{base} {op}']}")
+        if not torch.equal(K2, K):
+            raise AssertionError(f"{base}: a decapsulated secret != the encapsulated one")
+        bad = c.clone()
+        bad[:, 0] ^= 1
+        Kb = D.decaps(cat, bad, dk)
+        if bool((Kb == K).all(1).any()):
+            raise AssertionError(f"{base}: a tampered ciphertext gave the true secret")
+        idx = torch.arange(MLKEM_SAMPLES, device=dev) * (B // MLKEM_SAMPLES)
+        host = lambda t: t.index_select(0, idx).cpu().numpy()
+        ekh, dkh = H.keygen(cat, host(ent))
+        ch, Kh = H.encaps(cat, host(msg), ekh)
+        for what, got, want in (("ek", ek, ekh), ("dk", dk, dkh), ("c", c, ch), ("K", K, Kh),
+                                ("decaps K", K2, H.decaps(cat, ch, dkh)),
+                                ("rejection K", Kb, H.decaps(cat, host(bad), dkh))):
+            if not np.array_equal(host(got), want):
+                raise AssertionError(f"{base}: {what} != the host oracle on sampled items")
+        row = {"batch": B}
+        for op, fn in (("keygen", lambda: D.keygen(cat, ent)),
+                       ("encaps", lambda: D.encaps(cat, msg, ek)),
+                       ("decaps", lambda: D.decaps(cat, c, dk))):
+            ms, _ = host_ms(fn, reps=3)
+            row[op] = {"ms": ms, "us_per_op": ms * 1e3 / B, "ops_per_s": B / (ms * 1e-3)}
+        out[base] = row
+        log(f"  {base}: launches as expected, every secret decapsulated, tampered ciphertexts "
+            f"rejected, {MLKEM_SAMPLES} items == the host oracle; " + ", ".join(
+                f"{op} {row[op]['ms']:.2f} ms ({row[op]['ops_per_s']:.4g}/s)"
+                for op in ("keygen", "encaps", "decaps")) + f" [{smi}]")
+        del ent, msg, ek, dk, c, K, K2, bad, Kb
+        torch.cuda.empty_cache()
+    return out
+
+
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
@@ -3195,6 +3814,14 @@ def main() -> None:
     log("== kernels: poseidon, blake2s, blake3 against their plain versions on the card")
     hash_rows = check_hash_kernels(dev, gen, smi, sm_clock_mhz)
     phase_done("kernels: poseidon, blake2s, blake3")
+    log("== kernels: ecntt_stage and ecntt_scale at 8, 12 and 24 limbs, GLV and plain ladders, "
+        "against their plain versions on the card at EC1's shapes")
+    ecntt_rows = check_ecntt_kernels(dev, smi)
+    phase_done("kernels: ecntt")
+    log("== kernels: rq_ntt, mlkem (ntt, intt, multiply_ntts), keccak_sponge against their plain "
+        "versions on the card at L1's and Q1's shapes")
+    lp_rows = check_lattice_pqc_kernels(dev, gen, smi, sm_clock_mhz)
+    phase_done("kernels: rq_ntt, mlkem, keccak_sponge")
 
     # -- 4. NTT main path -----------------------------------------------------
     log("== main path: icicle_tpu_torch.ntt on CUDA tensors")
@@ -3291,6 +3918,18 @@ def main() -> None:
         "Blake3 over long messages, FRI over Blake3 -- on CUDA tensors")
     hashes = hash_paths(dev, gen, smi, launches, sm_clock_mhz)
     phase_done("main path: hashes (P1-P4)")
+    log("== main paths: the ECNTT (EC1: bn254 2^16, bls12_381 2^13, bw6_761 2^8) on CUDA "
+        "tensors")
+    ec1 = ecntt_paths(dev, smi, launches)
+    phase_done("main path: ecntt (EC1)")
+    log("== main paths: the babykoala rings and the lattice ops (L1: ntt_rns 2^24, "
+        "negacyclic_ntt, rq_matmul, decomposition, JL projection, norms) on CUDA tensors")
+    l1 = lattice_paths(dev, gen, smi, launches)
+    phase_done("main path: rings and lattice (L1)")
+    log("== main paths: batched ML-KEM (Q1: ML-KEM-768 at 2^16, ML-KEM-512 and -1024 at 2^12) "
+        "on CUDA tensors")
+    q1 = ml_kem_paths(dev, smi, launches)
+    phase_done("main path: ML-KEM (Q1)")
     log("seconds a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 7. main paths line ---------------------------------------------------
@@ -3299,7 +3938,8 @@ def main() -> None:
                                      "merkle": merkle, "fri": fri,
                                      "sumcheck": sumcheck, "ntt_limb_fields": wide_ntt,
                                      "merkle_goldilocks": gl_merkle, "polynomials": polys,
-                                     "hashes": hashes, "launches": launches, "phase_s": phase_s,
+                                     "hashes": hashes, "ecntt": ec1, "lattice": l1,
+                                     "ml_kem": q1, "launches": launches, "phase_s": phase_s,
                                      "card": smi}}))
 
     # -- 8. kernels line ------------------------------------------------------
@@ -3608,6 +4248,71 @@ def main() -> None:
                          p3_bound_ms=p3["bound_ms"],
                          p3_chunk_pass_bound_ms=p3["chunk_pass_bound_ms"])
         entries.append(entry)
+    # the ECNTT kernel (ecntt_stage and ecntt_scale, one source, a library a
+    # limb count): ms, plain_ms and bound_ms one launch of EC1's widest
+    # ladder stage (bn254 2^16, 2^15 lanes, GLV), from its check
+    stage = next(r for r in ecntt_rows if r["curve"] == "bn254" and r["glv"]
+                 and r["entry"] == "stage")
+    scale = next(r for r in ecntt_rows if r["curve"] == "bn254" and r["entry"] == "scale")
+    entries.append({
+        "name": "ecntt", "route": "cuda", "source": "icicle_tpu_torch/kernels/csrc/ecntt.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/ecntt.py:35 scalar_mul_vec_glv, :87 "
+                    "scalar_mul_vec, :220 _ecntt_core",
+        "launches": launches[EC1_MAIN]["ecntt_stage"] + launches[EC1_MAIN]["ecntt_scale"],
+        "headline_path": EC1_MAIN,
+        "launches_per_path": {p: c["ecntt_stage"] + c["ecntt_scale"] for p, c in launches.items()
+                              if c["ecntt_stage"] + c["ecntt_scale"]},
+        "max_abs_err": max(r["max_abs_diff"] for r in ecntt_rows),
+        "ms": stage["kernel_ms"], "plain_ms": stage["plain_ms"],
+        "bound_ms": stage["bound_ms"], "bound_by": stage["bound_by"],
+        "library_ms": None,  # no PyTorch call computes an elliptic-curve scalar ladder
+        "shape": [stage["lanes"], stage["digit_rows"]], "scale_ms": scale["kernel_ms"],
+        "scale_plain_ms": scale["plain_ms"], "scale_bound_ms": scale["bound_ms"],
+        "shapes": ecntt_rows, "card": smi})
+    # rq_ntt: one forward launch over L1's 2^16 polynomials, from its check
+    rq = next(r for r in lp_rows["rq_ntt"] if r["dir"] == "forward")
+    entries.append({
+        "name": "rq_ntt", "route": "cuda", "source": "icicle_tpu_torch/kernels/csrc/rq_ntt.cu",
+        "replaces": "none (XLA): icicle_tpu/rings/rq.py:33 negacyclic_ntt",
+        "launches": launches[RQ_MAIN]["rq_ntt"], "headline_path": RQ_MAIN,
+        "launches_per_path": per_path("rq_ntt"),
+        "max_abs_err": max(r["max_abs_diff"] for r in lp_rows["rq_ntt"]),
+        "ms": rq["kernel_ms"], "plain_ms": rq["plain_ms"],
+        "bound_ms": rq["bound_ms"], "bound_by": rq["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a modular NTT
+        "shape": [rq["polys"], 64], "shapes": lp_rows["rq_ntt"], "card": smi})
+    # mlkem: one ntt launch over ML-KEM-768's 2^16 x 3 polynomials, from its
+    # check; the other ops in "shapes"
+    ops = {r["op"]: r for r in lp_rows["mlkem"]}
+    enc = f"{MLKEM_MAIN} encaps"
+    mk_names = ("mlkem_ntt", "mlkem_intt", "mlkem_multiply_ntts")
+    entries.append({
+        "name": "mlkem", "route": "cuda", "source": "icicle_tpu_torch/kernels/csrc/mlkem.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/pqc/ml_kem_tpu.py:141 ntt, :153 intt, "
+                    ":165 multiply_ntts",
+        "launches": sum(launches[enc][k] for k in mk_names), "headline_path": enc,
+        "launches_per_path": {p: {k: c[k] for k in mk_names} for p, c in launches.items()
+                              if any(c[k] for k in mk_names)},
+        "max_abs_err": max(r["max_abs_diff"] for r in lp_rows["mlkem"]),
+        "ms": ops["ntt"]["kernel_ms"], "plain_ms": ops["ntt"]["plain_ms"],
+        "bound_ms": ops["ntt"]["bound_ms"], "bound_by": ops["ntt"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a Z_3329 NTT
+        "shape": [ops["ntt"]["polys"], 256], "shapes": lp_rows["mlkem"], "card": smi})
+    # keccak_sponge: the SHAKE128 matrix XOF over ML-KEM-768's 2^16
+    # messages, from its check; the other sponges in "shapes"
+    sp = next(r for r in lp_rows["keccak_sponge"] if r["role"] == SPONGE_MAIN)
+    entries.append({
+        "name": "keccak_sponge", "route": "cuda",
+        "source": "icicle_tpu_torch/kernels/csrc/keccak.cu",
+        "replaces": "none (XLA): icicle_tpu/ops/pqc/ml_kem_tpu.py:88 _sponge",
+        "launches": launches[enc]["keccak_sponge"], "headline_path": enc,
+        "launches_per_path": per_path("keccak_sponge"),
+        "max_abs_err": max(r["max_abs_diff"] for r in lp_rows["keccak_sponge"]),
+        "ms": sp["kernel_ms"], "plain_ms": sp["plain_ms"],
+        "bound_ms": sp["bound_ms"], "bound_by": sp["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a Keccak sponge
+        "shape": [sp["batch"], sp["in_bytes"], sp["out_bytes"]],
+        "sm_clock_mhz": sm_clock_mhz, "shapes": lp_rows["keccak_sponge"], "card": smi})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -30,11 +30,17 @@ Poseidon2 hash with the Merkle tree over it, whose hashing runs in one more
 (poseidon2.cu); the Poseidon, Blake2s and Blake3 hashes (poseidon.cu,
 blake2s.cu, blake3.cu); and the protocol layer: the Keccak / SHA-3 hashes
 (keccak.cu), field programs and the vector ops (program.cu), proof of
-work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu).
+work, the sumcheck prover (sumcheck.cu) and the FRI prover (fri_fold.cu);
+the ECNTT over every G1 curve (ecntt.cu, its butterfly stages and scalar
+ladders at 8, 12 and 24 limbs); the babykoala ring Z_q, its RNS form and
+R_q with the negacyclic NTT (rq_ntt.cu), ntt_rns, rq_matmul and the
+lattice ops (ops/lattice.py); and batched ML-KEM (ops/pqc/, with the
+Z_3329 ring ops in mlkem.cu and the SHA-3 / SHAKE sponges in keccak.cu).
 
     fields:   get_field, get_ext_field
     curves:   get_curve, get_group, Projective, Affine
-    ops:      ntt, ntt_jit, ntt_ext, NTTConfig, NTTDir, Ordering, matmul, MatMulConfig,
+    ops:      ntt, ntt_jit, ntt_ext, ntt_rns, ecntt, ecntt_jit, NTTConfig, NTTDir, Ordering,
+              matmul, rq_matmul, MatMulConfig,
               msm, msm_affine, msm_precompute_bases, MSMConfig,
               Poseidon2, Poseidon, Blake2s, Blake3, Keccak256, Keccak512, Sha3_256,
               Sha3_512, HashConfig,
@@ -57,10 +63,11 @@ from icicle_tpu_torch.ops.hash.blake3 import Blake3
 from icicle_tpu_torch.ops.hash.keccak import Keccak256, Keccak512, Sha3_256, Sha3_512
 from icicle_tpu_torch.ops.hash.poseidon import Poseidon
 from icicle_tpu_torch.ops.hash.poseidon2 import Poseidon2
-from icicle_tpu_torch.ops.mat_ops import MatMulConfig, matmul
+from icicle_tpu_torch.ops.ecntt import ecntt, ecntt_jit
+from icicle_tpu_torch.ops.mat_ops import MatMulConfig, matmul, rq_matmul
 from icicle_tpu_torch.ops.merkle import MerkleProof, MerkleTree
 from icicle_tpu_torch.ops.msm import MSMConfig, msm, msm_affine, msm_precompute_bases
-from icicle_tpu_torch.ops.ntt import ntt, ntt_ext, ntt_jit
+from icicle_tpu_torch.ops.ntt import ntt, ntt_ext, ntt_jit, ntt_rns
 from icicle_tpu_torch.ops.pow import proof_of_work, proof_of_work_verify
 from icicle_tpu_torch.ops.program import PreDefined, Program, ReturningValueProgram
 from icicle_tpu_torch.ops.sumcheck import (SumcheckTranscriptConfig, sumcheck_prove,
@@ -73,8 +80,8 @@ from icicle_tpu_torch.runtime.config import (FriConfig, HashConfig, MerkleTreeCo
 from icicle_tpu_torch.runtime.device import set_device
 
 __all__ = ["get_curve", "get_group", "Projective", "Affine", "get_field", "get_ext_field",
-           "ntt", "ntt_jit", "ntt_ext", "NTTConfig", "NTTDir", "Ordering",
-           "matmul", "MatMulConfig", "Polynomial",
+           "ntt", "ntt_jit", "ntt_ext", "ntt_rns", "ecntt", "ecntt_jit", "NTTConfig", "NTTDir",
+           "Ordering", "matmul", "rq_matmul", "MatMulConfig", "Polynomial",
            "msm", "msm_affine", "msm_precompute_bases", "MSMConfig", "Poseidon2", "Poseidon", "Blake2s", "Blake3", "Keccak256",
            "Keccak512", "Sha3_256", "Sha3_512", "HashConfig", "MerkleTree", "MerkleProof", "MerkleTreeConfig",
            "Program", "ReturningValueProgram", "PreDefined", "execute_program",

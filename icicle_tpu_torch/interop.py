@@ -8,7 +8,10 @@ limbs, where a word >= 2^31 reads as negative in int32.
 `.view(np.int32)` and back is exact both ways. Extension elements are flat
 (..., D * B) words, the D components one after the other (fields/
 extension.py), and G2 affine points over Fp2 are x.c0, x.c1, y.c0, y.c1
-of L limbs each. These functions take numpy
+of L limbs each; projective G1 points (the ECNTT's) three (..., L) limb
+arrays x, y, z in Montgomery form; babykoala Z_q elements (..., 2) words,
+direct [lo, hi] or RNS residues, R_q polynomials (..., 64, 2). These
+functions take numpy
 arrays and give numpy arrays or the port's objects: the port imports nothing of JAX, and a caller that holds
 a jax.Array passes `np.asarray(array)`.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from icicle_tpu_torch.curves.group import get_group
+from icicle_tpu_torch.curves.group import Projective, get_group
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.extension import ExtField
 from icicle_tpu_torch.fields.field import Field
@@ -118,6 +121,49 @@ def g2_affine_to_numpy(curve_name: str, x: torch.Tensor, y: torch.Tensor) -> np.
     `g2_affine_from_numpy`."""
     get_group(curve_name, g2=True)                   # the curve has a G2
     return np.concatenate([x.cpu().numpy(), y.cpu().numpy()], -1).view(np.uint32)
+
+
+def projective_from_numpy(curve_name: str, x_u32, y_u32, z_u32, device=None) -> Projective:
+    """A JAX `Projective` of G1 points (x, y, z: (..., L) uint32 Montgomery-
+    form limbs, each canonical; pass `np.asarray(p.x)` and so on) -> the
+    port's Projective on `device`, the ECNTT's input."""
+    fq = get_curve(curve_name).fq
+    return Projective(*(elements_from_numpy(fq, c, device) for c in (x_u32, y_u32, z_u32)))
+
+
+def projective_to_numpy(p: Projective) -> tuple:
+    """The port's Projective -> (x, y, z) uint32 limb arrays, a JAX
+    `Projective`'s fields."""
+    return tuple(c.cpu().numpy().view(np.uint32) for c in p)
+
+
+def zq_from_numpy(arr_u32, rns: bool = False, device=None) -> torch.Tensor:
+    """The JAX package's babykoala Z_q elements, (..., 2) uint32 -> int32
+    tensor with the same bits: direct limbs [lo, hi] of a value below q, or
+    with `rns` the residues (x mod P_bb, x mod P_kb), each canonical. An
+    R_q batch is the same with a coefficient axis of 64 before the limbs
+    (`rq_from_numpy`)."""
+    from icicle_tpu_torch.rings.babykoala import P_BB, P_KB, get_zq
+    a = np.asarray(arr_u32)
+    if a.dtype != np.uint32 or a.ndim == 0 or a.shape[-1] != 2:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"expected (..., 2) uint32 Z_q words, got {a.dtype} {a.shape}")
+    if rns:
+        if a.size and (int(a[..., 0].max()) >= P_BB or int(a[..., 1].max()) >= P_KB):
+            raise IcicleException(IcicleError.INVALID_ARGUMENT, "RNS residue not canonical")
+        return torch.from_numpy(a.view(np.int32).copy()).to(resolve(device))
+    return elements_from_numpy(get_zq(), a, device)
+
+
+def rq_from_numpy(arr_u32, rns: bool = False, device=None) -> torch.Tensor:
+    """The JAX package's R_q polynomials, (..., 64, 2) uint32 (direct, or
+    RNS with `rns`) -> the port's int32 tensor (`zq_from_numpy`)."""
+    from icicle_tpu_torch.rings.babykoala import RQ_DEGREE
+    a = np.asarray(arr_u32)
+    if a.ndim < 2 or a.shape[-2] != RQ_DEGREE:
+        raise IcicleException(IcicleError.INVALID_ARGUMENT,
+                              f"expected (..., {RQ_DEGREE}, 2) R_q words, got {a.shape}")
+    return zq_from_numpy(a, rns, device)
 
 
 def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:

@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # 12- and 24-limb instances of B3 and B4, and their G2 instances over Fp2
 # (8 and 12 limbs) and precompute_bases' over Fp2, are their sources
 # compiled again with another ICICLE_EC_LIMBS / ICICLE_EC_DEGREE (DEFINES),
-# each in its own nvcc.
+# each in its own nvcc; so are the ECNTT kernel's (ecntt.cu at 8, 12 and 24
+# limbs).
 LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["msm_scan.cu"],
              "msm_scan_l12": ["msm_scan.cu"], "msm_scan_l24": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "ec_reduce_l12": ["ec_reduce.cu"],
@@ -46,7 +47,8 @@ LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["m
              "poseidon": ["poseidon.cu"], "poseidon_limbs": ["poseidon_limbs.cu"],
              "blake2s": ["blake2s.cu"], "blake3": ["blake3.cu"],
              "keccak": ["keccak.cu"], "fri_fold": ["fri_fold.cu"], "sumcheck": ["sumcheck.cu"],
-             "program": ["program.cu"]}
+             "program": ["program.cu"], "ecntt": ["ecntt.cu"], "ecntt_l12": ["ecntt.cu"],
+             "ecntt_l24": ["ecntt.cu"], "rq_ntt": ["rq_ntt.cu"], "mlkem": ["mlkem.cu"]}
 
 # library name -> its extra nvcc flags: the limb count and, for the G2
 # instances over Fp2, the degree (ec_field.cuh)
@@ -54,7 +56,8 @@ DEFINES = {**{f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
               for kernel in ("msm_scan", "ec_reduce") for nl in (12, 24)},
            **{f"{kernel}_fp2{sfx}": [f"-DICICLE_EC_LIMBS={nl}", "-DICICLE_EC_DEGREE=2"]
               for kernel in ("msm_scan", "ec_reduce") for nl, sfx in ((8, ""), (12, "_l12"))},
-           "precompute_bases_fp2": ["-DICICLE_EC_DEGREE=2"]}
+           "precompute_bases_fp2": ["-DICICLE_EC_DEGREE=2"],
+           **{f"ecntt_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"] for nl in (12, 24)}}
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -23,6 +23,20 @@
 // (SHF), chi's a ^ (~b & c) one three-input logic instruction (LOP3) a
 // half; a rotation by 0 is none.
 //
+// A second entry, icicle_keccak_sponge, hashes byte messages with the
+// same permutation (ML-KEM's SHA3-256/512 and SHAKE128/256; replaces no
+// Pallas kernel: the JAX package's sponge is XLA, icicle_tpu/ops/pqc/
+// ml_kem_tpu.py:88 _sponge):
+//   in   (batch, in_bytes) uint8, one message a row, read a byte at a time;
+//   pad  in registers: the pad byte (0x06 SHA-3, 0x1F SHAKE) at byte
+//        in_bytes, 0x80 or-ed into the last byte of block
+//        in_bytes / rate, as `_sponge` pads;
+//   out  (batch, out_bytes) uint8: the first rate bytes of the state, a
+//        permutation between squeezed blocks, as many blocks as out_bytes
+//        takes (SHAKE128 for ML-KEM's matrix entries squeezes nine).
+// One instance a rate (72, 136, 168 bytes: the lane loops unrolled, the
+// state in registers); the pad byte and both lengths are arguments.
+//
 // Bound: operations on the ALU pipe. A permutation needs 4,309 32-bit
 // logic and shift instructions (keccak_kernel.PERMUTATION_OPS, counted
 // from the spec), 1 permutation a row of one block: at the FRI round-0
@@ -129,9 +143,83 @@ cudaError_t launch(const void* in, void* out, long long batch, int in_words, int
   return cudaGetLastError();
 }
 
+// One thread a message of in_bytes bytes; RATE bytes a block (72, 136, 168).
+template <int RATE>
+__global__ void __launch_bounds__(kThreads)
+    sponge_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long batch,
+                  int in_bytes, uint32_t pad, int out_bytes) {
+  constexpr int kLanes = RATE / 8;
+  const long long row = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  if (row >= batch) return;
+  const uint8_t* x = in + row * in_bytes;
+  const int blocks = in_bytes / RATE + 1;
+  const int last = blocks * RATE - 1;
+  uint64_t s[25];
+#pragma unroll
+  for (int w = 0; w < 25; ++w) s[w] = 0;
+  for (int blk = 0; blk < blocks; ++blk) {
+#pragma unroll
+    for (int w = 0; w < kLanes; ++w) {
+      uint64_t lane = 0;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int k = blk * RATE + 8 * w + b;
+        uint32_t v = k < in_bytes ? __ldg(x + k) : 0u;
+        if (k == in_bytes) v |= pad;
+        if (k == last) v |= 0x80u;
+        lane |= static_cast<uint64_t>(v) << (8 * b);
+      }
+      s[w] ^= lane;
+    }
+    keccak_f(s);
+  }
+  uint8_t* o = out + row * out_bytes;
+  for (int base = 0; base < out_bytes; base += RATE) {
+#pragma unroll
+    for (int w = 0; w < kLanes; ++w) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int k = base + 8 * w + b;
+        if (k < out_bytes) o[k] = static_cast<uint8_t>(s[w] >> (8 * b));
+      }
+    }
+    if (base + RATE < out_bytes) keccak_f(s);
+  }
+}
+
+template <int RATE>
+cudaError_t launch_sponge(const void* in, void* out, long long batch, int in_bytes, int pad,
+                          int out_bytes, cudaStream_t s) {
+  const unsigned int blocks = static_cast<unsigned int>((batch + kThreads - 1) / kThreads);
+  sponge_kernel<RATE><<<blocks, kThreads, 0, s>>>(static_cast<const uint8_t*>(in),
+                                                  static_cast<uint8_t*>(out), batch, in_bytes,
+                                                  static_cast<uint32_t>(pad), out_bytes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Hashes `batch` messages of in_bytes bytes each on `stream` without
+// synchronising: the sponge at rate_bytes (72, 136 or 168) with the domain
+// byte `pad` (below 0x80: 0x06 SHA-3, 0x1F SHAKE), squeezed to out_bytes
+// bytes a message. in: device pointer to (batch, in_bytes) uint8; out:
+// (batch, out_bytes) uint8. Returns the launch's cudaError_t (0 on
+// success).
+int icicle_keccak_sponge(const void* in, void* out, long long batch, int in_bytes,
+                         int rate_bytes, int pad, int out_bytes, void* stream) {
+  if (batch < 1 || in_bytes < 0 || out_bytes < 1 || pad <= 0 || pad >= 0x80)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rate_bytes == 72)
+    return static_cast<int>(launch_sponge<72>(in, out, batch, in_bytes, pad, out_bytes, s));
+  if (rate_bytes == 136)
+    return static_cast<int>(launch_sponge<136>(in, out, batch, in_bytes, pad, out_bytes, s));
+  if (rate_bytes == 168)
+    return static_cast<int>(launch_sponge<168>(in, out, batch, in_bytes, pad, out_bytes, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Hashes `batch` rows of in_words words on `stream` without synchronising.
 // rate_bytes: 136 or 72; pad: 0x01 (Keccak) or 0x06 (SHA-3); digest_words:

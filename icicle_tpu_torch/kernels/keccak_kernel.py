@@ -112,16 +112,24 @@ def keccak_ref(h, x: torch.Tensor, padded: bool = False) -> torch.Tensor:
     words = x.to(torch.int64) & MASK
     blocks = (words.view(batch, -1, rate_words) if padded
               else pad_words(words, rate_words, h.pad_byte))
-    tables = _tables(x.device)
-    s = torch.zeros((2, 5, 5, batch), dtype=torch.int64, device=x.device)
+    s, _ = absorb(blocks)
+    flat = s.view(2, 25, batch)[:, :digest_words // 2]                  # (2, dw/2, B)
+    return flat.permute(2, 1, 0).reshape(batch, digest_words).to(torch.int32)
+
+
+def absorb(blocks: torch.Tensor):
+    """(batch, nof_blocks, rate_words) int64 32-bit words, padded -> (the
+    state after absorbing them, a permutation a block; the tables)."""
+    batch, _, rate_words = blocks.shape
+    tables = _tables(blocks.device)
+    s = torch.zeros((2, 5, 5, batch), dtype=torch.int64, device=blocks.device)
     for k in range(blocks.shape[1]):
         blk = blocks[:, k].T                                            # (rate_words, B)
         flat = s.view(2, 25, batch)
         flat[0, :rate_words // 2] ^= blk[0::2]
         flat[1, :rate_words // 2] ^= blk[1::2]
         s = keccak_f(s, tables)
-    flat = s.view(2, 25, batch)[:, :digest_words // 2]                  # (2, dw/2, B)
-    return flat.permute(2, 1, 0).reshape(batch, digest_words).to(torch.int32)
+    return s, tables
 
 
 _ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 5
@@ -169,3 +177,90 @@ def words_of_bytes(data: np.ndarray, rate_bytes: int, pad_byte: int) -> np.ndarr
     buf[:, n] = pad_byte
     buf[:, blocks * rate_bytes - 1] ^= 0x80
     return buf.view("<u4").astype(np.uint32).view(np.int32).reshape(batch, -1)
+
+
+# -- the byte sponge (icicle_keccak_sponge) ---------------------------------------------
+# SHA-3 and SHAKE over B messages of one byte length each (ML-KEM's hashes,
+# ops/pqc/ml_kem_tpu.py): rates 72 (SHA3-512), 136 (SHA3-256, SHAKE256) and
+# 168 (SHAKE128), the pad byte 0x06 (SHA-3) or 0x1F (SHAKE), any output
+# length, squeezed over as many blocks as it takes. No Pallas kernel is
+# replaced: the JAX package's sponge is XLA (icicle_tpu/ops/pqc/
+# ml_kem_tpu.py:88 `_sponge`).
+
+SPONGE_RATES = (72, 136, 168)
+
+
+def _check_sponge(data: torch.Tensor, rate_bytes: int, pad_byte: int, out_bytes: int) -> None:
+    if not isinstance(data, torch.Tensor) or data.device.type not in ("cpu", "cuda"):
+        raise L.invalid("keccak_sponge", "expected a CPU or CUDA tensor")
+    if data.dtype != torch.uint8 or data.dim() != 2 or not data.is_contiguous():
+        raise L.invalid("keccak_sponge", f"expected contiguous (batch, nbytes) uint8, got "
+                        f"{data.dtype} {tuple(data.shape)}")
+    if rate_bytes not in SPONGE_RATES or not 0 < pad_byte < 0x80 or out_bytes < 1:
+        raise L.invalid("keccak_sponge", f"rate {rate_bytes} (one of {SPONGE_RATES}), pad byte "
+                        f"{pad_byte:#x} (below 0x80) and output length {out_bytes} (>= 1)")
+
+
+def sponge_blocks(in_bytes: int, rate_bytes: int, out_bytes: int) -> tuple[int, int]:
+    """(absorbed blocks, squeezed blocks) of one message: the padding always
+    takes a block of its own when the message fills its last one."""
+    return in_bytes // rate_bytes + 1, -(-out_bytes // rate_bytes)
+
+
+def keccak_sponge_ref(data: torch.Tensor, rate_bytes: int, pad_byte: int,
+                      out_bytes: int) -> torch.Tensor:
+    """(batch, nbytes) uint8 -> (batch, out_bytes) uint8 in plain torch on
+    data's device: `keccak_f` run as a sponge, padded and squeezed as the
+    JAX package's `_sponge` (the pad byte after the message, 0x80 or-ed into
+    the last byte of the last block)."""
+    batch, n = data.shape
+    blocks, squeeze = sponge_blocks(n, rate_bytes, out_bytes)
+    buf = torch.zeros((batch, blocks * rate_bytes), dtype=torch.int64, device=data.device)
+    buf[:, :n] = data.to(torch.int64)
+    buf[:, n] |= pad_byte
+    buf[:, -1] |= 0x80
+    q = buf.view(batch, blocks, rate_bytes // 4, 4)
+    rate_words = rate_bytes // 4
+    s, tables = absorb(q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24))
+    outs = []
+    for k in range(squeeze):
+        outs.append(s.view(2, 25, batch)[:, :rate_words // 2].permute(2, 1, 0)
+                    .reshape(batch, rate_words))
+        if k + 1 < squeeze:
+            s = keccak_f(s, tables)
+    w = torch.cat(outs, dim=1)
+    out = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    return out.reshape(batch, -1)[:, :out_bytes].to(torch.uint8).contiguous()
+
+
+_SPONGE_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4
+                    + (ctypes.c_void_p,))
+
+
+def keccak_sponge(data: torch.Tensor, rate_bytes: int, pad_byte: int,
+                  out_bytes: int) -> torch.Tensor:
+    """(batch, nbytes) uint8 messages -> (batch, out_bytes) uint8 digests of
+    the sponge at `rate_bytes` with domain byte `pad_byte`.
+
+    On a CUDA tensor this launches `icicle_keccak_sponge` (K1's library,
+    one thread a message, sharing K1's permutation) on the current stream
+    (no synchronisation), counts the launch in `keccak_sponge.launches` and
+    raises if the launch is refused. On a CPU tensor it computes
+    `keccak_sponge_ref`."""
+    _check_sponge(data, rate_bytes, pad_byte, out_bytes)
+    if not data.is_cuda:
+        return keccak_sponge_ref(data, rate_bytes, pad_byte, out_bytes)
+    batch, n = data.shape
+    out = torch.empty((batch, out_bytes), dtype=torch.uint8, device=data.device)
+    if batch == 0:
+        return out
+    fn, error_string = L.entry(LIBRARY, "icicle_keccak_sponge", _SPONGE_ARGTYPES)
+    with torch.cuda.device(data.device):
+        err = fn(data.data_ptr(), out.data_ptr(), batch, n, rate_bytes, pad_byte, out_bytes,
+                 L.stream())
+    L.raise_on("keccak_sponge", err, error_string)
+    keccak_sponge.launches += 1
+    return out
+
+
+keccak_sponge.launches = 0

@@ -84,13 +84,25 @@ def _normalize(v: torch.Tensor, bits: int, carry_in: int = 0):
             digits.append(d)
         return torch.cat(digits, -1), carry_in
     mask = (1 << bits) - 1
-    weights = 1 << torch.arange(n, dtype=I64, device=v.device)
+    shifts, weights = _positions(n, v.device)
     d = v & mask
     g = ((v >> bits) * weights).sum(-1)
-    x = g | ((d == mask).to(I64) * weights).sum(-1)
+    x = g | ((d == mask) * weights).sum(-1)
     total = x + g + carry_in
-    carries = ((total ^ x ^ g).unsqueeze(-1) >> torch.arange(n, device=v.device)) & 1
+    carries = ((total ^ x ^ g).unsqueeze(-1) >> shifts) & 1
     return (d + carries) & mask, (total >> n) & 1
+
+
+_POSITIONS: dict = {}
+
+
+def _positions(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(0..n-1, their powers of two) as int64 on `device`, made once."""
+    key = (n, device)
+    if key not in _POSITIONS:
+        shifts = torch.arange(n, dtype=I64, device=device)
+        _POSITIONS[key] = (shifts, 1 << shifts)
+    return _POSITIONS[key]
 
 
 def _settle(v: torch.Tensor, bits: int, rounds: int = 2) -> torch.Tensor:
@@ -216,7 +228,10 @@ class BigField:
     def _mul_mont(self, a, b):
         nh = self.nh
         a16, b16 = torch.broadcast_tensors(self._split16(a), self._split16(b))
-        t, _ = _normalize(_settle(F.pad(_product_columns(a16, b16), (0, 1)), 16), 16)
+        # T's columns settled below 2^17, not normalized: their low nh are T
+        # mod R plus a multiple of R, all that m needs, and T + m p is
+        # normalized once below
+        t = _settle(F.pad(_product_columns(a16, b16), (0, 1)), 16)
         m, _ = _normalize(_settle(  # T p' mod R: the top excess drops out
             _product_columns(t[..., :nh], self._pinv16(t.device))[..., :nh], 16), 16)
         s = t + F.pad(_product_columns(m, self._p16(t.device)), (0, 1))

@@ -50,6 +50,9 @@ class FieldParams:
     rou: int | None = None
     nonresidue: int | None = None  # extension-field nonresidue (signed)
     generator: int | None = None   # multiplicative generator, if known
+    # the order 2^k of `rou` where it is not the full 2-power of p - 1 (the
+    # babykoala ring Z_q and its RNS planes, whose rou is the ring's)
+    two_adicity_override: int | None = None
 
     @property
     def bits(self) -> int:
@@ -81,6 +84,8 @@ class FieldParams:
 
     @property
     def two_adicity(self) -> int:
+        if self.two_adicity_override is not None:
+            return self.two_adicity_override
         s, m = 0, self.modulus - 1
         while m % 2 == 0:
             m //= 2

@@ -398,3 +398,35 @@ def ntt_ext(ef, x: torch.Tensor, dir: NTTDir = NTTDir.FORWARD,
 
 dispatcher.register_impl("extension_ntt", dispatcher.TORCH, ntt_ext)
 dispatcher.register_impl("extension_ntt", dispatcher.CUDA, ntt_ext)
+
+
+# ---------------------------------------------------------------------------
+# RNS-ring NTT (reference RING_RNS ntt, backend/cpu/src/field/cpu_ntt.cpp:
+# 45-48): each residue plane of babykoala Z_q transforms with the residue of
+# the RING's root of unity (babykoala.h zq_config::rou) in that plane, so
+# the results CRT-match the direct-domain Z_q NTT.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _rns_plane_fields() -> tuple[Field, Field]:
+    """The two Mont32 plane fields, babykoala_rns_bb and babykoala_rns_kb:
+    babybear's and koalabear's moduli with the ring's root of unity (order
+    2^24) reduced into each."""
+    from icicle_tpu_torch.math.params import FieldParams
+    from icicle_tpu_torch.rings.babykoala import OMEGAS_COUNT, P_BB, P_KB, ROU
+    return tuple(Field(FieldParams(name=name, modulus=p, rou=ROU % p,
+                                   two_adicity_override=OMEGAS_COUNT))
+                 for name, p in (("babykoala_rns_bb", P_BB), ("babykoala_rns_kb", P_KB)))
+
+
+def ntt_rns(x: torch.Tensor, dir: NTTDir = NTTDir.FORWARD,
+            cfg: NTTConfig = _DEFAULT) -> torch.Tensor:
+    """NTT over babykoala Z_q in RNS form (counterpart of the JAX package's
+    ops/ntt.py `ntt_rns`). x: (batch..., n, 2) int32 canonical residues
+    (x mod P_bb, x mod P_kb); each plane goes through `ntt` over its plane
+    field, so a single natural-order vector of 2^16 or more on a CUDA
+    tensor takes `_ntt_cuda`'s two `dif_rows` launches a plane."""
+    f_bb, f_kb = _rns_plane_fields()
+    return torch.stack([ntt(f, x[..., i].contiguous(), dir, cfg)
+                        for i, f in enumerate((f_bb, f_kb))], dim=-1)

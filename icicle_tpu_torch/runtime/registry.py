@@ -12,11 +12,13 @@ Poseidon2 (ops/hash/poseidon2.py, api "poseidon2"), Poseidon
 (the JAX registry's poseidon_factory, blake2s_factory and blake3_factory
 name the classes Poseidon, Blake2s and Blake3), the FRI fold
 (ops/fri.py, api "fri_fold"), the sumcheck round (ops/sumcheck.py, api
-"sumcheck_round") and program execution (ops/vec_ops.py, api
-"execute_program"). The rest of the JAX package's registration points
+"sumcheck_round"), program execution (ops/vec_ops.py, api
+"execute_program"), the ECNTT (ops/ecntt.py, api "ecntt") and the
+negacyclic NTT of R_q (rings/rq.py, api "negacyclic_ntt"). The rest of the JAX package's registration points
 arrive with the slices that port them (ROADMAP.md).
 """
 
+import icicle_tpu_torch.ops.ecntt  # noqa: F401
 import icicle_tpu_torch.ops.fri  # noqa: F401
 import icicle_tpu_torch.ops.hash.blake2s  # noqa: F401
 import icicle_tpu_torch.ops.hash.blake3  # noqa: F401
@@ -27,3 +29,4 @@ import icicle_tpu_torch.ops.msm  # noqa: F401
 import icicle_tpu_torch.ops.ntt  # noqa: F401
 import icicle_tpu_torch.ops.sumcheck  # noqa: F401
 import icicle_tpu_torch.ops.vec_ops  # noqa: F401
+import icicle_tpu_torch.rings.rq  # noqa: F401

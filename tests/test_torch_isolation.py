@@ -33,7 +33,12 @@ def test_import_leaves_no_jax_in_sys_modules():
             "icicle_tpu_torch.ops.merkle, icicle_tpu_torch.kernels.poseidon2_kernel, "
             "icicle_tpu_torch.ops.hash.poseidon, icicle_tpu_torch.kernels.poseidon_kernel, "
             "icicle_tpu_torch.ops.hash.blake2s, icicle_tpu_torch.kernels.blake2s_kernel, "
-            "icicle_tpu_torch.ops.hash.blake3, icicle_tpu_torch.kernels.blake3_kernel\n"
+            "icicle_tpu_torch.ops.hash.blake3, icicle_tpu_torch.kernels.blake3_kernel, "
+            "icicle_tpu_torch.ops.ecntt, icicle_tpu_torch.kernels.ecntt_kernel, "
+            "icicle_tpu_torch.rings.babykoala, icicle_tpu_torch.rings.rq, "
+            "icicle_tpu_torch.kernels.rq_ntt_kernel, icicle_tpu_torch.ops.lattice, "
+            "icicle_tpu_torch.ops.pqc, icicle_tpu_torch.ops.pqc.ml_kem, "
+            "icicle_tpu_torch.ops.pqc.ml_kem_tpu, icicle_tpu_torch.kernels.mlkem_kernel\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'icicle_tpu' or m.startswith('icicle_tpu.'))\n"
             "print(bad)\n")
@@ -92,3 +97,22 @@ def test_set_device_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     device.set_device("cpu")
     assert device.default_device() == torch.device("cpu")
+
+
+def test_slice_entry_points_raise_without_cuda(monkeypatch):
+    """The ECNTT, R_q and ML-KEM entry points create their tensors on the
+    default device: with no CUDA and no set_device("cpu") they raise
+    instead of computing on the CPU."""
+    import numpy as np
+
+    from icicle_tpu_torch.ops import lattice
+    from icicle_tpu_torch.ops.pqc import keygen
+    from icicle_tpu_torch.rings.rq import rq_from_ints
+    monkeypatch.setattr(device, "_device", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(IcicleException, match="no CUDA device"):
+        keygen("512", np.zeros((1, 64), dtype=np.uint8))
+    with pytest.raises(IcicleException, match="no CUDA device"):
+        rq_from_ints([[0] * 64])
+    with pytest.raises(IcicleException, match="no CUDA device"):
+        lattice.random_sampling(4, True, b"seed")
