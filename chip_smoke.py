@@ -5,11 +5,19 @@ CUDA toolkit and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (exit code != 0, no result line):
+Phases, each of which raises on failure (exit code != 0, no result line).
+They run in another order than listed: the build runs in the background
+from the start (one nvcc a library, as many at a time as cores but one,
+EARLY_LIBRARIES first), beside the kernel checks and main paths that need
+no elliptic-curve library
+(dif_rows, dif_rows_wide, poseidon2, the protocol, hash and lattice
+kernels; the NTT, Merkle, FRI, sumcheck, field-layer, hash, L1, Q1 and S6
+paths), each loading its libraries as their compiles end; then the MSM,
+G2 and ECNTT kernel checks and paths, S1-S5 and S7:
   1. card    -- nvidia-smi name and power limit, torch's device name;
   2. build   -- every kernel library from icicle_tpu_torch/kernels/csrc, one
-               nvcc per source, all in parallel, with the compiler's report
-               (registers, stack, spills);
+               nvcc per source, in parallel, with the compiler's report
+               (registers, stack, spills, each compile's seconds);
   3. kernels -- each kernel against its plain torch version on the card,
                bit-exact, at the lane widths the main paths give it: dif_rows
                (NTT; every pass of the 2^26, 2^25, 2^24 and 2^16 NTTs and a
@@ -81,7 +89,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                Montgomery-form points, bitsize 64, and an unshared batch of
                8 x 2^12 (each element on its own points). Each counted: B3
                and B4 at the curve's limb count, precompute_bases where
-               used, nothing else;
+               used, nothing else. Then the slice of B5 over every G1 curve
+               and B6 and B7 at 12 and 24 limbs: M1's and M2's inputs
+               through v2 (B6 + B4) and r12 (B5 + B4), each timed (median
+               of 3 after a warm-up) and profiled; v1 (msm_tpu, B7) over
+               bls12_381 2^20 and bw6_761 2^16 (timed once where the
+               checked call ran past SLOW_CALL_S); M1's bls12_377 2^16
+               distinct points through v2, r12 and v1, grumpkin 2^16
+               distinct points through r12; each counted against its plan
+               (expected_launches over the curve) and held to the oracle.
+               Their kernels are checked in phase 3 after B3/B4 at 12 and
+               24 limbs (slice_rows: each instance at K 64 at its path's
+               lanes, bit-exact with its plain version, then timed at full
+               depth);
   5c. G2 and the extension fields -- B3, B4 and precompute_bases over
                Fp2 (8 and 12 limbs) and over Fq (bw6_761's G2) against
                their plain versions (the kernel phase, after B3/B4 at 12
@@ -175,7 +195,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                equal to (sum of scalars) P, launching the per-shard plan's
                B3 / B4 (expected_launches), ms beside msm_affine (u32) on
                the same inputs; S3: msm_sharded (v1) at 2^20, once, against
-               its oracle, with its B7 launches; S4: merkle_build_sharded
+               its oracle, with its B7 launches, and over bls12_381 at
+               2^16 (B7's 12-limb instance); S4: merkle_build_sharded
                over bench.py's 2^29 leaves, the root equal to phase 6's, 29
                poseidon2 launches, the proofs of leaves 0, 2^28 + 5 and
                2^29 - 1 verifying (on the rank that owns them; also in a
@@ -341,6 +362,7 @@ Keccak-256 word-row kernel (one block's path and the loop around it).
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import hashlib
@@ -350,6 +372,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -361,6 +384,10 @@ MULS_PER_MONT = 3
 REPS = 10
 PROFILE_PAD_S = 1.0  # idle seconds before and after a profiled call, doubled a retry
 PROFILE_TRIES = 3
+# the libraries of the phases that overlap the build, compiled first
+EARLY_LIBRARIES = ("ntt", "ntt_wide", "poseidon2", "poseidon2_limbs", "poseidon2_gl64", "keccak",
+                   "fri_fold", "sumcheck", "program", "poseidon", "poseidon_limbs", "blake2s",
+                   "blake3", "rq_ntt", "mlkem")
 PROFILE_KEPT = 0.99  # share of the launch calls a profile must keep, else retried
 # the CUDA activity alone: it brings the device activities and the host's
 # CUDA runtime calls that start them; the CPU activity's operator events add
@@ -746,7 +773,7 @@ def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
     cname = curve.name
     fq, f = curve.fq, g.coord_field
     nl = g.nlimbs
-    W1 = 12   # windows per B7 launch at the v1 2^20 shape
+    W1 = 12   # windows per B7 launch at the bn254 v1 2^20 shape (option "windows")
 
     pool = pool_points(g)
     pool_x = f.to_mont(f.from_ints([p[0] for p in pool] * 2, dev))
@@ -816,52 +843,58 @@ def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
         flags = fold_flags(d, c) if stream == "random" else v2_flags(d, c, M)
         return curve_affine(d, c), flags
 
-    def sorted_keys(depth: int, lanes: int) -> torch.Tensor:
-        """(W1, depth, lanes) keys: at a cut depth random in [0, 24), sorted
-        along each lane, window 0's lane 0 one run over every slot and its
-        lane 1 a new key at every slot; at full depth as v1 2^20 lays them
-        out (the window's depth * lanes keys in [0, 2048] sorted, lane c
+    def sorted_keys(depth: int, lanes: int, windows: int, v1: int) -> torch.Tensor:
+        """(windows, depth, lanes) keys: at a cut depth (v1 0) random in [0,
+        24), sorted along each lane, window 0's lane 0 one run over every
+        slot and its lane 1 a new key at every slot; else as v1 lays them out
+        with M = v1 (the window's depth * lanes keys in [0, M] sorted, lane c
         holding positions c depth .. (c + 1) depth - 1)."""
-        if depth == 1024:
-            k = torch.randint(0, 2049, (W1, depth * lanes), generator=gen, device=dev)
-            k = k.sort(dim=1).values.view(W1, lanes, depth).transpose(1, 2)
+        if v1:
+            k = torch.randint(0, v1 + 1, (windows, depth * lanes), generator=gen, device=dev)
+            k = k.sort(dim=1).values.view(windows, lanes, depth).transpose(1, 2)
             return k.to(torch.int32).contiguous()
-        k = torch.randint(0, 24, (W1, depth, lanes), generator=gen, device=dev)
+        k = torch.randint(0, 24, (windows, depth, lanes), generator=gen, device=dev)
         k = k.sort(dim=1).values.to(torch.int32)
         k[0, :, 0] = 7
         k[0, :, 1] = torch.arange(depth, device=dev, dtype=torch.int32)
         return k.contiguous()
 
-    def accum_inputs(depth: int, lanes: int):
-        """B7's keys and (W1, depth, 2L, lanes) curve points."""
-        return sorted_keys(depth, lanes), torch.stack([curve_affine(depth, lanes)
-                                                       for _ in range(W1)])
+    def accum_inputs(depth: int, lanes: int, windows: int = W1, v1=None):
+        """B7's keys and (windows, depth, 2L, lanes) curve points; v1's key
+        layout (M 2048) at full depth (1024) unless `v1` gives M, or 0."""
+        keys = sorted_keys(depth, lanes, windows, (2048 if depth == 1024 else 0) if v1 is None
+                           else v1)
+        return keys, torch.stack([curve_affine(depth, lanes) for _ in range(windows)])
 
     def contract(out: torch.Tensor, args) -> torch.Tensor:
         """B7's output at the rows it promises, as (3L, rows)."""
         return out.transpose(2, 3)[TK.contract_rows(args[0])].T.contiguous()
 
     # name -> (kernel, plain version, inputs(depth, lanes, **options),
-    # bound(depth, lanes, inputs), segment plan or None[, the compared part
-    # of an output: view(out, inputs)])
+    # bound(depth, lanes, inputs), segment plan(depth, lanes, inputs)[, the
+    # compared part of an output: view(out, inputs)])
     kernels = {
         "prefix_scan": (TS.prefix_scan, TS.prefix_scan_ref,
                         lambda d, c: (curve_affine(d, c),),
-                        lambda d, c, a: prefix_scan_bound(d, c, g), TS.scan_segments),
+                        lambda d, c, a: prefix_scan_bound(d, c, g),
+                        lambda d, c, a: TS.scan_segments(d, c)),
         "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
                       lambda d, c: (curve_proj(d, c),),
-                      lambda d, c, a: ec_reduce_bound(d, c, g), TR.reduce_segments),
+                      lambda d, c, a: ec_reduce_bound(d, c, g),
+                      lambda d, c, a: TR.reduce_segments(d, c)),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
                             lambda d, c: (r12_affine(d, c),),
-                            lambda d, c, a: prefix_scan_bound(d, c, curve), TS12.r12_segments),
+                            lambda d, c, a: prefix_scan_bound(d, c, curve),
+                            lambda d, c, a: TS12.r12_segments(d, c)),
         "suffix_fold": (TF.suffix_fold, TF.suffix_fold_ref, fold_inputs,
-                        lambda d, c, a: suffix_fold_bound(a[1], curve), TF.fold_segments),
+                        lambda d, c, a: suffix_fold_bound(a[1], curve),
+                        lambda d, c, a: TF.fold_segments(d, c)),
         "bucket_accum": (TK.bucket_accum, TK.bucket_accum_ref, accum_inputs,
                          lambda d, c, a: bucket_accum_bound(a[0], curve),
-                         lambda d, c: TK.accum_segments(d, W1 * c), contract),
+                         lambda d, c, a: TK.accum_segments(d, a[0].shape[0] * c), contract),
     }
     label = f"{cname} G2" if g.g2 else cname
-    input_opts = ("stream", "M")
+    input_opts = ("stream", "M", "windows", "v1")
     rows = {name: [] for name, *_ in (*checks, *full)}
     for name, depth, lanes, role, opts in checks:
         fn, ref, make, bnd, plan, *part = kernels[name]
@@ -886,7 +919,7 @@ def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
                "options": opts, "checked": True, "max_abs_diff": err}
         extra = ""
         if plan is not None:
-            row["segments"] = plan(depth, lanes)
+            row["segments"] = plan(depth, lanes, args)
             extra = f", S {row['segments']}"
             if depth <= SERIAL_DEPTH:
                 # the kernel's association against the serial fold, as points
@@ -915,7 +948,7 @@ def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
                "bound_by": bound_by}
         extra = ""
         if plan is not None:
-            row["segments"] = kw.get("_segments", plan(depth, lanes))
+            row["segments"] = kw.get("_segments", plan(depth, lanes, args))
             extra = f", S {row['segments']}"
         if opts.get("serial"):
             # the plan's split against the serial kernel (the JAX order), as points
@@ -956,17 +989,18 @@ def env(name: str, value: str):
             os.environ[name] = old
 
 
-def expected_launches(route: str, n: int) -> dict:
-    """Each kernel's launches in one MSM of `route` at n points, from the
-    ported plan functions."""
+def expected_launches(route: str, n: int, curve: str = "bn254") -> dict:
+    """Each kernel's launches in one MSM of `route` at n points over
+    `curve`'s G1, from the ported plan functions."""
+    from icicle_tpu_torch import get_curve
     from icicle_tpu_torch.ops import msm_tpu as V1
     from icicle_tpu_torch.ops import msm_tpu2 as V2
     from icicle_tpu_torch.ops import msm_tpu3 as V3
 
     counts = dict.fromkeys(kernel_counters(), 0)
-    nbits = 254
+    nbits = get_curve(curve).fr.modulus.bit_length()
     if route in ("u32", "r12"):
-        plan = V3._resolve_plan("bn254", n, None, None, None, route, 1)
+        plan = V3._resolve_plan(curve, n, None, None, None, route, 1)
         groups = -(-plan["n_windows"] // plan["wg"])
         counts["prefix_scan" if route == "u32" else "prefix_scan_r12"] = groups
         counts["ec_reduce"] = groups + (2 if plan["M"] > 128 else 1)
@@ -977,7 +1011,7 @@ def expected_launches(route: str, n: int) -> dict:
         counts["ec_reduce"] = counts["suffix_fold"] + (2 if tiles > 128 else 1)
     else:
         _, n_windows, _, _ = V1._plan(n, None, nbits, 1024)
-        per_chunk = V1._auto_wchunk(n, n_windows, 8) or n_windows
+        per_chunk = V1._auto_wchunk(n, n_windows, get_curve(curve).fq.nlimbs) or n_windows
         counts["bucket_accum"] = -(-n_windows // per_chunk)
     return counts
 
@@ -985,7 +1019,7 @@ def expected_launches(route: str, n: int) -> dict:
 def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     """The MSM routes on CUDA tensors; records each checked MSM's kernel
     launches in `launches` and returns the measurements."""
-    from icicle_tpu_torch import get_curve, msm_affine
+    from icicle_tpu_torch import get_curve
     from icicle_tpu_torch.curves.host_ec import ec_add, ec_mul
     from icicle_tpu_torch.ops.msm_tpu import msm_tpu
     from icicle_tpu_torch.ops.msm_tpu2 import msm_tpu2
@@ -995,22 +1029,6 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
     fr, fq = curve.fr, curve.fq
     mod = fq.modulus
     gen_pt = (curve.gen_x, curve.gen_y)
-
-    def entry(route: str):
-        """The route's entry point a user calls: (s, px, py) -> affine."""
-        if route == "u32":
-            return lambda s, x, y: msm_affine("bn254", s, x, y)
-        if route == "r12":
-            def run(s, x, y):
-                with env("ICICLE_TPU_MSM_ENGINE", "r12"):
-                    return msm_affine("bn254", s, x, y)
-            return run
-        if route == "v2":
-            def run(s, x, y):
-                with env("ICICLE_TPU_MSM_PIPELINE", "v2"):
-                    return msm_affine("bn254", s, x, y)
-            return run
-        return lambda s, x, y: msm_tpu("bn254", s, x, y)
 
     def timed_call(route: str, s, x, y):
         """The call points/s is measured over: v3 over prepared bases (set-up
@@ -1025,7 +1043,7 @@ def msm_main_paths(dev, smi: str, launches: dict) -> dict:
 
     def run_checked(route, label, n, scal, px, py, want, timed=True):
         s_dev = torch.from_numpy(scal.view(np.int32)).to(dev)
-        got = counted(label, lambda: entry(route)(s_dev, px, py), launches)
+        got = counted(label, lambda: route_entry(route, "bn254")(s_dev, px, py), launches)
         if launches[label] != expected_launches(route, n):
             raise AssertionError(f"{label}: launched {launches[label]}, expected "
                                  f"{expected_launches(route, n)}")
@@ -2408,6 +2426,10 @@ M1_MAIN = f"msm bls12_381 2^{M1_LOG} (repeated point)"
 M1_377_LOG = 16
 M1_377 = f"msm bls12_377 2^{M1_377_LOG} (distinct points)"
 M2_MAIN = f"msm bw6_761 2^{M2_LOG} (repeated point)"
+SLOW_CALL_S = 5.0   # a v1 slice path whose checked call took longer is timed once
+R12_REPLACES = "icicle_tpu/pallas/msm_scan_r12.py:135 (make_prefix_scan_r12)"
+FOLD_REPLACES = "icicle_tpu/pallas/msm_fold2.py:75 (make_suffix_fold)"
+ACCUM_REPLACES = "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)"
 M3_BATCH, M3_LOG, M3_NU, M3_C = 1000, 10, 23, 8
 M3_PROFILED = 100
 M3_BASES = f"msm_precompute_bases bls12_377 2^{M3_LOG} x {M3_NU} (c {M3_C})"
@@ -2505,6 +2527,86 @@ def fixed_base_mul(table: list, k: int, mod: int):
         k >>= 1
         j += 1
     return acc if acc is not INF else (0, 0)
+
+
+# The slice of B5 over every G1 curve and B6 and B7 at 12 and 24 limbs: each
+# curve's paths (log n) by route; bls12_381 at M1's n and bw6_761 at M2's
+R12_LOGS = {"bls12_381": M1_LOG, "bw6_761": M2_LOG, "bls12_377": 16, "grumpkin": 16}
+V2_LOGS = {"bls12_381": M1_LOG, "bw6_761": M2_LOG, "bls12_377": 16}
+V1_LOGS = {"bls12_381": 20, "bw6_761": 16, "bls12_377": 16}
+SLICE_CURVES = ("bls12_381", "bw6_761", "bls12_377", "grumpkin")
+SLICE_CHECKED = {"bls12_381": ("prefix_scan_r12", "suffix_fold", "bucket_accum"),
+                 "bw6_761": ("prefix_scan_r12", "suffix_fold", "bucket_accum"),
+                 "bls12_377": ("prefix_scan_r12",), "grumpkin": ("prefix_scan_r12",)}
+
+
+def slice_label(route: str, cname: str, logn: int) -> str:
+    """A slice path's label: bls12_381 and bw6_761 take one repeated point
+    (M1's and M2's kind of input), bls12_377 and grumpkin distinct points."""
+    kind = "distinct points" if cname in ("bls12_377", "grumpkin") else "repeated point"
+    return f"msm {route} {cname} 2^{logn} ({kind})"
+
+
+def slice_rows(cname: str) -> tuple[list, list]:
+    """check_msm_kernels' rows for the curve's instances of B5, B6 and B7
+    (SLICE_CHECKED) at the lane widths its paths' plans give them: checked
+    at K 64 (the plain side's cut depth; B6 on v2's stream with 16 keys and
+    also on random flags), then timed at the paths' full depth."""
+    from icicle_tpu_torch import get_curve
+    from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
+    from icicle_tpu_torch.ops import msm_tpu as V1
+    from icicle_tpu_torch.ops import msm_tpu2 as V2
+    from icicle_tpu_torch.ops import msm_tpu3 as V3
+
+    curve = get_curve(cname)
+    nl, nbits = curve.fq.nlimbs, curve.fr.modulus.bit_length()
+    kind = f"{nl}-limb {cname}"
+    checks, full = [], []
+    logn = R12_LOGS[cname]
+    p = V3._resolve_plan(cname, 1 << logn, None, None, None, "r12", 1)
+    K, C, groups = p["T"], p["wg"] * p["tiles"], -(-p["n_windows"] // p["wg"])
+    kind5 = f"{kind} (nw {TS12.r12_engine(cname).nw})"
+    checks.append(("prefix_scan_r12", 64, C, f"B5 {kind5}, one r12 2^{logn} window group, "
+                                              f"K cut from {K}", {}))
+    full.append(("prefix_scan_r12", K, C, f"B5 {kind5} at full depth ({groups} per r12 "
+                                          f"2^{logn} MSM)", {}))
+    if "suffix_fold" in SLICE_CHECKED[cname]:
+        logn = V2_LOGS[cname]
+        _, M, T, tiles, W, wg = V2._plan2(1 << logn, None, nbits, None)
+        K, C = T + M, wg * tiles
+        checks += [("suffix_fold", 64, C, f"B6 {kind}, one v2 2^{logn} window group, K cut from "
+                                          f"{K}, v2's stream, M 16", dict(V2_CUT, runs=16)),
+                   ("suffix_fold", 64, C, f"B6 {kind}, K 64, random flags", {"stream": "random"})]
+        full.append(("suffix_fold", K, C, f"B6 {kind} at full depth ({-(-W // wg)} per v2 "
+                                          f"2^{logn} MSM)", {"stream": "v2", "M": M, "runs": M}))
+    if "bucket_accum" in SLICE_CHECKED[cname]:
+        logn = V1_LOGS[cname]
+        c, W, K, C = V1._plan(1 << logn, None, nbits, 1024)
+        chunk = V1._auto_wchunk(1 << logn, W, nl) or W
+        checks.append(("bucket_accum", 64, C, f"B7 {kind}, one v1 2^{logn} chunk of {chunk} "
+                                              f"windows, K cut from {K}",
+                       {"windows": chunk, "v1": 0}))
+        full.append(("bucket_accum", K, C, f"B7 {kind} at full depth ({-(-W // chunk)} per v1 "
+                                           f"2^{logn} MSM)", {"windows": chunk, "v1": 1 << (c - 1)}))
+    return checks, full
+
+
+def route_entry(route: str, cname: str):
+    """The route's entry point a user calls over `cname`: (s, px, py) ->
+    affine; u32, r12 and v2 through msm_affine under their environment
+    variable, v1 through msm_tpu."""
+    from icicle_tpu_torch import msm_affine
+    from icicle_tpu_torch.ops.msm_tpu import msm_tpu
+    if route == "v1":
+        return lambda s, x, y: msm_tpu(cname, s, x, y)
+    name, value = {"u32": ("ICICLE_TPU_MSM_ENGINE", "u32"),
+                   "r12": ("ICICLE_TPU_MSM_ENGINE", "r12"),
+                   "v2": ("ICICLE_TPU_MSM_PIPELINE", "v2")}[route]
+
+    def run(s, x, y):
+        with env(name, value):
+            return msm_affine(cname, s, x, y)
+    return run
 
 
 def plan_checks(g, plan: dict, path: str) -> tuple[list, list]:
@@ -2668,8 +2770,10 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
         return (fq.from_ints([p[0] for p in pts], dev), fq.from_ints([p[1] for p in pts], dev),
                 P, np.arange(1, n + 1))
 
-    def timed(label, call, want, n, per=1, reps=3):
-        ms, last = host_ms(call, reps=reps)
+    def timed(label, call, want, n, per=1, reps=3, warmed=False):
+        """The median of `reps` calls after a warm-up (`warmed`: the caller's
+        last call, the same one, was it)."""
+        ms, last = (timed_ms if warmed else host_ms)(call, reps=reps)
         if last != want:
             raise AssertionError(f"{label}: timed result differs from the oracle")
         log(f"  {label}: timed == oracle, {ms:.1f} ms, {ms / per:.3f} ms an MSM, "
@@ -2681,6 +2785,27 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
         if got != want:
             raise AssertionError(f"profiled {label}: result differs from the oracle")
         return prof
+
+    def slice_path(route, cname, s, px, py, want, timed_too=True):
+        """One MSM of `route` over cname's G1 through the entry point a user
+        calls (route_entry), counted against its plan's launches and held to
+        the oracle; with timed_too, timed (median of 3 after a warm-up, the
+        checked call; v1 one timed call where that ran past SLOW_CALL_S)
+        and profiled (not v1: host-bound, a launch a window slot)."""
+        n = s.shape[0]
+        label = slice_label(route, cname, n.bit_length() - 1)
+        call = lambda: route_entry(route, cname)(s, px, py)
+        t0 = time.perf_counter()
+        rec = run(label, call, want, expected_launches(route, n, cname),
+                  get_curve(cname).fq.nlimbs)
+        checked_s = time.perf_counter() - t0
+        rec.update(route=route, n=n, checked_s=checked_s)
+        if timed_too:
+            reps = 1 if route == "v1" and checked_s > SLOW_CALL_S else 3
+            rec.update(timed(label, call, want, n, reps=reps, warmed=True), timed_reps=reps)
+            if route != "v1":
+                rec["profile"] = profiled(label, call, want)
+        return rec
 
     # M1 (bls12_381 2^24) and M2 (bw6_761 2^20), repeated point: msm_affine,
     # then v3 over prepared bases, timed and profiled
@@ -2696,7 +2821,21 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
             k: prepared[k] for k in ("c", "T", "tiles", "wg", "n_windows", "M")})
         rec["profile"] = profiled(label, call, want)
         out[label] = rec
-        del s, px, py, prepared
+        del prepared
+        torch.cuda.empty_cache()
+        # the same inputs through v2 (B6 + B4) and the r12 engine (B5 + B4)
+        for route in ("v2", "r12"):
+            out[slice_label(route, cname, n.bit_length() - 1)] = slice_path(
+                route, cname, s, px, py, want)
+        del s, px, py
+        torch.cuda.empty_cache()
+
+    # v1 (B7) over the 12- and 24-limb curves, repeated point
+    for cname, seed, k in (("bls12_381", 12, 0xB15), ("bw6_761", 13, 0xB6)):
+        n = 1 << V1_LOGS[cname]
+        s, px, py, _, want = repeated(cname, n, seed, k)
+        out[slice_label("v1", cname, V1_LOGS[cname])] = slice_path("v1", cname, s, px, py, want)
+        del s, px, py
         torch.cuda.empty_cache()
 
     # M1's second input: bls12_377 at 2^16 distinct points, msm_affine
@@ -2710,6 +2849,19 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
               v3_launches(v3_plan("bls12_377", n)), 12)
     rec.update(timed(M1_377, lambda: msm_affine("bls12_377", s, px, py), want, n), n=n)
     out[M1_377] = rec
+    # the same distinct points (distinct keys: B6's run flags) through v2, r12 and v1
+    for route in ("v2", "r12", "v1"):
+        out[slice_label(route, "bls12_377", M1_377_LOG)] = slice_path(
+            route, "bls12_377", s, px, py, want, timed_too=False)
+    # grumpkin at 2^16 distinct points through r12
+    px_g, py_g, P_g, w_g = distinct("grumpkin", n, 14, 0xC0FFEE)
+    fr_g = get_curve("grumpkin").fr
+    scal = canonical_scalars(np.random.default_rng(15), (n,), fr_g)
+    s_g = torch.from_numpy(scal.view(np.int32)).to(dev)
+    want_g = ec_mul(P_g, weighted_total(scal, fr_g.modulus, w_g), get_curve("grumpkin").fq.modulus)
+    out[slice_label("r12", "grumpkin", M1_377_LOG)] = slice_path(
+        "r12", "grumpkin", s_g, px_g, py_g, want_g, timed_too=False)
+    del px_g, py_g, s_g
 
     # M3: the reference's headline, 1000 MSMs of 2^10 shared points at nu 23
     curve = get_curve("bls12_377")
@@ -3635,6 +3787,8 @@ S_PROOF_LEAVES = (0, (1 << 28) + 5, (1 << MERKLE_LOG) - 1)
 S1_MAIN = f"ntt_sharded babybear 2^{S_NTT_LOG} fwd+inv, normalize True and False"
 S2_MAIN = f"msm_sharded3 bn254 2^{S_MSM_LOG}"
 S3_MAIN = f"msm_sharded (v1) bn254 2^{S_V1_LOG}"
+S3_12_LOG = 16                 # S3 over bls12_381 (12 limbs)
+S3_12 = f"msm_sharded (v1) bls12_381 2^{S3_12_LOG}"
 S4_MAIN = f"merkle_build_sharded babybear poseidon2 t=2 2^{MERKLE_LOG}"
 S5_MAIN = {"ntt": f"ntt_sharded_2level babybear 2^{S_NTT_LOG} fwd+inv (ntt_sharded, 2-D mesh)",
            "msm": f"msm_sharded3_2level bn254 2^{S_MSM_LOG}",
@@ -3675,8 +3829,9 @@ def sharded_paths(dev, smi: str, launches: dict, merkle_root: int) -> dict:
     group: the sharded NTT, both sharded MSMs, the sharded Merkle build and
     the three two-level functions, each counted and held to the single-card
     answer; ms beside the single-card path's."""
-    from icicle_tpu_torch import (MerkleTree, NTTConfig, NTTDir, Poseidon2, get_field,
-                                  msm_affine, ntt)
+    from icicle_tpu_torch import (MerkleTree, NTTConfig, NTTDir, Poseidon2, get_curve,
+                                  get_field, msm_affine, ntt)
+    from icicle_tpu_torch.curves.host_ec import ec_mul
     from icicle_tpu_torch.ops import ntt as N
     from icicle_tpu_torch.ops.merkle import MerkleProof
     from icicle_tpu_torch.parallel import two_level as TL
@@ -3770,6 +3925,23 @@ def sharded_paths(dev, smi: str, launches: dict, merkle_root: int) -> dict:
                              f"(oracle {want})")
     out[S3_MAIN] = {"launches": only(launches[S3_MAIN])}
     log(f"  {S3_MAIN}: == oracle, launches {only(launches[S3_MAIN])} [{smi}]")
+    del s, px, py
+    # S3 over a 12-limb curve: bls12_381, canonical scalars, one repeated point
+    n = 1 << S3_12_LOG
+    c381 = get_curve("bls12_381")
+    P = ec_mul((c381.gen_x, c381.gen_y), 0x5381, c381.fq.modulus)
+    scal = canonical_scalars(np.random.default_rng(27), (n,), c381.fr)
+    s = torch.from_numpy(scal.view(np.int32)).to(dev)
+    px = c381.fq.from_ints([P[0]], dev).expand(n, c381.fq.nlimbs).contiguous()
+    py = c381.fq.from_ints([P[1]], dev).expand(n, c381.fq.nlimbs).contiguous()
+    want = ec_mul(P, weighted_total(scal, c381.fr.modulus), c381.fq.modulus)
+    got = counted(S3_12, lambda: msm_sharded("bls12_381", s, px, py, mesh), launches)
+    if launches[S3_12] != expected_launches("v1", n // d, "bls12_381") or got != want:
+        raise AssertionError(f"{S3_12}: launched {only(launches[S3_12])}, result {got} "
+                             f"(oracle {want})")
+    out[S3_12] = {"launches": only(launches[S3_12])}
+    log(f"  {S3_12}: == oracle, launches {only(launches[S3_12])} (B7's 12-limb instance) "
+        f"[{smi}]")
     del s, px, py
 
     # S4 / S5 Merkle: bench.py's 2^29 leaves, the Merkle phase's root
@@ -4145,12 +4317,28 @@ def time_dif_variants(f, dev, rand, K, smi: str) -> dict:
     return out
 
 
+def sass_counts():
+    """The SASS instruction counts chip_smoke.py reports: the babybear t = 2
+    single-permutation Poseidon2 kernel's (its count per hash), the
+    Keccak-256 word-row kernel's, and the BLAKE kernels' (BLAKE_SASS)."""
+    from icicle_tpu_torch.kernels import build, sass
+
+    def one(lib: str, pattern: str) -> dict:
+        found = sass.kernel_counts(build.lib_path(lib), pattern)
+        if len(found) != 1:
+            raise AssertionError(f"lib{lib}: {len(found)} kernels match {pattern}")
+        return next(iter(found.values()))["counts"]
+
+    return (one("poseidon2", P2_SASS_KERNEL), one("keccak", KECCAK_SASS_KERNEL),
+            {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from icicle_tpu_torch import NTTConfig, NTTDir, get_field, get_group, ntt
-    from icicle_tpu_torch.kernels import build, sass
+    from icicle_tpu_torch.kernels import build
     from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.ops import ntt as N
@@ -4188,38 +4376,34 @@ def main() -> None:
         clock[0] = now
 
     # -- 2. build ------------------------------------------------------------
-    log("== build")
-    t0 = time.perf_counter()
-    reports = build.build_all()
-    log(f"built {sorted(reports) or 'nothing (up to date)'} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for lib, text in reports.items():
-        for line in text.splitlines():
-            if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
-                    or "spill" in line or line.startswith("nvcc: "):
-                log(f"  lib{lib}: {line.strip()}")
-    p2_sass = sass.kernel_counts(build.lib_path("poseidon2"), P2_SASS_KERNEL)
-    if len(p2_sass) != 1:
-        raise AssertionError(f"libposeidon2: {len(p2_sass)} kernels match {P2_SASS_KERNEL}")
-    p2_sass = next(iter(p2_sass.values()))["counts"]
-    log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
-    keccak_sass = sass.kernel_counts(build.lib_path("keccak"), KECCAK_SASS_KERNEL)
-    if len(keccak_sass) != 1:
-        raise AssertionError(f"libkeccak: {len(keccak_sass)} kernels match {KECCAK_SASS_KERNEL}")
-    keccak_sass = next(iter(keccak_sass.values()))["counts"]
-    log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
-        f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
+    # one nvcc a library in a background pool of all cores but one (this
+    # process's phases keep that one), EARLY_LIBRARIES first; each phase
+    # below loads its libraries as their compiles end (build.load waits for
+    # a compile in flight, and starts one still queued), the phases that
+    # need no elliptic-curve library first, so that the build overlaps them
+    slots = max(1, len(os.sched_getaffinity(0)) - 1)
+    log(f"== build: every library compiling in the background, {slots} at a time")
+    build_out = {}
 
-    hash_sass = {}
-    for lib, pattern in BLAKE_SASS:
-        found = sass.kernel_counts(build.lib_path(lib), pattern)
-        if len(found) != 1:
-            raise AssertionError(f"lib{lib}: {len(found)} kernels match {pattern}")
-        hash_sass[pattern] = next(iter(found.values()))["counts"]
-        log(f"  lib{lib} {pattern} SASS (a static count; the kernels loop over blocks, and "
-            f"poseidon_limbs over rounds): {hash_sass[pattern]}")
+    def build_everything() -> None:
+        t0 = time.perf_counter()
+        order = [*EARLY_LIBRARIES, *(n for n in build.LIBRARIES if n not in EARLY_LIBRARIES)]
+        with concurrent.futures.ThreadPoolExecutor(slots) as pool:
+            for job in [pool.submit(build.build_all, [name]) for name in order]:
+                try:
+                    job.result()
+                except Exception as e:  # raised again in the main thread, at the join
+                    build_out.setdefault("error", e)
+        build_out["s"] = time.perf_counter() - t0
+        try:
+            if "error" not in build_out:
+                build_out["sass"] = sass_counts()
+        except Exception as e:
+            build_out["error"] = e
 
-    phase_done("build")
+    builder = threading.Thread(target=build_everything, daemon=True)
+    builder.start()
+    phase_done("build: started")
     # -- 3. kernel versus plain ----------------------------------------------
     log("== kernels: dif_rows against dif_rows_ref on the card, every layout")
     # (field, rows, log_n, forward, factor, role on the main path); each pass
@@ -4287,42 +4471,6 @@ def main() -> None:
         "every layout")
     wide_rows = check_wide_kernel(dev, gen, smi)
     phase_done("kernels: dif_rows_wide")
-    log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
-    msm_rows = check_msm_kernels(dev, gen, smi, get_group("bn254"), MSM_CHECKS, MSM_FULL)
-    phase_done("kernels: B3-B7")
-    log("== kernels: B3 and B4 at 12 and 24 limbs, precompute_bases at 8, 12 and 24, against "
-        "their plain versions on the card")
-    limb_rows = {}
-    for nl, cname, log_n in LIMB_CURVES:
-        g = get_group(cname)
-        curve_rows = check_msm_kernels(dev, gen, smi, g, *plan_checks(
-            g, v3_plan(cname, 1 << log_n), "M1" if nl == 12 else "M2"))
-        limb_rows.update({f"{k} ({nl}-limb)": v for k, v in curve_rows.items()})
-    nbits = lambda g: g.curve.fr.modulus.bit_length()
-    limb_rows["precompute_bases"] = check_precompute_bases(
-        dev, gen, smi, [get_group(cname) for _, cname in PRE_CURVES],
-        lambda g: [(nu, precompute_shift(nbits(g), PRE_CHECK_C, nu)) for nu in PRE_CHECK_NU],
-        [(get_group(cname), 1 << log_n, nu, precompute_shift(nbits(get_group(cname)), c, nu),
-          role) for cname, log_n, nu, c, role in (
-              ("bls12_377", M3_LOG, M3_NU, M3_C, "M3's bases"),
-              ("bn254", M4_LOG, 4, M4_C, "M4's bases at nu 4"))])
-    phase_done("kernels: B3/B4 12, 24 limbs, precompute_bases")
-    log("== kernels: G2 -- B3, B4 and precompute_bases over Fp2 (8 and 12 limbs) and over Fq "
-        "(bw6_761's G2, the 24-limb libraries) against their plain versions on the card")
-    g2_rows = {}
-    for cname in G2_CURVES:
-        g = get_group(cname, g2=True)
-        n = 1 << G2_PATH_LOGS[cname]
-        plan = generic_plan(cname, n, default_c(n, g2=True), g2=True)
-        for k, v in check_msm_kernels(dev, gen, smi, g, *plan_checks(
-                g, plan, G2_PATH_NAMES[cname])).items():
-            g2_rows.setdefault(f"{k} ({g.base_limbs}-limb, degree {g.degree})", []).extend(v)
-    g2b = get_group("bn254", g2=True)
-    g2_rows["precompute_bases"] = check_precompute_bases(
-        dev, gen, smi, [get_group(cname, g2=True) for cname in G2_CURVES],
-        lambda g: [(G2_PRE_NU, G2_PRE_SHIFT)],
-        [(g2b, 1 << E4_LOG, E4_NU, precompute_shift(nbits(g2b), E4_C, E4_NU), "E4's bases")])
-    phase_done("kernels: G2 B3/B4/precompute_bases")
     log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
     p2_rows = check_poseidon2_kernel(dev, gen, smi)
     phase_done("kernels: poseidon2")
@@ -4333,10 +4481,6 @@ def main() -> None:
     log("== kernels: poseidon, blake2s, blake3 against their plain versions on the card")
     hash_rows = check_hash_kernels(dev, gen, smi, sm_clock_mhz)
     phase_done("kernels: poseidon, blake2s, blake3")
-    log("== kernels: ecntt_stage and ecntt_scale at 8, 12 and 24 limbs, GLV and plain ladders, "
-        "against their plain versions on the card at EC1's shapes")
-    ecntt_rows = check_ecntt_kernels(dev, smi)
-    phase_done("kernels: ecntt")
     log("== kernels: rq_ntt, mlkem (ntt, intt, multiply_ntts), keccak_sponge against their plain "
         "versions on the card at L1's and Q1's shapes")
     lp_rows = check_lattice_pqc_kernels(dev, gen, smi, sm_clock_mhz)
@@ -4398,21 +4542,6 @@ def main() -> None:
 
     phase_done("main path: ntt")
 
-    # -- 5. MSM main paths ----------------------------------------------------
-    log("== main paths: the MSM routes (msm_affine, its r12 engine and v2 pipeline, msm_tpu) "
-        "on CUDA tensors")
-    msm = msm_main_paths(dev, smi, launches)
-    phase_done("main path: msm")
-    log("== main paths: the MSM's long tail (M1-M5: bls12_381, bls12_377, bw6_761, precomputed "
-        "bases, GLV, batches, Montgomery-form inputs, bitsize) on CUDA tensors")
-    msm_tail = msm_long_tail_paths(dev, smi, launches)
-    phase_done("main path: msm long tail (M1-M5)")
-    log("== main paths: G2 and the extension fields (E1-E6: G2 MSMs over bn254, bls12_381, "
-        "bls12_377 and bw6_761, precomputed G2 bases and a batch, the pairing identity, "
-        "ntt_ext) on CUDA tensors")
-    g2 = g2_paths(dev, smi, launches)
-    phase_done("main path: G2 and extension fields (E1-E6)")
-
     # -- 6. Merkle main path --------------------------------------------------
     log("== main path: the babybear Poseidon2 Merkle tree (MerkleTree.build) on CUDA tensors")
     merkle = merkle_main_path(dev, gen, smi, launches)
@@ -4437,10 +4566,6 @@ def main() -> None:
         "Blake3 over long messages, FRI over Blake3 -- on CUDA tensors")
     hashes = hash_paths(dev, gen, smi, launches, sm_clock_mhz)
     phase_done("main path: hashes (P1-P4)")
-    log("== main paths: the ECNTT (EC1: bn254 2^16, bls12_381 2^13, bw6_761 2^8) on CUDA "
-        "tensors")
-    ec1 = ecntt_paths(dev, smi, launches)
-    phase_done("main path: ecntt (EC1)")
     log("== main paths: the babykoala rings and the lattice ops (L1: ntt_rns 2^24, "
         "negacyclic_ntt, rq_matmul, decomposition, JL projection, norms) on CUDA tensors")
     l1 = lattice_paths(dev, gen, smi, launches)
@@ -4449,13 +4574,102 @@ def main() -> None:
         "on CUDA tensors")
     q1 = ml_kem_paths(dev, smi, launches)
     phase_done("main path: ML-KEM (Q1)")
+    log("== main path: stream_map (S6) from pinned host memory")
+    stream = stream_path(dev, smi, launches)
+    phase_done("main path: stream_map (S6)")
+
+    log("== build: the rest of the libraries")
+    builder.join()
+    if "error" in build_out:
+        raise build_out["error"]
+    reports = build.compile_reports()
+    log(f"built {sorted(reports) or 'nothing (up to date)'} in {build_out['s']:.2f} s, in the "
+        "background beside the phases above")
+    for lib, text in reports.items():
+        for line in text.splitlines():
+            if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
+                    or "spill" in line or line.startswith("nvcc: "):
+                log(f"  lib{lib}: {line.strip()}")
+    p2_sass, keccak_sass, hash_sass = build_out["sass"]
+    log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
+    log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
+        f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
+    for lib, pattern in BLAKE_SASS:
+        log(f"  lib{lib} {pattern} SASS (a static count; the kernels loop over blocks, and "
+            f"poseidon_limbs over rounds): {hash_sass[pattern]}")
+
+    phase_done("build: the rest")
+    log("== kernels: the MSM kernels B3-B7 against their plain versions on the card")
+    msm_rows = check_msm_kernels(dev, gen, smi, get_group("bn254"), MSM_CHECKS, MSM_FULL)
+    phase_done("kernels: B3-B7")
+    log("== kernels: B3 and B4 at 12 and 24 limbs, precompute_bases at 8, 12 and 24, against "
+        "their plain versions on the card")
+    limb_rows = {}
+    for nl, cname, log_n in LIMB_CURVES:
+        g = get_group(cname)
+        curve_rows = check_msm_kernels(dev, gen, smi, g, *plan_checks(
+            g, v3_plan(cname, 1 << log_n), "M1" if nl == 12 else "M2"))
+        limb_rows.update({f"{k} ({nl}-limb)": v for k, v in curve_rows.items()})
+    nbits = lambda g: g.curve.fr.modulus.bit_length()
+    limb_rows["precompute_bases"] = check_precompute_bases(
+        dev, gen, smi, [get_group(cname) for _, cname in PRE_CURVES],
+        lambda g: [(nu, precompute_shift(nbits(g), PRE_CHECK_C, nu)) for nu in PRE_CHECK_NU],
+        [(get_group(cname), 1 << log_n, nu, precompute_shift(nbits(get_group(cname)), c, nu),
+          role) for cname, log_n, nu, c, role in (
+              ("bls12_377", M3_LOG, M3_NU, M3_C, "M3's bases"),
+              ("bn254", M4_LOG, 4, M4_C, "M4's bases at nu 4"))])
+    phase_done("kernels: B3/B4 12, 24 limbs, precompute_bases")
+    log("== kernels: B5 over grumpkin, bls12_377, bls12_381 and bw6_761, B6 and B7 at 12 and "
+        "24 limbs, against their plain versions on the card")
+    slice_kernel_rows = {}
+    for cname in SLICE_CURVES:
+        for k, v in check_msm_kernels(dev, gen, smi, get_group(cname),
+                                      *slice_rows(cname)).items():
+            slice_kernel_rows.setdefault(k, []).extend(v)
+    phase_done("kernels: B5 every G1 curve, B6/B7 12, 24 limbs")
+    log("== kernels: G2 -- B3, B4 and precompute_bases over Fp2 (8 and 12 limbs) and over Fq "
+        "(bw6_761's G2, the 24-limb libraries) against their plain versions on the card")
+    g2_rows = {}
+    for cname in G2_CURVES:
+        g = get_group(cname, g2=True)
+        n = 1 << G2_PATH_LOGS[cname]
+        plan = generic_plan(cname, n, default_c(n, g2=True), g2=True)
+        for k, v in check_msm_kernels(dev, gen, smi, g, *plan_checks(
+                g, plan, G2_PATH_NAMES[cname])).items():
+            g2_rows.setdefault(f"{k} ({g.base_limbs}-limb, degree {g.degree})", []).extend(v)
+    g2b = get_group("bn254", g2=True)
+    g2_rows["precompute_bases"] = check_precompute_bases(
+        dev, gen, smi, [get_group(cname, g2=True) for cname in G2_CURVES],
+        lambda g: [(G2_PRE_NU, G2_PRE_SHIFT)],
+        [(g2b, 1 << E4_LOG, E4_NU, precompute_shift(nbits(g2b), E4_C, E4_NU), "E4's bases")])
+    phase_done("kernels: G2 B3/B4/precompute_bases")
+    log("== kernels: ecntt_stage and ecntt_scale at 8, 12 and 24 limbs, GLV and plain ladders, "
+        "against their plain versions on the card at EC1's shapes")
+    ecntt_rows = check_ecntt_kernels(dev, smi)
+    phase_done("kernels: ecntt")
+
+    # -- 5. MSM main paths ----------------------------------------------------
+    log("== main paths: the MSM routes (msm_affine, its r12 engine and v2 pipeline, msm_tpu) "
+        "on CUDA tensors")
+    msm = msm_main_paths(dev, smi, launches)
+    phase_done("main path: msm")
+    log("== main paths: the MSM's long tail (M1-M5: bls12_381, bls12_377, bw6_761, precomputed "
+        "bases, GLV, batches, Montgomery-form inputs, bitsize) on CUDA tensors")
+    msm_tail = msm_long_tail_paths(dev, smi, launches)
+    phase_done("main path: msm long tail (M1-M5)")
+    log("== main paths: G2 and the extension fields (E1-E6: G2 MSMs over bn254, bls12_381, "
+        "bls12_377 and bw6_761, precomputed G2 bases and a batch, the pairing identity, "
+        "ntt_ext) on CUDA tensors")
+    g2 = g2_paths(dev, smi, launches)
+    phase_done("main path: G2 and extension fields (E1-E6)")
+    log("== main paths: the ECNTT (EC1: bn254 2^16, bls12_381 2^13, bw6_761 2^8) on CUDA "
+        "tensors")
+    ec1 = ecntt_paths(dev, smi, launches)
+    phase_done("main path: ecntt (EC1)")
     log("== main paths: multi-device (S1-S5: ntt_sharded, msm_sharded3, msm_sharded, "
         "merkle_build_sharded and the two-level functions) over every visible card")
     multi = multi_device_paths(dev, smi, launches, merkle["root"])
     phase_done("main path: multi-device (S1-S5)")
-    log("== main path: stream_map (S6) from pinned host memory")
-    stream = stream_path(dev, smi, launches)
-    phase_done("main path: stream_map (S6)")
     log("== main paths: the C ABI over the port (S7), in this process and from a C program")
     capi = capi_paths(dev, smi, launches)
     phase_done("main path: C ABI (S7)")
@@ -4480,6 +4694,12 @@ def main() -> None:
     # count in every main path's checked run
     def per_path(kname: str) -> dict:
         return {path: counts[kname] for path, counts in launches.items()}
+
+    def curve_paths(kname: str, curves) -> dict:
+        """kname's count in every main path over one of `curves` (named in
+        the path's label) that launched it."""
+        return {path: c[kname] for path, c in launches.items()
+                if c[kname] and any(cn in path for cn in curves)}
 
     main_pair = [r for r in shape_rows if r["role"].startswith("2^26 fwd") and r["main_path"]]
     entry = {
@@ -4514,7 +4734,8 @@ def main() -> None:
         return {
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[headline][kname], "headline_path": headline,
-            "launches_per_path": per_path(kname),
+            "launches_per_path": {p: c for p, c in per_path(kname).items()
+                                  if not any(cn in p for cn in SLICE_CURVES)},
             "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
             "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -4534,14 +4755,11 @@ def main() -> None:
                   "icicle_tpu/pallas/ec_reduce.py:63 (make_ec_reduce)",
                   "B4 cross-tile at full depth (12 per 2^24 MSM)", MSM_24),
         msm_entry("prefix_scan_r12", "icicle_tpu_torch/kernels/csrc/msm_scan_r12.cu",
-                  "icicle_tpu/pallas/msm_scan_r12.py:135 (make_prefix_scan_r12)",
-                  "B5 at full depth (12 per r12 2^24 MSM)", R12_24),
+                  R12_REPLACES, "B5 at full depth (12 per r12 2^24 MSM)", R12_24),
         msm_entry("suffix_fold", "icicle_tpu_torch/kernels/csrc/msm_fold2.cu",
-                  "icicle_tpu/pallas/msm_fold2.py:75 (make_suffix_fold)",
-                  "B6 at full depth (29 per v2 2^24 MSM)", V2_24),
+                  FOLD_REPLACES, "B6 at full depth (29 per v2 2^24 MSM)", V2_24),
         msm_entry("bucket_accum", "icicle_tpu_torch/kernels/csrc/bucket_accum.cu",
-                  "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)",
-                  "B7 at full depth (2 per v1 2^20 MSM)", V1_MAIN),
+                  ACCUM_REPLACES, "B7 at full depth (2 per v1 2^20 MSM)", V1_MAIN),
     ]
     # B3 and B4 at 12 and 24 limbs: ms and bound_ms one launch at the path's
     # full-depth shape (M1, M2), plain_ms at the first checked (cut) shape
@@ -4566,6 +4784,38 @@ def main() -> None:
                 "shape": [main["depth"], main["lanes"]],
                 "plain_shape": [checked["depth"], checked["lanes"]],
                 "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
+    # B5 over grumpkin and at 12 and 24 limbs, B6 and B7 at 12 and 24 limbs:
+    # ms and bound_ms one launch at the headline path's full-depth shape,
+    # plain_ms at its first checked (cut) shape
+    for kname, source, replaces, label, curves, headline in (
+            ("prefix_scan_r12", "msm_scan_r12.cu", R12_REPLACES, "prefix_scan_r12 (grumpkin)",
+             ("grumpkin",), slice_label("r12", "grumpkin", R12_LOGS["grumpkin"])),
+            ("prefix_scan_r12", "msm_scan_r12.cu", R12_REPLACES, "prefix_scan_r12 (12-limb)",
+             ("bls12_381", "bls12_377"), slice_label("r12", "bls12_381", M1_LOG)),
+            ("prefix_scan_r12", "msm_scan_r12.cu", R12_REPLACES, "prefix_scan_r12 (24-limb)",
+             ("bw6_761",), slice_label("r12", "bw6_761", M2_LOG)),
+            ("suffix_fold", "msm_fold2.cu", FOLD_REPLACES, "suffix_fold (12-limb)",
+             ("bls12_381", "bls12_377"), slice_label("v2", "bls12_381", M1_LOG)),
+            ("suffix_fold", "msm_fold2.cu", FOLD_REPLACES, "suffix_fold (24-limb)",
+             ("bw6_761",), slice_label("v2", "bw6_761", M2_LOG)),
+            ("bucket_accum", "bucket_accum.cu", ACCUM_REPLACES, "bucket_accum (12-limb)",
+             ("bls12_381", "bls12_377"), slice_label("v1", "bls12_381", V1_LOGS["bls12_381"])),
+            ("bucket_accum", "bucket_accum.cu", ACCUM_REPLACES, "bucket_accum (24-limb)",
+             ("bw6_761",), slice_label("v1", "bw6_761", V1_LOGS["bw6_761"]))):
+        rows = [r for r in slice_kernel_rows[kname] if r["curve"] in curves]
+        main = next(r for r in rows if not r["checked"] and r["curve"] == curves[0])
+        checked = next(r for r in rows if r["checked"] and r["curve"] == curves[0])
+        entries.append({
+            "name": label, "route": "cuda", "source": f"icicle_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches[headline][kname],
+            "headline_path": headline, "launches_per_path": curve_paths(kname, curves),
+            "max_abs_err": max(r["max_abs_diff"] for r in rows if r["checked"]),
+            "ms": main["kernel_ms"], "plain_ms": checked["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,  # no PyTorch call computes an elliptic-curve add
+            "shape": [main["depth"], main["lanes"]],
+            "plain_shape": [checked["depth"], checked["lanes"]],
+            "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
     # precompute_bases: ms and bound_ms at M4's bases (2^22 bn254 points, nu 4),
     # M3's beside them; plain_ms at the first checked shape (bn254, 2^12, nu 2)
     pre = limb_rows["precompute_bases"]

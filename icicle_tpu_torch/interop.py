@@ -25,6 +25,8 @@ from icicle_tpu_torch.curves.group import Projective, get_group
 from icicle_tpu_torch.curves.params import get_curve
 from icicle_tpu_torch.fields.extension import ExtField
 from icicle_tpu_torch.fields.field import Field
+from icicle_tpu_torch.kernels.msm_scan_r12 import r12_engine
+from icicle_tpu_torch.math.radix12 import Radix12
 from icicle_tpu_torch.ops.merkle import MerkleTree
 from icicle_tpu_torch.ops.msm import signed_table
 from icicle_tpu_torch.ops.msm_tpu3 import ENGINES
@@ -177,7 +179,10 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     or the jax.Array itself. The limbs are in the plan's engine's domain
     (R = 2^(32 L) for "u32", R' = 2^(12 nw) for "r12") and carry over as they
     are, with the engine: the bases of precomputed copies (nu > 1) and of
-    GLV's [P, phi(P)] (glv=True) too."""
+    GLV's [P, phi(P)] (glv=True) too. Where the port's radix-12 engine takes
+    more words than the JAX package's (grumpkin, bls12_381:
+    kernels/msm_scan_r12.py r12_engine), "r12" bases are moved into its R'
+    by one multiply."""
     if prepared["engine"] not in ENGINES:
         raise IcicleException(IcicleError.INVALID_ARGUMENT,
                               f"prepared_from_numpy: unknown engine {prepared['engine']!r}")
@@ -189,7 +194,14 @@ def prepared_from_numpy(curve_name: str, prepared: dict, device=None) -> dict:
     plan["glv"] = bool(prepared.get("glv", False))
     plan["g2"] = False                                # the JAX pipeline's bases are G1
     xy = torch.from_numpy(limbs.view(np.int32)).to(resolve(device))
-    return dict(plan, pts=signed_table(get_curve(curve_name).fq, xy), n=prepared["n"])
+    fq = get_curve(curve_name).fq
+    shift = (r12_engine(curve_name).rbits - Radix12(fq.modulus).rbits
+             if plan["engine"] == "r12" else 0)
+    if shift:
+        # x 2^shift mod p: a Montgomery multiply by 2^shift R mod p
+        lift = fq.from_ints([(1 << (shift + 32 * fq.nlimbs)) % fq.modulus], xy.device)
+        xy = fq.mul_mont(xy.reshape(-1, fq.nlimbs), lift).reshape(xy.shape)
+    return dict(plan, pts=signed_table(fq, xy), n=prepared["n"])
 
 
 def domain_from_numpy(f: Field, logn: int, twiddles_u32, twiddles_inv_u32,

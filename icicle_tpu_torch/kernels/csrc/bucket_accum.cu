@@ -124,6 +124,15 @@ fixup_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ carries,
   store_point<L>(p, row, padd(carry, load_point<L>(p, row), c));
 }
 
+// The library's instance: build.py compiles this source once per limb
+// count (libbucket_accum: 8, libbucket_accum_l12: 12,
+// libbucket_accum_l24: 24), so that the instances compile in parallel.
+#ifndef ICICLE_EC_LIMBS
+#define ICICLE_EC_LIMBS 8
+#endif
+
+constexpr int kLimbs = ICICLE_EC_LIMBS;
+
 }  // namespace
 
 extern "C" {
@@ -132,29 +141,31 @@ extern "C" {
 // carries, resets, fix: device pointers, (W, K, C) int32, (W, K, 2L, C)
 // and (W, K, 3L, C) uint32, then scratch unused when S = 1: (S - 1, 3L,
 // W C) uint32, (S, W C) and (S, W C) int32. S: segments per lane, 1 <= S
-// <= 65535. consts: host array {p[L], one[L], inv32, b3}. Only L = 8 is
-// built. Returns the first refused launch's cudaError_t (0 on success).
+// <= 65535. L must be the library's ICICLE_EC_LIMBS. consts: host array
+// {p[L], one[L], inv32, b3}. Returns the first refused launch's
+// cudaError_t (0 on success).
 int icicle_msm_bucket_accum(const void* keys, const void* in, void* out, void* carries,
                             void* resets, void* fix, int W, int K, int C, int S, int L,
                             const unsigned int* consts, void* stream) {
-  if (L != 8 || W < 1 || K < 1 || C < 1 || S < 1 || S > 65535 ||
+  if (L != kLimbs || W < 1 || K < 1 || C < 1 || S < 1 || S > 65535 ||
       static_cast<long long>(W) * C > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto c = consts_from<8>(consts);
+  const auto c = consts_from<kLimbs>(consts);
   auto* dst = static_cast<uint32_t*>(out);
   auto* car = static_cast<uint32_t*>(carries);
   auto* rst = static_cast<int32_t*>(resets);
   auto* fx = static_cast<int32_t*>(fix);
   const int pair_blocks = (W * C + kSplitThreads - 1) / kSplitThreads;
-  accum_kernel<8><<<dim3(pair_blocks, S), kSplitThreads, 0, st>>>(
+  accum_kernel<kLimbs><<<dim3(pair_blocks, S), kSplitThreads, 0, st>>>(
       static_cast<const int32_t*>(keys), static_cast<const uint32_t*>(in), dst, car, rst, fx, W,
       K, C, S, (K + S - 1) / S, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
   err = launch_carry_scan(car, W * C, S, c, st, rst);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixup_kernel<8><<<dim3(pair_blocks, S - 1), kSplitThreads, 0, st>>>(dst, car, fx, W, K, C, c);
+  fixup_kernel<kLimbs><<<dim3(pair_blocks, S - 1), kSplitThreads, 0, st>>>(dst, car, fx, W, K,
+                                                                          C, c);
   return static_cast<int>(cudaGetLastError());
 }
 

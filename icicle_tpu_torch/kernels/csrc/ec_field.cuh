@@ -4,9 +4,9 @@
 // msm_fold2.cu (B6), bucket_accum.cu (B7) and precompute_bases.cu;
 // templated on the limb count L and, for the curve formulas, on the
 // coordinate field. G1 points (and bw6_761's G2, which lies over Fq) take
-// Fp<L>: B3, B4 and precompute_bases are instantiated for L = 8 (bn254,
-// grumpkin), 12 (bls12_377, bls12_381) and 24 (bw6_761); B6 and B7 for
-// L = 8. G2 points over Fp2 = Fp[u]/(u^2 - nr) take Fp2<L>: B3, B4 and
+// Fp<L>: B3, B4, B6, B7 and precompute_bases are instantiated for L = 8
+// (bn254, grumpkin), 12 (bls12_377, bls12_381) and 24 (bw6_761). G2
+// points over Fp2 = Fp[u]/(u^2 - nr) take Fp2<L>: B3, B4 and
 // precompute_bases at L = 8 (bn254) and 12 (bls12_377, bls12_381).
 //
 // Elements are L little-endian uint32 limbs of the canonical value in

@@ -119,6 +119,15 @@ fixup_kernel(uint32_t* __restrict__ ends, const uint32_t* __restrict__ carries,
   }
 }
 
+// The library's instance: build.py compiles this source once per limb
+// count (libmsm_fold2: 8, libmsm_fold2_l12: 12, libmsm_fold2_l24: 24), so
+// that the instances compile in parallel.
+#ifndef ICICLE_EC_LIMBS
+#define ICICLE_EC_LIMBS 8
+#endif
+
+constexpr int kLimbs = ICICLE_EC_LIMBS;
+
 }  // namespace
 
 extern "C" {
@@ -127,27 +136,28 @@ extern "C" {
 // starts, ends, carries: device pointers, (K, 2L, C) uint32, (K, C) int32,
 // (S, C) int32, (R, 3L, C) uint32 (every row written) and (S - 1, 3L, C)
 // uint32 (scratch, unused when S = 1). S: segments per lane, 1 <= S <=
-// 65535. consts: host array {p[L], one[L], inv32, b3}. Only L = 8 is
-// built. Returns the first refused launch's cudaError_t (0 on success).
+// 65535. L must be the library's ICICLE_EC_LIMBS. consts: host array
+// {p[L], one[L], inv32, b3}. Returns the first refused launch's
+// cudaError_t (0 on success).
 int icicle_msm_suffix_fold(const void* in, const void* flags, const void* starts, void* ends,
                            void* carries, int K, int C, int S, int R, int L,
                            const unsigned int* consts, void* stream) {
-  if (L != 8 || K < 1 || C < 1 || S < 1 || S > 65535 || R < 1)
+  if (L != kLimbs || K < 1 || C < 1 || S < 1 || S > 65535 || R < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto c = consts_from<8>(consts);
+  const auto c = consts_from<kLimbs>(consts);
   const auto* st0 = static_cast<const int32_t*>(starts);
   auto* out = static_cast<uint32_t*>(ends);
   auto* car = static_cast<uint32_t*>(carries);
   const int lane_blocks = (C + kSplitThreads - 1) / kSplitThreads;
-  fold_kernel<8><<<dim3(lane_blocks, S), kSplitThreads, 0, st>>>(
+  fold_kernel<kLimbs><<<dim3(lane_blocks, S), kSplitThreads, 0, st>>>(
       static_cast<const uint32_t*>(in), static_cast<const int32_t*>(flags), st0, out, car, K, C,
       S, (K + S - 1) / S, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return static_cast<int>(err);
   err = launch_carry_scan(car, C, S, c, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixup_kernel<8><<<dim3(lane_blocks, R < 65535 ? R : 65535), kSplitThreads, 0, st>>>(
+  fixup_kernel<kLimbs><<<dim3(lane_blocks, R < 65535 ? R : 65535), kSplitThreads, 0, st>>>(
       out, car, st0, C, S, R, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@
 // An element is NW int32 words of 12 bits, little-endian and signed:
 // value = sum_k w_k 2^(12 k). Adds and subs are wordwise with no carry; a
 // multiply accumulates its 2 NW - 1 column sums raw and fuses the REDC into
-// them (product scanning, R' = 2^(12 NW)). The caller keeps every operand
+// them (product scanning, R' = 2^(12 NW); operand scanning, with the same
+// column sums, above NW = 22: `mul_mont_rolled`). The caller keeps every operand
 // within the bounds the torch side's overflow audit accepts
 // (Radix12.audit_mul), so no column sum leaves int32. The one product that
 // may, v * inv12 in the REDC, is taken in uint32, whose low 12 bits are
@@ -94,8 +95,8 @@ __device__ __forceinline__ Words<NW> mul_small(const Words<NW>& x, int32_t k) {
 // m = -t_i / p mod 2^12 and m p added into the columns above. Output
 // normalised, value in (-p, 2p).
 template <int NW>
-__device__ __forceinline__ Words<NW> mul_mont(const Words<NW>& a, const Words<NW>& b,
-                                              const R12Consts<NW>& c) {
+__device__ __forceinline__ Words<NW> mul_mont_unrolled(const Words<NW>& a, const Words<NW>& b,
+                                                       const R12Consts<NW>& c) {
   int32_t cols[2 * NW - 1];
 #pragma unroll
   for (int k = 0; k < 2 * NW - 1; ++k) cols[k] = 0;
@@ -123,6 +124,62 @@ __device__ __forceinline__ Words<NW> mul_mont(const Words<NW>& a, const Words<NW
   }
   r.w[NW - 1] = carry;
   return r;
+}
+
+// mul_mont by operand scanning: a window t of NW columns slides up one
+// column a step i, taking a_i b and then m p, where m cancels its lowest
+// column, whose carry moves into the next. Each column receives the terms
+// and the carry of mul_mont's column, only in another order; the audit
+// bounds every term's absolute value, so no partial sum leaves int32
+// either, and the result (the normalised words of (a b + m p) / R', m the
+// unique multiplier below R') is the same bit for bit.
+template <int NW>
+__device__ __noinline__ Words<NW> mul_mont_rolled(const Words<NW>& a, const Words<NW>& b,
+                                                  const R12Consts<NW>& c) {
+  int32_t t[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) t[k] = 0;
+#pragma unroll 1
+  for (int i = 0; i < NW; ++i) {
+    const int32_t ai = a.w[i];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t[j] += ai * b.w[j];
+    const int32_t v = t[0];
+    const int32_t m = static_cast<int32_t>((static_cast<uint32_t>(v) * c.inv12) &
+                                           static_cast<uint32_t>(kMask));
+    const int32_t carry = (v + m * c.p[0]) >> kRadix;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) t[j - 1] = t[j] + m * c.p[j];
+    t[NW - 1] = 0;
+    t[0] += carry;
+  }
+  // t[k] is column NW + k, its carry in; column 2 NW - 1 is empty
+  Words<NW> r;
+  int32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < NW - 1; ++k) {
+    const int32_t v = t[k] + carry;
+    r.w[k] = v & kMask;
+    carry = v >> kRadix;
+  }
+  r.w[NW - 1] = carry;
+  return r;
+}
+
+// The widest field whose multiply is unrolled and inlined at every call
+// (bn254 and grumpkin, NW = 22). Wider fields (NW = 32: bls12_377,
+// bls12_381; 64: bw6_761) take `mul_mont_rolled`, one out-of-line copy
+// with its outer loop rolled: NW^2-term products unrolled at the dozen
+// multiplies of a point add would compile for minutes and spill.
+constexpr int kInlineWords = 22;
+
+template <int NW>
+__device__ __forceinline__ Words<NW> mul_mont(const Words<NW>& a, const Words<NW>& b,
+                                              const R12Consts<NW>& c) {
+  if constexpr (NW > kInlineWords)
+    return mul_mont_rolled<NW>(a, b, c);
+  else
+    return mul_mont_unrolled<NW>(a, b, c);
 }
 
 // L uint32 limbs (little-endian) -> NW words in [0, 2^12).

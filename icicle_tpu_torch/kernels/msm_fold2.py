@@ -26,8 +26,7 @@ the two agree bit for bit. The plain version repeats the kernel's
 association at any S, so kernel and plain agree bit for bit at the same
 S; other S give other projective coordinates of the same point.
 
-B6 is built for 8 limbs; its 12- and 24-limb instances wait for the
-limb-count template's other kernels (ROADMAP.md queue A item 6).
+B6 is built for every G1 curve: 8, 12 and 24 limbs, one library each.
 
 Layout: plimbs (K, 2L, C) int32 Montgomery x || y, flags (K, C) int32;
 out (3L, C), x / y / z rows. The Pallas kernel takes the points as bf16

@@ -20,8 +20,7 @@ The kernel splits each lane's K slots into S segments (`accum_segments`):
      padd(carry_s, total_s);
   3. fixup: the first row a segment s >= 1 stored, where that row's run
      began in an earlier segment, becomes padd(carry_s, row).
-B7 is built for 8 limbs; its 12- and 24-limb instances wait for the
-limb-count template's other kernels (ROADMAP.md queue A item 6).
+B7 is built for every G1 curve: 8, 12 and 24 limbs, one library each.
 `bucket_accum_ref` repeats this association, so the two agree bit for bit
 at the same S; other S give other projective coordinates of the same
 points. At segments=1 both are the serial fold of the XLA twin

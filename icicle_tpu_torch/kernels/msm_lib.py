@@ -12,10 +12,13 @@ which lies over Fq), 2 for G2 over Fp2. B3 (`prefix_scan`), B4
 grumpkin), (12, 1) (bls12_377, bls12_381), (24, 1) (bw6_761), and over
 Fp2 for (8, 2) (bn254's G2) and (12, 2) (bls12_377's and bls12_381's G2):
 B3 and B4 as one library an instance (`msm_scan_l12`, `msm_scan_fp2`,
-...), the precompute kernel as one library a degree. B5, B6 and B7 are
-built for (8, 1). Over Fp every kernel multiplies by b3 = 3b as a small
-integer, and a curve without an instance raises before a launch; over Fp2
-b3 is a constant of the consts array. Every C entry point takes its
+...), the precompute kernel as one library a degree. B5
+(`prefix_scan_r12`), B6 (`suffix_fold`) and B7 (`bucket_accum`) are built
+over Fp only, for (8, 1), (12, 1) and (24, 1), one library an instance
+(`msm_scan_r12_l12`, `msm_fold2_l24`, ...); B5's libraries hold the
+radix-12 schedules of their limb count's curves. Over Fp every kernel
+multiplies by b3 = 3b as a small integer, and a curve without an instance
+raises before a launch; over Fp2 b3 is a constant of the consts array. Every C entry point takes its
 tensors' device pointers, its int dimensions, L (and D for the kernels
 with Fp2 instances), a host array of curve constants and the stream, and
 returns the launch's cudaError_t. The wrappers take a curve name, a
@@ -43,9 +46,12 @@ KERNELS = {"prefix_scan": ({8: "msm_scan", 12: "msm_scan_l12", 24: "msm_scan_l24
                          "icicle_msm_ec_reduce", 2, 3),
            "precompute_bases": (dict.fromkeys((8, 12, 24), "precompute_bases"),
                                 "icicle_msm_precompute_bases", 4, 3),
-           "prefix_scan_r12": ({8: "msm_scan_r12"}, "icicle_msm_prefix_scan_r12", 3, 3),
-           "suffix_fold": ({8: "msm_fold2"}, "icicle_msm_suffix_fold", 5, 4),
-           "bucket_accum": ({8: "bucket_accum"}, "icicle_msm_bucket_accum", 6, 4)}
+           "prefix_scan_r12": ({8: "msm_scan_r12", 12: "msm_scan_r12_l12",
+                                24: "msm_scan_r12_l24"}, "icicle_msm_prefix_scan_r12", 3, 3),
+           "suffix_fold": ({8: "msm_fold2", 12: "msm_fold2_l12", 24: "msm_fold2_l24"},
+                           "icicle_msm_suffix_fold", 5, 4),
+           "bucket_accum": ({8: "bucket_accum", 12: "bucket_accum_l12", 24: "bucket_accum_l24"},
+                            "icicle_msm_bucket_accum", 6, 4)}
 # kernel -> {base limb count: library} over Fp2; these kernels' C entry
 # points take the degree D after L (every instance of them)
 FP2_KERNELS = {"prefix_scan": {8: "msm_scan_fp2", 12: "msm_scan_fp2_l12"},
@@ -226,8 +232,7 @@ def require_instance(kernel: str, group) -> None:
     if nl not in built or b3_small(group) is None:
         has = f"{nl} limbs" if nl not in built else "a b3 that is not a small integer"
         raise not_built(kernel, group, f"the CUDA kernel is built for {counts}-limb fields "
-                        f"with a small b3, and {group.curve.name} has {has} (other instances "
-                        "of the limb-count template: ROADMAP.md queue A item 6)")
+                        f"with a small b3, and {group.curve.name} has {has}")
 
 
 def launch(kernel: str, group, tensors, dims, consts=None) -> None:

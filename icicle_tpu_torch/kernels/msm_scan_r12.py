@@ -36,11 +36,14 @@ segments=1 both are the serial fold of the JAX XLA twin
 of other projective coordinates of the same points; the MSM's extraction
 and unshift (ops/msm_tpu3.py) take any value below 4p.
 
-The kernel is instantiated for bn254 only (nw = 22, L = 8, b3 = 9 as a
-small integer): the audit decides the normalisations from static bounds,
-so for one curve they are a fixed schedule, `KERNEL_SCHEDULE` for the
-mixed add and `PADD_SCHEDULE` for the projective add, which the CUDA
-source hard-codes. The wrapper raises for any other curve.
+The audit decides the normalisations from static bounds, so for one curve
+they are a fixed schedule: `KERNEL_SCHEDULES[curve]` says which operands
+each Montgomery multiply of the mixed add and of the projective add
+normalises first, and kernels/csrc/r12_schedules.cuh, which the CUDA source
+applies, holds the same tables (both pinned to the audit by CPU tests).
+The kernel is built for every G1 curve, one library a limb count (8:
+bn254 at nw 22, grumpkin at 23; 12: bls12_377 at 32, bls12_381 at 33; 24:
+bw6_761 at 64; `r12_engine` picks nw), b3 a small integer on each.
 """
 
 from __future__ import annotations
@@ -52,28 +55,27 @@ import torch
 
 from icicle_tpu_torch.kernels import msm_lib
 from icicle_tpu_torch.kernels.msm_scan import check_segments, scan_segments
-from icicle_tpu_torch.math.radix12 import MASK, Radix12, int_to_words
+from icicle_tpu_torch.math.radix12 import MASK, RADIX, Radix12, int_to_words
 
-KERNEL_CURVE = "bn254"
+# The curves the kernel holds a schedule for, in the order of their index
+# in its consts (r12_schedules.cuh kCurve).
+R12_CURVES = ("bn254", "grumpkin", "bls12_377", "bls12_381", "bw6_761")
 
-# The operations of one `_madd_r12` on bn254, in order, as the CUDA kernel
-# performs them (kernels/csrc/msm_scan_r12.cu `madd_r12`): "mul" a Montgomery
-# multiply, "norm" a carry normalisation, "mul_small" the multiply by b3.
-# The audit inserts no normalisation into any multiply on bn254; every
-# "norm" here is one that `_madd_r12` itself writes.
-KERNEL_SCHEDULE = ("mul", "mul", "norm", "mul", "mul", "mul", "mul_small", "norm",
-                   "mul_small", "norm", "norm", "norm", "mul", "mul", "mul", "mul",
-                   "mul", "mul")
-
-# The operations of one `_padd_r12` on bn254 from two lazy points (words
-# <= 2 * 4095, the carry scan's operands), in order, as the CUDA kernel
-# performs them (msm_scan_r12.cu `padd_r12`). Here every "norm" but the two
-# after "mul_small" is one the audit puts into a multiply: of the first
-# operand of the three (a + b)(c + d) products, of t3 before t3 * t1, of t4
-# before z3 * t4 and of t0 before t0 * t3.
-PADD_SCHEDULE = ("mul", "mul", "mul", "norm", "mul", "norm", "mul", "norm", "mul",
-                 "mul_small", "norm", "mul_small", "norm", "norm", "mul", "mul", "mul",
-                 "mul", "norm", "mul", "norm", "mul")
+# curve -> (madd, padd): per Montgomery multiply of one `_madd_r12` (11) and
+# one `_padd_r12` from two lazy points (12), in call order, which operands
+# the overflow audit normalises first: bit 0 the first, bit 1 the second
+# (kernels/csrc/r12_schedules.cuh kMadd, kPadd). The normalisations that
+# `_madd_r12` and `_padd_r12` write themselves are not in the table. On
+# bn254 no multiply of the mixed add needs one; its projective add
+# normalises the first operand of the three (a + b)(c + d) products, t3 in
+# t3 * t1, t4 in z3 * t4 and t0 in t0 * t3.
+KERNEL_SCHEDULES = {
+    "bn254": ((0,) * 11, (0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 2, 1)),
+    "grumpkin": ((0,) * 11, (0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 2, 1)),
+    "bls12_377": ((0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0), (1, 1, 1, 3, 3, 3, 1, 0, 1, 0, 2, 1)),
+    "bls12_381": ((0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0), (1, 1, 1, 3, 3, 3, 1, 0, 1, 0, 2, 1)),
+    "bw6_761": ((1, 1, 2, 2, 2, 2, 0, 3, 2, 1, 1), (3, 3, 3, 3, 3, 3, 3, 1, 3, 2, 3, 3)),
+}
 
 
 class _BVal:
@@ -156,7 +158,7 @@ def _padd_r12(f: _R12Field, X1, Y1, Z1, X2, Y2, Z2, b3):
     (words <= 2 * 4095): a segment total and a running carry. Output
     coordinates are lazy (words <= 2 * 4095), a valid state for
     `_madd_r12`. The audit in `f.mul` normalises operands where a column
-    could overflow (bn254: `PADD_SCHEDULE`). b3 as in `_madd_r12`."""
+    could overflow (`KERNEL_SCHEDULES`). b3 as in `_madd_r12`."""
     m, add, sub = f.mul, f.add, f.sub
     mb3 = (lambda v: f.mul_small(v, b3)) if isinstance(b3, int) else (lambda v: m(v, b3))
     t0 = m(X1, X2)
@@ -176,6 +178,78 @@ def _padd_r12(f: _R12Field, X1, Y1, Z1, X2, Y2, Z2, b3):
     return x3, y3, z3
 
 
+class _VBound:
+    """A value's interval [lo, hi] (integers)."""
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo: int, hi: int):
+        self.lo = lo
+        self.hi = hi
+
+    def mag(self) -> int:
+        return max(-self.lo, self.hi)
+
+
+class _VField:
+    """Interval bounds of the values (not the words) through `_madd_r12`
+    and `_padd_r12`: a Montgomery multiply gives (a b + m p) / R' with
+    0 <= m < R', in [-|a b| / R', |a b| / R' + p]; `ok` turns false where
+    an operand's value could pass the word audit's assumption on the top
+    word of a normalised operand (below 2^12 at word nw - 1)."""
+
+    def __init__(self, eng: Radix12):
+        self.p, self.R = eng.p, eng.R
+        self.limit = MASK << (RADIX * (eng.nw - 1))
+        self.ok = True
+
+    def add(self, a, b):
+        return _VBound(a.lo + b.lo, a.hi + b.hi)
+
+    def sub(self, a, b):
+        return _VBound(a.lo - b.hi, a.hi - b.lo)
+
+    def norm(self, a):
+        return a
+
+    def mul_small(self, a, k: int):
+        return _VBound(min(k * a.lo, k * a.hi), max(k * a.lo, k * a.hi))
+
+    def mul(self, a, b):
+        self.ok = self.ok and max(a.mag(), b.mag()) < self.limit
+        q = -(-(a.mag() * b.mag()) // self.R)
+        return _VBound(-q, q + self.p)
+
+
+def value_audit(eng: Radix12, b3: int, steps: int = 4096) -> bool:
+    """Whether the E-stream's values stay where the engine's outputs need
+    them, for any canonical inputs: from the identity, the mixed add's
+    state intervals (each step's joined with the last) reach a fixed point
+    within `steps`, every state coordinate and every projective add of two
+    states lies in [-2p, 4p) (canon_nonneg then gives [0, 4p), which
+    `to_u32` and the unshift take), and no multiply operand passes the word
+    audit's assumption. Its failure is the state's values growing: a large
+    |b3| against R' / p (grumpkin, b3 = -51, R' / p ~ 2^10.4) or little
+    headroom (bls12_381, R' / p ~ 2^3.3) at the least word count."""
+    f = _VField(eng)
+    p = eng.p
+    canon = _VBound(0, p)
+    state = [_VBound(0, 0), canon, _VBound(0, 0)]
+    for _ in range(steps):
+        new = [_VBound(min(a.lo, b.lo), max(a.hi, b.hi))
+               for a, b in zip(_madd_r12(f, *state, canon, canon, b3), state)]
+        grew = any(a.lo != b.lo or a.hi != b.hi for a, b in zip(new, state))
+        state = new
+        if not f.ok or any(v.lo < -2 * p or v.hi >= 4 * p for v in state):
+            return False
+        if not grew:
+            break
+    else:
+        return False
+    total = _padd_r12(f, *state, *state, b3)
+    return f.ok and all(-2 * p <= v.lo and v.hi < 4 * p for v in total)
+
+
 def r12_segments(K: int, C: int) -> int:
     """Segments per lane for a (K, ., C) radix-12 scan: B3's rule
     (`scan_segments`) for one wave of blocks (msm_lib.ONE_WAVE_THREADS)."""
@@ -184,7 +258,17 @@ def r12_segments(K: int, C: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def r12_engine(curve_name: str) -> Radix12:
-    return Radix12(msm_lib.as_curve(curve_name).fq.modulus)
+    """The curve's radix-12 engine: the least word count from the JAX
+    package's (the least with R' > 4p) whose `value_audit` passes. That is
+    the JAX package's on bn254 (22), bls12_377 (32) and bw6_761 (64); one
+    word more on grumpkin (23) and bls12_381 (33), where the JAX package's
+    state leaves [-2p, 4p) and its MSM is wrong (ROADMAP.md section C)."""
+    curve = msm_lib.as_curve(curve_name)
+    b3 = msm_lib.b3_small(curve)
+    eng = Radix12(curve.fq.modulus)
+    while not value_audit(eng, b3):
+        eng = Radix12(eng.p, eng.nw + 1)
+    return eng
 
 
 def _words_const(eng: Radix12, value: int, like: torch.Tensor):
@@ -198,8 +282,8 @@ def prefix_scan_r12(curve, plimbs: torch.Tensor, *, _segments: int | None = None
 
     On a CUDA tensor this launches the kernel's passes on the current stream
     (no synchronisation), counts one launch in `prefix_scan_r12.launches`
-    per call and raises if a launch is refused or the curve is not bn254.
-    On a CPU tensor it computes `prefix_scan_r12_ref`."""
+    per call and raises if a launch is refused or the curve has no
+    instance. On a CPU tensor it computes `prefix_scan_r12_ref`."""
     curve = msm_lib.as_curve(curve)
     nl = curve.fq.nlimbs
     msm_lib.check_points("prefix_scan_r12", plimbs, 2 * nl)
@@ -219,26 +303,23 @@ def prefix_scan_r12(curve, plimbs: torch.Tensor, *, _segments: int | None = None
 prefix_scan_r12.launches = 0
 
 
-def kernel_consts(curve):
-    """The kernel's constants for `curve`; raises for any curve but the one
-    whose schedule the kernel hard-codes."""
-    if curve.name != KERNEL_CURVE:
-        raise msm_lib.not_built("prefix_scan_r12", curve,
-                                f"the CUDA kernel hard-codes {KERNEL_CURVE}'s radix-12 schedule "
-                                "(other curves' schedules, like the limb-count template's "
-                                "other kernels: ROADMAP.md queue A item 6)")
-    return _consts(curve.name)
-
-
 @functools.lru_cache(maxsize=None)
 def _consts(curve_name: str):
-    """{p12[nw], p2_12[nw], one[nw], inv12, b3} as a host uint32 array
-    (radix12.cuh R12Consts): words of p, 2p and R' mod p, -p^-1 mod 2^12,
-    b3 as a small signed integer's two's-complement bits."""
+    """{curve, p12[nw], p2_12[nw], one[nw], inv12, b3} as a host uint32
+    array: the curve's index in R12_CURVES (msm_scan_r12.cu picks its
+    schedule and word count by it), then radix12.cuh R12Consts: words of p,
+    2p and R' mod p, -p^-1 mod 2^12, b3 as a small signed integer's
+    two's-complement bits."""
     eng = r12_engine(curve_name)
     b3 = msm_lib.b3_small(msm_lib.as_curve(curve_name))
-    values = eng.p12 + eng.p2_12 + eng.one_mont + [eng.inv12, b3 & 0xFFFFFFFF]
+    values = ([R12_CURVES.index(curve_name)] + eng.p12 + eng.p2_12 + eng.one_mont
+              + [eng.inv12, b3 & 0xFFFFFFFF])
     return (ctypes.c_uint32 * len(values))(*values)
+
+
+def kernel_consts(curve):
+    """The kernel's constants for a G1 curve (R12_CURVES)."""
+    return _consts(curve.name)
 
 
 def prefix_scan_r12_ref(curve, plimbs: torch.Tensor, segments: int | None = None) -> torch.Tensor:

@@ -13,7 +13,9 @@ Bounds (the JAX package's contract): a "normalised" value has words in
 and `norm` give one. Lazy add/sub results have |w_k| <= 2^13; `mul_mont`
 takes at most the pair of bounds `audit_mul` accepts, which simulates the
 worst-case int32 columns exactly and raises OverflowError where one could
-overflow. Its output is normalised, value in (-p, 2p).
+overflow. Its output is normalised, value in (-p, 2p) where |a b| < p R'
+(the word audit bounds words, not values: kernels/msm_scan_r12.py
+`value_audit` picks the word count that keeps the MSM's values there).
 
 Bit-exactness with the JAX engine, which computes in int32:
   - `from_u32` widens the int32 limb bit patterns to int64 (`& 0xFFFFFFFF`)
@@ -42,9 +44,13 @@ def int_to_words(v: int, nw: int) -> list[int]:
 class Radix12:
     """Field engine over lists of per-word int32 tensors (struct of words)."""
 
-    def __init__(self, p: int):
+    def __init__(self, p: int, nw: int | None = None):
+        """nw: the word count, at least (and by default) the JAX package's,
+        the least with R' > 4p."""
         self.p = p
-        self.nw = -(-(p.bit_length() + 2) // RADIX)  # headroom for 4p
+        least = -(-(p.bit_length() + 2) // RADIX)  # headroom for 4p
+        assert nw is None or nw >= least, f"nw {nw} < {least}"
+        self.nw = nw or least
         self.rbits = RADIX * self.nw
         self.R = 1 << self.rbits
         assert self.R > 4 * p, "need R' > 4p for the (-2p, 2p) window"

@@ -80,6 +80,21 @@ def test_the_hash_libraries_are_listed():
         assert all(os.path.exists(os.path.join(build.CSRC, s)) for s in sources)
 
 
+@pytest.mark.parametrize("kernel,source", [("msm_scan_r12", "msm_scan_r12.cu"),
+                                           ("msm_fold2", "msm_fold2.cu"),
+                                           ("bucket_accum", "bucket_accum.cu")])
+def test_b5_b6_b7_have_a_library_a_limb_count(kernel, source):
+    """B5, B6 and B7 at 12 and 24 limbs: their sources compiled again with
+    ICICLE_EC_LIMBS, each its own nvcc; B5's over the schedules' header."""
+    assert build.LIBRARIES[kernel] == [source] and kernel not in build.DEFINES
+    for nl in (12, 24):
+        name = f"{kernel}_l{nl}"
+        assert build.LIBRARIES[name] == [source]
+        assert build.DEFINES[name] == [f"-DICICLE_EC_LIMBS={nl}"]
+        inputs = {os.path.basename(f) for f in build._inputs(name)}
+        assert {source, "r12_schedules.cuh", "radix12.cuh", "ec_field.cuh"} <= inputs
+
+
 def test_build_all_runs_nvcc_per_library_and_reports_its_time(tree, tmp_path, monkeypatch):
     """build_all starts one compiler process per stale library, moves each
     output into place, and ends each report with the process's wall time;
@@ -99,3 +114,45 @@ def test_build_all_runs_nvcc_per_library_and_reports_its_time(tree, tmp_path, mo
         assert float(lines[-1].split()[1]) >= 0
         assert os.path.exists(build.lib_path(name)) and not build._stale(name)
     assert build.build_all(names) == {}                  # nothing stale: nothing built
+
+
+def test_a_compile_in_flight_is_waited_for_not_started_again(tree, tmp_path, monkeypatch):
+    """A background build_all (as chip_smoke.py starts) and a load-time
+    build_all of the same library: one nvcc runs, the second call waits
+    for it and compiles nothing; a failed compile raises in both."""
+    import threading
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho x >> "%s"\nsleep 1\nprev=""\nfor a in "$@"; do\n'
+                    '  if [ "$prev" = "-o" ]; then : > "$a"; fi\n  prev="$a"\ndone\n'
+                    'case "$*" in *fail*) exit 1;; esac\n' % log)
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    out = {}
+    first = threading.Thread(target=lambda: out.update(first=build.build_all(["keccak"])))
+    first.start()
+    while "keccak" not in build._compiling:                # the first call's nvcc is running
+        pass
+    assert build.build_all(["keccak"]) == {}                # waited for, compiled nothing
+    first.join()
+    assert list(out["first"]) == ["keccak"] and not build._stale("keccak")
+    assert log.read_text().count("x") == 1
+    assert build.compile_reports()["keccak"] == out["first"]["keccak"]
+    monkeypatch.setitem(build.LIBRARIES, "fail_lib", ["fail.cu"])
+    (tree / "fail.cu").write_text("")
+    errors = []
+
+    def run():
+        try:
+            build.build_all(["fail_lib"])
+        except build.IcicleException as e:
+            errors.append(str(e))
+
+    second = threading.Thread(target=run)
+    second.start()
+    while "fail_lib" not in build._compiling:
+        pass
+    run()
+    second.join()
+    assert len(errors) == 2 and all("libfail_lib.so" in e for e in errors)
+    assert not build._compiling

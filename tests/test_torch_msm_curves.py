@@ -3,7 +3,8 @@ plain versions run here) over bls12_377, bls12_381 and bw6_761 against the
 python-int oracle (tests/ec_ref.py), as the JAX package's tests/test_msm.py
 (:45, :171) runs its MSM; the plain B3 and B4 at 12 limbs against the JAX
 package's XLA twins (make_prefix_scan_xla, make_ec_reduce_xla); and which
-limb counts each CUDA kernel is built for.
+limb counts each CUDA kernel is built for: B3-B7 every G1 curve, none of B5-B7
+over Fp2.
 
 The 12- and 24-limb CUDA instances are held bit for bit against these plain
 versions on the card by chip_smoke.py. Tolerance: exact equality (limbs;
@@ -23,6 +24,7 @@ from icicle_tpu_torch.curves.group import Affine, get_group
 from icicle_tpu_torch.kernels import ec_reduce as TR
 from icicle_tpu_torch.kernels import msm_lib
 from icicle_tpu_torch.kernels import msm_scan as TS
+from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 from tests.ec_ref import INF, ec_mul, ec_neg, msm_ref
@@ -128,11 +130,28 @@ def test_b3_b4_and_precompute_have_every_curve(kernel, curve_name):
 
 
 @pytest.mark.parametrize("kernel", ["prefix_scan_r12", "suffix_fold", "bucket_accum"])
-def test_8_limb_kernels_refuse_wider_curves(kernel):
-    """B5, B6 and B7 stay 8-limb instances: a 12- or 24-limb curve raises
-    API_NOT_IMPLEMENTED before any library is loaded."""
-    assert msm_lib.built_limbs(kernel) == (8,)
-    for name in ("bls12_381", "bw6_761"):
-        with pytest.raises(IcicleException, match="built for 8-limb") as e:
-            msm_lib.require_instance(kernel, msm_lib.as_curve(name))
-        assert e.value.code == IcicleError.API_NOT_IMPLEMENTED
+@pytest.mark.parametrize("curve_name", ["bn254", "grumpkin", "bls12_377", "bls12_381",
+                                        "bw6_761"])
+def test_b5_b6_b7_have_every_curve(kernel, curve_name):
+    """B5, B6 and B7 are built for 8, 12 and 24 limbs too: every G1 curve
+    passes the pre-launch check (callable on the CPU), and B5's consts name
+    a schedule the curve's library holds."""
+    assert msm_lib.built_limbs(kernel) == (8, 12, 24)
+    curve = msm_lib.as_curve(curve_name)
+    msm_lib.require_instance(kernel, curve)
+    if kernel == "prefix_scan_r12":
+        consts = TS12.kernel_consts(curve)
+        nw = TS12.r12_engine(curve_name).nw
+        assert len(consts) == 1 + 3 * nw + 2
+        assert consts[0] == TS12.R12_CURVES.index(curve_name)
+
+
+@pytest.mark.parametrize("kernel", ["prefix_scan_r12", "suffix_fold", "bucket_accum"])
+def test_fp_only_kernels_refuse_g2(kernel):
+    """B5, B6 and B7 have no instance over Fp2 (v2, v1 and r12 take G1
+    only): a G2 group raises API_NOT_IMPLEMENTED before any library is
+    loaded."""
+    assert msm_lib.built_limbs(kernel, degree=2) == ()
+    with pytest.raises(IcicleException, match="over Fp2") as e:
+        msm_lib.require_instance(kernel, get_group("bls12_381", g2=True))
+    assert e.value.code == IcicleError.API_NOT_IMPLEMENTED

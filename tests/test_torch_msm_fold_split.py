@@ -76,44 +76,50 @@ def _v2_flags(seed: int) -> np.ndarray:
 FLAGS = {"random": _random_flags(1), "v2": _v2_flags(2)}
 
 
+# a 12-limb curve beside bn254 for the split's twin comparisons
+WIDE = "bls12_381"
+
+
 @functools.lru_cache(maxsize=None)
-def _points() -> np.ndarray:
-    x = _scan_input(K, C, seed=81)                   # (K, 2L, C) Montgomery curve points
+def _points(curve: str = CURVE) -> np.ndarray:
+    x = _scan_input(K, C, 81, curve)                 # (K, 2L, C) Montgomery curve points
     assert (x >= 1 << 31).any()
     return x
 
 
 @functools.lru_cache(maxsize=None)
-def _xla(stream: str):
+def _xla(stream: str, curve: str = CURVE):
     """The twin's D per lane (its serial fold), as uint32 limbs (3L, C); its
     input is the coordinate bytes, then the flag word, then padding."""
-    limbs = _points().transpose(0, 2, 1)             # (K, C, 2L); y already signed
-    planes = np.stack([(limbs >> (8 * b)) & 0xFF for b in range(4)], -1).reshape(K, C, 8 * NL)
+    limbs = _points(curve).transpose(0, 2, 1)        # (K, C, 2L); y already signed
+    nl = limbs.shape[-1] // 2
+    planes = np.stack([(limbs >> (8 * b)) & 0xFF for b in range(4)], -1).reshape(K, C, 8 * nl)
     rows = np.concatenate([planes, FLAGS[stream][..., None], np.zeros((K, C, 7))], -1)
     pbytes = jnp.asarray(rows.transpose(0, 2, 1)[None].astype(np.float32)).astype(jnp.bfloat16)
-    return np.concatenate([np.asarray(d) for d in make_suffix_fold_xla(CURVE, K, C)(pbytes)])
+    return np.concatenate([np.asarray(d) for d in make_suffix_fold_xla(curve, K, C)(pbytes)])
 
 
-def _fold(stream: str, **kw) -> torch.Tensor:
-    return TF.suffix_fold_ref(CURVE, _i32(_points()), torch.from_numpy(FLAGS[stream]), **kw)
+def _fold(stream: str, curve: str = CURVE, **kw) -> torch.Tensor:
+    return TF.suffix_fold_ref(curve, _i32(_points(curve)), torch.from_numpy(FLAGS[stream]), **kw)
 
 
+@pytest.mark.parametrize("curve", [CURVE, WIDE])
 @pytest.mark.parametrize("stream", ["random", "v2"])
-def test_serial_fold_is_bit_exact_with_xla_twin(stream):
-    got = _fold(stream, segments=1, reduce_segments=1)
-    assert got.shape == (3 * NL, C) and got.dtype == torch.int32
-    assert np.array_equal(got.numpy().view(np.uint32), _xla(stream))
+def test_serial_fold_is_bit_exact_with_xla_twin(stream, curve):
+    got = _fold(stream, curve, segments=1, reduce_segments=1)
+    assert got.shape == (3 * jcurve(curve).fq.nlimbs, C) and got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), _xla(stream, curve))
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("curve,S", [*((CURVE, S) for S in (1, 2, 3, 4, 8)), (WIDE, 3), (WIDE, 8)])
 @pytest.mark.parametrize("stream", ["random", "v2"])
-def test_split_fold_matches_xla_twin_as_affine(stream, S):
+def test_split_fold_matches_xla_twin_as_affine(stream, curve, S):
     """At K 24, S 8 gives segments of 3 slots and S 3 of 8; the random
     stream's lane 0 has no run end (D the identity), lane 1 one at every
     slot."""
-    got = _fold(stream, segments=S)
-    want = _affine_ints(_xla(stream))
-    assert _affine_ints(got.numpy().view(np.uint32)) == want
+    got = _fold(stream, curve, segments=S)
+    want = _affine_ints(_xla(stream, curve), curve)
+    assert _affine_ints(got.numpy().view(np.uint32), curve) == want
     if stream == "random":
         assert want[0] is None and want[1] is not None
 

@@ -39,16 +39,16 @@ CURVE = "bn254"
 NL = 8
 
 
-def _pool(seed: int, n: int):
-    c = jcurve(CURVE)
+def _pool(seed: int, n: int, curve: str = CURVE):
+    c = jcurve(curve)
     rng = np.random.default_rng(seed)
     return [ec_mul((c.gen_x, c.gen_y), int(k), c.fq.modulus)
             for k in rng.integers(1, 1 << 40, size=n)]
 
 
-def _mont_limbs(values) -> np.ndarray:
+def _mont_limbs(values, curve: str = CURVE) -> np.ndarray:
     """Python ints -> (n, L) uint32 Montgomery limbs."""
-    fq = jcurve(CURVE).fq
+    fq = jcurve(curve).fq
     return np.asarray(fq.to_mont(fq.from_ints(list(values))))
 
 
@@ -60,19 +60,19 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
 
 
-def _scan_input(K: int, C: int, seed: int) -> np.ndarray:
+def _scan_input(K: int, C: int, seed: int, curve: str = CURVE) -> np.ndarray:
     """(K, 2L, C) uint32 Montgomery x || y of curve points: lane 0 repeats
     one point, lane 1 alternates P, -P, the rest draw from a pool."""
-    mod = jcurve(CURVE).fq.modulus
-    pool = _pool(seed, 48)
+    mod, nl = jcurve(curve).fq.modulus, jcurve(curve).fq.nlimbs
+    pool = _pool(seed, 48, curve)
     rng = np.random.default_rng(seed + 1)
     pts = [[pool[int(rng.integers(len(pool)))] for _ in range(C)] for _ in range(K)]
     for k in range(K):
         pts[k][0] = pool[0]
         pts[k][1] = pool[1] if k % 2 == 0 else ec_neg(pool[1], mod)
     flat = [p for row in pts for p in row]
-    x = _mont_limbs([p[0] for p in flat]).reshape(K, C, NL)
-    y = _mont_limbs([p[1] for p in flat]).reshape(K, C, NL)
+    x = _mont_limbs([p[0] for p in flat], curve).reshape(K, C, nl)
+    y = _mont_limbs([p[1] for p in flat], curve).reshape(K, C, nl)
     return np.ascontiguousarray(np.concatenate([x, y], -1).transpose(0, 2, 1))
 
 
@@ -96,12 +96,12 @@ def _reduce_input(R: int, C: int, seed: int) -> np.ndarray:
     return _u32(out.permute(0, 2, 3, 1).reshape(R, 3 * NL, C).contiguous())
 
 
-def _affine_ints(proj_3l_c: np.ndarray):
+def _affine_ints(proj_3l_c: np.ndarray, curve: str = CURVE):
     """(3L, C) uint32 projective Montgomery -> list of affine int pairs."""
-    fq = jcurve(CURVE).fq
-    p = fq.modulus
-    rinv = pow(1 << 256, -1, p)
-    x, y, z = (fq.to_ints(proj_3l_c[i * NL:(i + 1) * NL].T) for i in range(3))
+    fq = jcurve(curve).fq
+    p, nl = fq.modulus, fq.nlimbs
+    rinv = pow(1 << (32 * nl), -1, p)
+    x, y, z = (fq.to_ints(proj_3l_c[i * nl:(i + 1) * nl].T) for i in range(3))
     out = []
     for xi, yi, zi in zip(x, y, z):
         zi = zi * rinv % p
@@ -199,8 +199,8 @@ def test_wrappers_reject_bad_inputs(fn, rows):
 @pytest.mark.parametrize("kernel", ["ec_reduce", "prefix_scan", "bucket_accum"])
 def test_kernel_launch_rejects_other_limb_counts(kernel, monkeypatch):
     """A limb count with no built instance raises before anything is loaded
-    or launched: B7 has only its 8-limb instance, and B3 and B4 without
-    their 12-limb library refuse a 12-limb curve."""
+    or launched: B3, B4 and B7 without their 12-limb library refuse a
+    12-limb curve."""
     c = get_group("bls12_377").curve
     x = torch.zeros((2, 36, 4), dtype=torch.int32)
     libraries, *rest = msm_lib.KERNELS[kernel]

@@ -22,7 +22,7 @@ from icicle_tpu_torch.kernels import msm_scan as TS
 from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
-from tests.ec_ref import INF, ec_mul, ec_neg, msm_ref
+from tests.ec_ref import INF, ec_add, ec_mul, ec_neg, msm_ref
 
 # The tier-1 run puts six pytest workers on the same cores; torch's intra-op
 # threads then oversubscribe them and these small-tensor ops run ~10x slower.
@@ -38,10 +38,11 @@ def _i32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.uint32).view(np.int32))
 
 
-def _points(n, seed):
-    c = jcurve(CURVE)
+def _points(n, seed, curve=CURVE):
+    c = jcurve(curve)
     rng = np.random.default_rng(seed)
-    return [ec_mul((c.gen_x, c.gen_y), int(k), MOD) for k in rng.integers(1, 1 << 28, size=n)]
+    return [ec_mul((c.gen_x, c.gen_y), int(k), c.fq.modulus)
+            for k in rng.integers(1, 1 << 28, size=n)]
 
 
 def _tensors(scalars, pts):
@@ -55,37 +56,65 @@ def _want(scalars, pts):
     return w if w is not INF else (0, 0)
 
 
-def _scan_input(K, C, seed):
-    """(K, 2L, C) uint32 R'-domain x || y of curve points, canonical; lane 1
-    alternates P and -P."""
-    rp = TS12.r12_engine(CURVE).R % MOD
-    pool = _points(16, seed)
+def _scan_lanes(K, C, seed, curve=CURVE):
+    """(K, C) affine curve points; lane 1 alternates P and -P."""
+    mod = jcurve(curve).fq.modulus
+    pool = _points(16, seed, curve)
     rng = np.random.default_rng(seed + 1)
     pts = [[pool[int(rng.integers(len(pool)))] for _ in range(C)] for _ in range(K)]
     for k in range(K):
-        pts[k][1] = pool[0] if k % 2 == 0 else ec_neg(pool[0], MOD)
-    flat = [p for row in pts for p in row]
-    fq = jcurve(CURVE).fq
-    x = np.asarray(fq.from_ints([p[0] * rp % MOD for p in flat])).reshape(K, C, NL)
-    y = np.asarray(fq.from_ints([p[1] * rp % MOD for p in flat])).reshape(K, C, NL)
+        pts[k][1] = pool[0] if k % 2 == 0 else ec_neg(pool[0], mod)
+    return pts
+
+
+def _scan_input(K, C, seed, curve=CURVE, pts=None):
+    """(K, 2L, C) uint32 R'-domain x || y of `_scan_lanes` points,
+    canonical."""
+    fq = jcurve(curve).fq
+    mod, nl = fq.modulus, fq.nlimbs
+    rp = TS12.r12_engine(curve).R % mod
+    flat = [p for row in (pts or _scan_lanes(K, C, seed, curve)) for p in row]
+    x = np.asarray(fq.from_ints([p[0] * rp % mod for p in flat])).reshape(K, C, nl)
+    y = np.asarray(fq.from_ints([p[1] * rp % mod for p in flat])).reshape(K, C, nl)
     return np.ascontiguousarray(np.concatenate([x, y], -1).transpose(0, 2, 1))
 
 
-def test_prefix_scan_r12_ref_matches_xla_twin():
+# B5's plain version against the JAX twin where the port's word count is the
+# JAX package's (bn254, bls12_377; bw6_761's twin compiles for minutes:
+# slow), else (grumpkin, bls12_381, one word more) and for bw6_761 in tier 1
+# against Python ints, as projective points
+TWIN = {CURVE: "twin", "bls12_377": "twin", "grumpkin": "oracle", "bls12_381": "oracle",
+        "bw6_761": "oracle"}
+
+
+@pytest.mark.parametrize("curve,against", [*TWIN.items(),
+                                           pytest.param("bw6_761", "twin",
+                                                        marks=pytest.mark.slow)])
+def test_prefix_scan_r12_ref_matches_xla_twin(curve, against):
     K, C = 3, 8
-    x = _scan_input(K, C, seed=1)
+    fq = jcurve(curve).fq
+    mod, nl = fq.modulus, fq.nlimbs
+    lanes = _scan_lanes(K, C, 1, curve)
+    x = _scan_input(K, C, 1, curve, lanes)
     assert (x >= 1 << 31).any()
-    with jax.disable_jit():
-        want = np.asarray(make_prefix_scan_r12_xla(CURVE, K, C)(jnp.asarray(x[None])))[0]
-    got = TS12.prefix_scan_r12_ref(CURVE, _i32(x))
-    assert got.shape == (K, 3 * NL, C) and got.dtype == torch.int32
-    assert np.array_equal(got.numpy().view(np.uint32), want)
-    # every output value lies in [0, 4p)
-    fq = jcurve(CURVE).fq
-    for k in range(K):
-        for coord in range(3):
-            vals = fq.to_ints(want[k, coord * NL:(coord + 1) * NL].T)
-            assert all(0 <= v < 4 * MOD for v in vals)
+    got = TS12.prefix_scan_r12_ref(curve, _i32(x))
+    assert got.shape == (K, 3 * nl, C) and got.dtype == torch.int32
+    out = got.numpy().view(np.uint32)
+    if against == "twin":
+        assert TS12.r12_engine(curve).nw == TS12.Radix12(mod).nw
+        with jax.disable_jit():
+            want = np.asarray(make_prefix_scan_r12_xla(curve, K, C)(jnp.asarray(x[None])))[0]
+        assert np.array_equal(out, want)
+    rinv = pow(TS12.r12_engine(curve).R, -1, mod)
+    for lane in range(C):
+        acc = INF
+        for k in range(K):
+            acc = ec_add(acc, lanes[k][lane], mod)
+            vals = [fq.to_ints(out[k, i * nl:(i + 1) * nl, lane][None])[0] for i in range(3)]
+            assert all(0 <= v < 4 * mod for v in vals)          # every value in [0, 4p)
+            X, Y, Z = (int(v) * rinv % mod for v in vals)
+            assert (None if Z == 0 else (X * pow(Z, -1, mod) % mod, Y * pow(Z, -1, mod) % mod)) \
+                == acc
 
 
 def test_wrapper_on_cpu_computes_plain_version_and_launches_nothing():
@@ -102,13 +131,13 @@ def test_wrapper_rejects_bad_inputs_and_other_curves():
                 torch.zeros((2, 2 * NL, 4), dtype=torch.int32, device="meta")):
         with pytest.raises(IcicleException):
             TS12.prefix_scan_r12(CURVE, bad)
-    # the kernel hard-codes bn254's schedule: grumpkin (8 limbs, small b3)
-    # and bls12_377 are refused before any launch
-    for name in ("grumpkin", "bls12_377"):
-        with pytest.raises(IcicleException, match="bn254") as e:
-            TS12.kernel_consts(get_curve(name))
-        assert e.value.code == IcicleError.API_NOT_IMPLEMENTED
-    assert len(TS12.kernel_consts(get_curve(CURVE))) == 3 * 22 + 2
+    # the kernel holds every G1 curve's schedule: grumpkin (8 limbs, nw 23)
+    # and bls12_377 (12 limbs, nw 32) get consts {curve, p, 2p, R', inv12, b3}
+    for name, nw in (("grumpkin", 23), ("bls12_377", 32)):
+        consts = TS12.kernel_consts(get_curve(name))
+        assert TS12.r12_engine(name).nw == nw and len(consts) == 1 + 3 * nw + 2
+        assert consts[0] == TS12.R12_CURVES.index(name)
+    assert len(TS12.kernel_consts(get_curve(CURVE))) == 1 + 3 * 22 + 2
 
 
 def test_unaligned_and_zeros():
@@ -166,22 +195,25 @@ def test_engine_from_environment(monkeypatch):
         TM3.msm_tpu3_prepare(CURVE, x, y, c=6)
 
 
-def test_prepared_from_jax_r12_bases():
-    c = jcurve(CURVE)
-    pts = _points(40, 15)
+@pytest.mark.parametrize("curve", [CURVE, "grumpkin"])
+def test_prepared_from_jax_r12_bases(curve):
+    """grumpkin: the JAX package's R' = 2^264, moved into the port's 2^276."""
+    c = jcurve(curve)
+    pts = _points(40, 15, curve)
     rng = np.random.default_rng(16)
-    scalars = [int.from_bytes(rng.bytes(40), "little") % R for _ in range(40)]
+    scalars = [int.from_bytes(rng.bytes(40), "little") % c.fr.modulus for _ in range(40)]
     px = np.asarray(c.fq.from_ints([p[0] for p in pts]))
     py = np.asarray(c.fq.from_ints([p[1] for p in pts]))
     with jax.disable_jit():        # eager: skips a ~40 s CPU compile of _prep_fn3
-        jprep = jax_prepare(CURVE, px, py, c=6, T=16, engine="r12")
+        jprep = jax_prepare(curve, px, py, c=6, T=16, engine="r12")
         jprep["pts_u8"] = np.asarray(jprep["pts_u8"])
-    prepared = interop.prepared_from_numpy(CURVE, jprep, "cpu")
-    own = TM3.msm_tpu3_prepare(CURVE, _i32(px), _i32(py), c=6, T=16, engine="r12")
+    prepared = interop.prepared_from_numpy(curve, jprep, "cpu")
+    own = TM3.msm_tpu3_prepare(curve, _i32(px), _i32(py), c=6, T=16, engine="r12")
     assert prepared["engine"] == own["engine"] == "r12"
     assert torch.equal(own["pts"], prepared["pts"])            # R'-domain limbs
-    got = TM3.msm_tpu3(CURVE, _i32(c.fr.from_ints(scalars)), prepared=prepared)
-    assert got == _want(scalars, pts)
+    got = TM3.msm_tpu3(curve, _i32(c.fr.from_ints(scalars)), prepared=prepared)
+    want = msm_ref(scalars, pts, c.fq.modulus)
+    assert got == ((0, 0) if want is INF else want)
 
 
 def test_bigfield_mul_mont_takes_values_below_4p():

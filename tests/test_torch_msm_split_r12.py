@@ -24,14 +24,17 @@ import pytest
 import torch
 
 from icicle_tpu.curves.params import get_curve as jcurve
+from icicle_tpu.pallas import msm_scan_r12 as JS12
 from icicle_tpu.pallas.msm_scan_r12 import make_prefix_scan_r12_xla
 from icicle_tpu_torch.curves.group import Projective, get_group
+from icicle_tpu_torch.curves.params import get_curve
+from icicle_tpu_torch.kernels import msm_lib
 from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 from icicle_tpu_torch.ops import msm_tpu3 as TM3
 from icicle_tpu_torch.runtime.errors import IcicleException
 from tests.ec_ref import INF, ec_add, ec_mul, ec_neg, msm_ref
 from tests.test_torch_msm_r12 import _scan_input
-from tests.test_torch_radix12 import _Recorder
+from tests.test_torch_radix12 import _Recorder, header_schedules, jax_engine_at, schedule_codes
 
 # The tier-1 run puts six pytest workers on the same cores; torch's intra-op
 # threads then oversubscribe them and these small-tensor ops run ~10x slower.
@@ -145,61 +148,79 @@ def test_padd_r12_equals_u32_add_as_points():
                                                         for g, qq in zip(got, q)]
 
 
-def test_padd_schedule_is_the_audits():
-    """The sequence the CUDA kernel hard-codes (msm_scan_r12.cu padd_r12):
-    12 multiplies, 2 by b3, the 2 norms after them and the 6 the audit puts
-    into multiplies of lazy operands."""
-    rec = _Recorder(ENG)
+@pytest.mark.parametrize("curve", TS12.R12_CURVES)
+def test_padd_schedule_is_the_audits(curve):
+    """The projective add's normalisations, which the CUDA kernel applies
+    (msm_scan_r12.cu padd_r12 over r12_schedules.cuh): 12 multiplies, 2 by
+    b3 and the 2 norms after them, and those the audit puts into
+    multiplies of lazy operands (6 on bn254), by the port's field and by
+    the JAX package's, equal KERNEL_SCHEDULES and the header."""
+    eng = TS12.r12_engine(curve)
+    b3 = msm_lib.b3_small(get_curve(curve))
+    rec = _Recorder(eng)
     f = TS12._R12Field(rec)
-    TS12._padd_r12(f, *(TS12._BVal(["w"], LAZY) for _ in range(6)), B3)
+    TS12._padd_r12(f, *(TS12._BVal(["w"], LAZY) for _ in range(6)), b3)
     got = tuple(rec.log)
-    assert got == TS12.PADD_SCHEDULE
-    assert [got.count(op) for op in ("mul", "mul_small", "norm")] == [12, 2, 8]
+    codes = TS12.KERNEL_SCHEDULES[curve][1]
+    assert [got.count(op) for op in ("mul", "mul_small")] == [12, 2]
+    assert got.count("norm") == 2 + sum(bin(c).count("1") for c in codes)
+    assert schedule_codes(TS12, eng, b3, padd=True) == schedule_codes(
+        JS12, jax_engine_at(curve), b3, padd=True) == codes
+    assert header_schedules()[curve]["padd"] == codes
+    if curve == CURVE:
+        assert codes == (0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 2, 1) and got.count("norm") == 8
 
 
-def _ints(t: torch.Tensor, lane: int, k: int):
+def _ints(t: torch.Tensor, lane: int, k: int, nl: int = NL):
     a = t[k, :, lane].numpy().view(np.uint32).astype(object)
-    return [sum(int(a[i * NL + j]) << (32 * j) for j in range(NL)) for i in range(3)]
+    return [sum(int(a[i * nl + j]) << (32 * j) for j in range(nl)) for i in range(3)]
 
 
-def _same_points(a: torch.Tensor, b: torch.Tensor) -> bool:
+def _same_points(a: torch.Tensor, b: torch.Tensor, curve: str = CURVE) -> bool:
     """(K, 3L, C) R'-domain outputs in [0, 4p), equal as projective points."""
+    fq = jcurve(curve).fq
+    mod, nl = fq.modulus, fq.nlimbs
     for k in range(a.shape[0]):
         for lane in range(a.shape[2]):
-            (X1, Y1, Z1), (X2, Y2, Z2) = _ints(a, lane, k), _ints(b, lane, k)
+            (X1, Y1, Z1), (X2, Y2, Z2) = _ints(a, lane, k, nl), _ints(b, lane, k, nl)
             if not (X1 or Y1 or Z1) or not (X2 or Y2 or Z2):
                 return False
-            if (X1 * Z2 - X2 * Z1) % MOD or (Y1 * Z2 - Y2 * Z1) % MOD or (X1 * Y2 - X2 * Y1) % MOD:
+            if (X1 * Z2 - X2 * Z1) % mod or (Y1 * Z2 - Y2 * Z1) % mod or (X1 * Y2 - X2 * Y1) % mod:
                 return False
     return True
 
 
 @functools.lru_cache(maxsize=None)
-def _scan(K: int):
-    x = _scan_input(K, LANES, seed=50 + K)
+def _scan(K: int, curve: str = CURVE):
+    x = _scan_input(K, LANES, 50 + K, curve)
     assert (x >= 1 << 31).any()
     return x
 
 
 @functools.lru_cache(maxsize=None)
-def _serial(K: int) -> torch.Tensor:
-    return TS12.prefix_scan_r12_ref(CURVE, _i32(_scan(K)), segments=1)
+def _serial(K: int, curve: str = CURVE) -> torch.Tensor:
+    return TS12.prefix_scan_r12_ref(curve, _i32(_scan(K, curve)), segments=1)
 
 
-@pytest.mark.parametrize("K", [1, 5, 8, 13])
-@pytest.mark.parametrize("S", [2, 3, 4, 8])
-def test_prefix_scan_r12_split_equals_serial_as_points(S, K):
+# bn254 at every (S, K); bls12_381 (12 limbs, nw 33) at two
+SPLITS = [(S, K, CURVE) for K in (1, 5, 8, 13) for S in (2, 3, 4, 8)] + \
+    [(4, 13, "bls12_381"), (3, 8, "bls12_381")]
+
+
+@pytest.mark.parametrize("S,K,curve", SPLITS)
+def test_prefix_scan_r12_split_equals_serial_as_points(S, K, curve):
     """Ragged last segments (13 = 4 + 4 + 4 + 1 at S 4), empty segments and
     K < S included; segment 0's rows are the serial ones, limb for limb;
     every value in [0, 4p)."""
-    got = TS12.prefix_scan_r12_ref(CURVE, _i32(_scan(K)), segments=S)
-    want = _serial(K)
-    assert got.shape == want.shape == (K, 3 * NL, LANES) and got.dtype == torch.int32
-    assert _same_points(got, want)
+    fq = jcurve(curve).fq
+    got = TS12.prefix_scan_r12_ref(curve, _i32(_scan(K, curve)), segments=S)
+    want = _serial(K, curve)
+    assert got.shape == want.shape == (K, 3 * fq.nlimbs, LANES) and got.dtype == torch.int32
+    assert _same_points(got, want, curve)
     n = -(-K // S)
     assert torch.equal(got[:n], want[:n])
-    assert all(0 <= v < 4 * MOD for k in range(K) for lane in range(LANES)
-               for v in _ints(got, lane, k))
+    assert all(0 <= v < 4 * fq.modulus for k in range(K) for lane in range(LANES)
+               for v in _ints(got, lane, k, fq.nlimbs))
 
 
 def test_prefix_scan_r12_split_changes_the_representative():

@@ -24,7 +24,7 @@ from icicle_tpu_torch.kernels import msm_kernel as TK
 from icicle_tpu_torch.ops import msm as TM
 from icicle_tpu_torch.ops import msm_tpu as TM1
 from icicle_tpu_torch.runtime.errors import IcicleException
-from tests.ec_ref import INF, ec_mul, msm_ref
+from tests.ec_ref import INF, ec_add, ec_mul, msm_ref
 
 # The tier-1 run puts six pytest workers on the same cores; torch's intra-op
 # threads then oversubscribe them and these small-tensor ops run ~10x slower.
@@ -65,31 +65,73 @@ def _want(scalars, pts):
     return w if w is not INF else (0, 0)
 
 
-def test_bucket_accum_ref_matches_xla_twin():
+def _accum_case(curve):
     """Key runs that restart inside a lane, a doubling (the same point twice
-    in a run), W = 2 windows; compared at the rows B7 promises, with the
-    serial fold (segments=1), the twin's order."""
+    in a run), W = 2 windows: (keys, px, py (W, K, C, L) Montgomery, the
+    affine points)."""
     W, K, C = 2, 6, 8
-    pts = _points(W * K * C, 1)
+    c = jcurve(curve)
+    fq, mod = c.fq, c.fq.modulus
+    rng = np.random.default_rng(1)
+    pts = [ec_mul((c.gen_x, c.gen_y), int(k), mod) for k in rng.integers(1, 1 << 28, size=W * K * C)]
     pts[C] = pts[0]                                  # window 0, lane 0: P then P
-    px = _mont([p[0] for p in pts]).reshape(W, K, C, NL)
-    py = _mont([p[1] for p in pts]).reshape(W, K, C, NL)
+    mont = lambda v: np.asarray(fq.to_mont(fq.from_ints(list(v))))
+    px = mont([p[0] for p in pts]).reshape(W, K, C, fq.nlimbs)
+    py = mont([p[1] for p in pts]).reshape(W, K, C, fq.nlimbs)
     keys = np.sort(np.random.default_rng(2).integers(0, 4, size=(W, K, C)), axis=1).astype(np.int32)
     keys[0, :2, 0] = 3                               # keep lane 0's run
-    vx, vy, vz = make_bucket_accum_xla(CURVE, W, K, C)(jnp.asarray(keys), jnp.asarray(px),
+    return keys, px, py, pts
+
+
+@pytest.mark.parametrize("curve", [CURVE, "bls12_381", pytest.param("bw6_761", marks=pytest.mark.slow)])
+def test_bucket_accum_ref_matches_xla_twin(curve):
+    """At the rows B7 promises, with the serial fold (segments=1), the
+    twin's order; at 8, 12 and 24 limbs (the 24-limb twin compiles for
+    minutes: slow; test_bucket_accum_ref_24_limbs_matches_oracle holds it in
+    tier 1)."""
+    keys, px, py, _ = _accum_case(curve)
+    W, K, C, nl = px.shape
+    vx, vy, vz = make_bucket_accum_xla(curve, W, K, C)(jnp.asarray(keys), jnp.asarray(px),
                                                        jnp.asarray(py))
     want = np.concatenate([np.asarray(v) for v in (vx, vy, vz)], -1)        # (W, K, C, 3L)
     plimbs = np.ascontiguousarray(np.concatenate([px, py], -1).transpose(0, 1, 3, 2))
-    got = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(plimbs), segments=1)
-    assert got.shape == (W, K, 3 * NL, C) and got.dtype == torch.int32
+    got = TK.bucket_accum_ref(curve, torch.from_numpy(keys), _i32(plimbs), segments=1)
+    assert got.shape == (W, K, 3 * nl, C) and got.dtype == torch.int32
     # the contract: run ends and each lane's last slot, the rest zero
     rows = TK.contract_rows(torch.from_numpy(keys)).numpy()               # (W, K, C)
     assert np.array_equal(_u32(got.transpose(2, 3))[rows], want[rows])
     assert not _u32(got.transpose(2, 3))[~rows].any()
     TK.bucket_accum.launches = 0
-    assert torch.equal(TK.bucket_accum(CURVE, torch.from_numpy(keys), _i32(plimbs), _segments=1),
+    assert torch.equal(TK.bucket_accum(curve, torch.from_numpy(keys), _i32(plimbs), _segments=1),
                        got)
     assert TK.bucket_accum.launches == 0
+
+
+def test_bucket_accum_ref_24_limbs_matches_oracle():
+    """bw6_761's plain B7, serial and split, against Python ints at the
+    rows it promises: each the sum of its run's points so far."""
+    curve = "bw6_761"
+    keys, px, py, pts = _accum_case(curve)
+    W, K, C, nl = px.shape
+    fq, mod = jcurve(curve).fq, jcurve(curve).fq.modulus
+    plimbs = _i32(np.ascontiguousarray(np.concatenate([px, py], -1).transpose(0, 1, 3, 2)))
+    rows = TK.contract_rows(torch.from_numpy(keys)).numpy()
+    rinv = pow(1 << (32 * nl), -1, mod)
+    for S in (1, 3):
+        got = _u32(TK.bucket_accum_ref(curve, torch.from_numpy(keys), plimbs, segments=S)
+                   .transpose(2, 3))                                         # (W, K, C, 3L)
+        for w in range(W):
+            for lane in range(C):
+                acc = INF
+                for k in range(K):
+                    p = pts[(w * K + k) * C + lane]
+                    acc = p if k == 0 or keys[w, k, lane] != keys[w, k - 1, lane] \
+                        else ec_add(acc, p, mod)
+                    if rows[w, k, lane]:
+                        x, y, z = (int(v) * rinv % mod for v in fq.to_ints(
+                            got[w, k, lane].reshape(3, nl)))
+                        zi = pow(z, -1, mod)
+                        assert (x * zi % mod, y * zi % mod) == acc
 
 
 def test_bucket_accum_rejects_bad_inputs():

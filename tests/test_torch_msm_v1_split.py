@@ -48,48 +48,53 @@ def _keys(K: int, seed: int) -> np.ndarray:
     return keys
 
 
+# a 12-limb curve beside bn254 for the split's twin comparisons
+WIDE = "bls12_381"
+
+
 @functools.lru_cache(maxsize=None)
-def _case(K: int):
+def _case(K: int, curve: str = CURVE):
     """(keys, points (W, K, 2L, C) uint32, the twin's output (W, K, 3L, C))."""
     keys = _keys(K, seed=K)
-    pts = np.stack([_scan_input(K, C, seed=40 + K + w) for w in range(W)])   # (W, K, 2L, C)
-    px = np.ascontiguousarray(pts[:, :, :NL].transpose(0, 1, 3, 2))          # (W, K, C, L)
-    py = np.ascontiguousarray(pts[:, :, NL:].transpose(0, 1, 3, 2))
-    vx, vy, vz = make_bucket_accum_xla(CURVE, W, K, C)(jnp.asarray(keys), jnp.asarray(px),
+    pts = np.stack([_scan_input(K, C, 40 + K + w, curve) for w in range(W)])  # (W, K, 2L, C)
+    nl = pts.shape[2] // 2
+    px = np.ascontiguousarray(pts[:, :, :nl].transpose(0, 1, 3, 2))          # (W, K, C, L)
+    py = np.ascontiguousarray(pts[:, :, nl:].transpose(0, 1, 3, 2))
+    vx, vy, vz = make_bucket_accum_xla(curve, W, K, C)(jnp.asarray(keys), jnp.asarray(px),
                                                        jnp.asarray(py))
     want = np.concatenate([np.asarray(v) for v in (vx, vy, vz)], -1).transpose(0, 1, 3, 2)
     return keys, pts, np.ascontiguousarray(want)
 
 
-def _affine_rows(out: np.ndarray, rows: np.ndarray) -> list:
+def _affine_rows(out: np.ndarray, rows: np.ndarray, curve: str = CURVE) -> list:
     """The affine points of (W, K, 3L, C) uint32 at the rows (W, K, C)."""
     return [p for w in range(W) for k in range(out.shape[1])
-            for p, keep in zip(_affine_ints(out[w, k]), rows[w, k]) if keep]
+            for p, keep in zip(_affine_ints(out[w, k], curve), rows[w, k]) if keep]
 
 
-@pytest.mark.parametrize("K", [24, 61])
-def test_serial_fold_is_bit_exact_with_xla_twin(K):
-    keys, pts, want = _case(K)
-    got = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(pts), segments=1)
-    assert got.shape == (W, K, 3 * NL, C) and got.dtype == torch.int32
+@pytest.mark.parametrize("K,curve", [(24, CURVE), (61, CURVE), (24, WIDE)])
+def test_serial_fold_is_bit_exact_with_xla_twin(K, curve):
+    keys, pts, want = _case(K, curve)
+    got = TK.bucket_accum_ref(curve, torch.from_numpy(keys), _i32(pts), segments=1)
+    assert got.shape == (W, K, 3 * jcurve(curve).fq.nlimbs, C) and got.dtype == torch.int32
     rows = TK.contract_rows(torch.from_numpy(keys)).numpy()
     assert np.array_equal(_u32(got).transpose(0, 1, 3, 2)[rows],
                           want.transpose(0, 1, 3, 2)[rows])
     assert not _u32(got).transpose(0, 1, 3, 2)[~rows].any()
 
 
-@pytest.mark.parametrize("S", [3, 8])
-@pytest.mark.parametrize("K", [24, 61])
-def test_split_fold_matches_xla_twin_as_points(K, S):
+@pytest.mark.parametrize("K,S,curve", [(24, 3, CURVE), (24, 8, CURVE), (61, 3, CURVE),
+                                       (61, 8, CURVE), (24, 3, WIDE)])
+def test_split_fold_matches_xla_twin_as_points(K, S, curve):
     """K 61 leaves a ragged last segment (8 slots of 8 at S 8, 5 of 21 at
     S 3); window 0's lane 0 carries one run through every segment and its
     lane 1 resets at every slot."""
-    keys, pts, want = _case(K)
-    got = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(pts), segments=S)
+    keys, pts, want = _case(K, curve)
+    got = TK.bucket_accum_ref(curve, torch.from_numpy(keys), _i32(pts), segments=S)
     rows = TK.contract_rows(torch.from_numpy(keys)).numpy()
-    assert _affine_rows(_u32(got), rows) == _affine_rows(want, rows)
+    assert _affine_rows(_u32(got), rows, curve) == _affine_rows(want, rows, curve)
     assert rows[0, :, 1].all() and rows[0, :, 0].sum() == 1        # the two edge lanes
-    serial = TK.bucket_accum_ref(CURVE, torch.from_numpy(keys), _i32(pts), segments=1)
+    serial = TK.bucket_accum_ref(curve, torch.from_numpy(keys), _i32(pts), segments=1)
     assert not torch.equal(got, serial)                            # the split took effect
 
 

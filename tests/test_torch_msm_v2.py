@@ -21,7 +21,7 @@ from icicle_tpu_torch.kernels import msm_scan as TS
 from icicle_tpu_torch.ops import msm_tpu2 as TM2
 from icicle_tpu_torch.ops.msm import msm_precompute_bases
 from icicle_tpu_torch.runtime.errors import IcicleException
-from tests.ec_ref import INF, ec_mul, msm_ref
+from tests.ec_ref import INF, ec_add, ec_mul, msm_ref
 
 # The tier-1 run puts six pytest workers on the same cores; torch's intra-op
 # threads then oversubscribe them and these small-tensor ops run ~10x slower.
@@ -56,12 +56,16 @@ def _want(scalars, pts):
     return w if w is not INF else (0, 0)
 
 
-def test_suffix_fold_ref_matches_xla_twin():
+def _fold_case(curve):
     """Runs of keys with dummy slots (is_real = 0) and run ends (is_dacc)
-    inside K, negated y, a doubling, over a few lanes."""
+    inside K, negated y, a doubling, over a few lanes: (affine points,
+    Montgomery x, y (K, C, L), real, dacc, neg (K, C))."""
     K, C = 6, 8
-    fq = jcurve(CURVE).fq
-    pts, _ = _setup(K * C, 1)
+    c = jcurve(curve)
+    fq, NL = c.fq, c.fq.nlimbs
+    rng = np.random.default_rng(1)
+    pts = [ec_mul((c.gen_x, c.gen_y), int(k), fq.modulus)
+           for k in rng.integers(1, 1 << 28, size=K * C)]
     pts[C] = pts[0]                                  # lane 0: P then P
     mont = lambda v: np.asarray(fq.to_mont(fq.from_ints(v)))
     x = mont([p[0] for p in pts]).reshape(K, C, NL)
@@ -71,27 +75,71 @@ def test_suffix_fold_ref_matches_xla_twin():
     dacc = rng.random((K, C)) < 0.5
     dacc[-1] = True
     neg = (rng.random((K, C)) < 0.5) & real
+    return pts, x, y, real, dacc, neg
+
+
+def _port_fold_inputs(curve, x, y, real, dacc, neg):
+    """The port's input: y already negated (the +-P table), bits 0 and 1."""
+    yneg = np.asarray(jcurve(curve).fq.neg(jnp.asarray(y)))
+    ys = np.where(neg[..., None], yneg, y)
+    plimbs = np.ascontiguousarray(np.concatenate([x, ys], -1).transpose(0, 2, 1))
+    return _i32(plimbs), torch.from_numpy((real * TF.IS_REAL + dacc * TF.IS_DACC).astype(np.int32))
+
+
+@pytest.mark.parametrize("curve", [CURVE, "bls12_381",
+                                   pytest.param("bw6_761", marks=pytest.mark.slow)])
+def test_suffix_fold_ref_matches_xla_twin(curve):
+    """_fold_case at 8, 12 and 24 limbs (the 24-limb twin compiles for
+    minutes: slow; test_suffix_fold_ref_24_limbs_matches_oracle holds it in
+    tier 1)."""
+    pts, x, y, real, dacc, neg = _fold_case(curve)
+    K, C, NL = x.shape
     # the twin's input: coordinate bytes, then the flag word, then padding
     limbs = np.concatenate([x, y], -1)               # (K, C, 2L)
     planes = np.stack([(limbs >> (8 * b)) & 0xFF for b in range(4)], -1).reshape(K, C, 8 * NL)
     flags = real + 2 * dacc + 4 * neg
     rows = np.concatenate([planes, flags[..., None], np.zeros((K, C, 7))], -1)
     pbytes = jnp.asarray(rows.transpose(0, 2, 1)[None].astype(np.float32)).astype(jnp.bfloat16)
-    dx, dy, dz = make_suffix_fold_xla(CURVE, K, C)(pbytes)
+    dx, dy, dz = make_suffix_fold_xla(curve, K, C)(pbytes)
     want = np.concatenate([np.asarray(dx), np.asarray(dy), np.asarray(dz)])   # (3L, C)
-    # the port's input: y already negated (the +-P table), bits 0 and 1
-    yneg = np.asarray(fq.neg(jnp.asarray(y)))
-    ys = np.where(neg[..., None], yneg, y)
-    plimbs = np.ascontiguousarray(np.concatenate([x, ys], -1).transpose(0, 2, 1))
-    tflags = torch.from_numpy((real * TF.IS_REAL + dacc * TF.IS_DACC).astype(np.int32))
+    plimbs, tflags = _port_fold_inputs(curve, x, y, real, dacc, neg)
     # the serial fold (no split of the slots, a serial B4 over the run ends)
-    got = TF.suffix_fold_ref(CURVE, _i32(plimbs), tflags, segments=1, reduce_segments=1)
+    got = TF.suffix_fold_ref(curve, plimbs, tflags, segments=1, reduce_segments=1)
     assert got.shape == (3 * NL, C) and got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), want)
     TF.suffix_fold.launches = 0
-    assert torch.equal(TF.suffix_fold(CURVE, _i32(plimbs), tflags),
-                       TF.suffix_fold_ref(CURVE, _i32(plimbs), tflags))
+    assert torch.equal(TF.suffix_fold(curve, plimbs, tflags),
+                       TF.suffix_fold_ref(curve, plimbs, tflags))
     assert TF.suffix_fold.launches == 0
+
+
+def test_suffix_fold_ref_24_limbs_matches_oracle():
+    """bw6_761's plain B6, serial and split, against Python ints: per lane
+    D = the sum of E at its run ends, E the running sum of its real points
+    (signed)."""
+    curve = "bw6_761"
+    pts, x, y, real, dacc, neg = _fold_case(curve)
+    K, C, NL = x.shape
+    mod = jcurve(curve).fq.modulus
+    want = []
+    for lane in range(C):
+        e = d = INF
+        for k in range(K):
+            p = pts[k * C + lane]
+            if real[k, lane]:
+                e = ec_add(e, (p[0], (-p[1]) % mod) if neg[k, lane] else p, mod)
+            if dacc[k, lane]:
+                d = ec_add(d, e, mod)
+        want.append(d)
+    plimbs, tflags = _port_fold_inputs(curve, x, y, real, dacc, neg)
+    fq = jcurve(curve).fq
+    rinv = pow(1 << (32 * NL), -1, mod)
+    for S in (1, 3):
+        got = TF.suffix_fold_ref(curve, plimbs, tflags, S).numpy().view(np.uint32)   # (3L, C)
+        for lane in range(C):
+            X, Y, Z = (int(v) * rinv % mod for v in fq.to_ints(got[:, lane].reshape(3, NL)))
+            assert (None if Z == 0 else (X * pow(Z, -1, mod) % mod, Y * pow(Z, -1, mod) % mod)) \
+                == want[lane]
 
 
 def test_suffix_fold_rejects_bad_inputs():

@@ -49,7 +49,10 @@ def test_queue_a_parses():
 def test_every_citation_names_its_open_item():
     items = queue_a()
     found = citations()
-    assert len(found) >= 10
+    # the sites that still cite an open item (PR 16 built the B5-B7
+    # instances whose four refusals cited queue A item 6, and took the
+    # citations out with them)
+    assert len(found) >= 6
     for where, n, context in found:
         assert n in items and not items[n][1], f"{where}: item {n} is done or missing"
         topics = [t for t, words in TOPICS.items() if any(w in context for w in words)]

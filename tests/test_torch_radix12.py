@@ -5,6 +5,9 @@ run eagerly on the same words. Tolerance: exact equality of every word
 (the JAX engine computes in int32, the port's multiply sums its columns in
 int64; no column can leave int32, so the two are equal)."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from icicle_tpu.curves.params import get_curve as jcurve
 from icicle_tpu.math import radix12 as JX
 from icicle_tpu.pallas import msm_scan_r12 as JS12
 from icicle_tpu.pallas.msm_kernel import _b3_small
+from icicle_tpu_torch.kernels import build
 from icicle_tpu_torch.kernels import msm_scan_r12 as TS12
 from icicle_tpu_torch.math import radix12 as TX
 from tests.ec_ref import ec_mul
@@ -139,8 +143,9 @@ def test_audit_raises_at_the_same_bounds(curve_name):
 
 class _Recorder:
     """Stands in for an engine: records the multiplies and normalisations
-    of one `_madd_r12` (as KERNEL_SCHEDULE names them) and passes the
-    overflow audit through to the real engine."""
+    of one `_madd_r12` ("mul" a Montgomery multiply, "norm" a carry
+    normalisation, "mul_small" the multiply by b3) and passes the overflow
+    audit through to the real engine."""
 
     NAMES = {"mul_mont": "mul", "norm": "norm", "mul_small": "mul_small"}
 
@@ -167,18 +172,103 @@ def _schedule(module, eng, b3):
     return tuple(rec.log)
 
 
-@pytest.mark.parametrize("curve_name", CURVES)
+class _CodeRecorder:
+    """Stands in for an engine under a field class's `mul`: per Montgomery
+    multiply, which operands its overflow audit normalised first (bit 0 the
+    first, bit 1 the second), as KERNEL_SCHEDULES holds them. Only the norms
+    `mul` itself makes count; the audit is the real engine's."""
+
+    def __init__(self, eng):
+        self.eng, self.codes, self.inside = eng, [], False
+
+    def audit_mul(self, a, b):
+        return self.eng.audit_mul(a, b)
+
+    def norm(self, w):
+        return ("audit", w) if self.inside else w
+
+    def mul_mont(self, a, b):
+        self.codes.append(int(isinstance(a, tuple)) | int(isinstance(b, tuple)) << 1)
+        return "w"
+
+    def __getattr__(self, op):
+        return lambda *args: "w"
+
+
+def schedule_codes(module, eng, b3, padd: bool = False) -> tuple:
+    """The codes of one `_madd_r12` (the state lazy, the point normalised)
+    or, with `padd`, one `_padd_r12` from two lazy points, with `module`'s
+    field class (the port's or the JAX package's) over `eng`'s audit."""
+    rec = _CodeRecorder(eng)
+
+    class Field(module._R12Field):
+        def mul(self, a, b):
+            rec.inside = True
+            try:
+                return super().mul(a, b)
+            finally:
+                rec.inside = False
+
+    f = Field(rec)
+    lazy, norm = 2 * f.NORM, f.NORM
+    if padd:
+        TS12._padd_r12(f, *(module._BVal("w", lazy) for _ in range(6)), b3)
+    else:
+        module._madd_r12(f, *(module._BVal("w", b) for b in (lazy, lazy, lazy, norm, norm)), b3)
+    return tuple(rec.codes)
+
+
+def header_schedules() -> dict:
+    """kernels/csrc/r12_schedules.cuh's schedules: curve -> {curve index,
+    words, madd codes, padd codes}."""
+    with open(os.path.join(build.CSRC, "r12_schedules.cuh")) as fh:
+        text = fh.read()
+    out = {}
+    for m in re.finditer(r"struct schedule_(\w+) \{(.*?)\n\};", text, re.S):
+        body = m.group(2)
+
+        def field(key):
+            return re.search(rf"{key}(?:\[\d+\])? = \{{?([^}};]*)\}}?;", body).group(1)
+
+        out[m.group(1)] = {"curve": int(field("kCurve")), "words": int(field("kWords")),
+                           "madd": tuple(int(v) for v in field("kMadd").split(",")),
+                           "padd": tuple(int(v) for v in field("kPadd").split(","))}
+    return out
+
+
+def jax_engine_at(curve_name):
+    """The JAX package's engine where its word count is the port's; else
+    (grumpkin, bls12_381, where the port takes one word more) the port's,
+    whose audit equals the JAX one at equal words
+    (test_audit_raises_at_the_same_bounds)."""
+    te = TS12.r12_engine(curve_name)
+    je = JX.Radix12(te.p)
+    return je if je.nw == te.nw else te
+
+
+@pytest.mark.parametrize("curve_name", CURVES + ["bw6_761"])
 def test_madd_schedule_matches_jax(curve_name):
+    """The port's `_madd_r12` makes the JAX package's operations in its
+    order (at the JAX word count), and the multiplies' normalisations at the
+    port's word count are the table KERNEL_SCHEDULES and the CUDA header
+    r12_schedules.cuh hold, by the port's field and by the JAX package's."""
     je, te = _engines(curve_name)
     b3 = _b3_small(jcurve(curve_name))
     want = _schedule(JS12, je, b3)
     got = _schedule(TS12, te, b3)
     assert got == want
-    if curve_name == TS12.KERNEL_CURVE:
-        # the sequence the CUDA kernel hard-codes (msm_scan_r12.cu madd_r12):
-        # 11 multiplies, 2 by b3, and the 5 normalisations _madd_r12 writes
-        assert got == TS12.KERNEL_SCHEDULE
-        assert [got.count(op) for op in ("mul", "mul_small", "norm")] == [11, 2, 5]
+    # 11 multiplies, 2 by b3, the 5 normalisations _madd_r12 writes and
+    # those the audit adds inside the multiplies
+    codes = TS12.KERNEL_SCHEDULES[curve_name][0]
+    assert [got.count(op) for op in ("mul", "mul_small")] == [11, 2]
+    eng = TS12.r12_engine(curve_name)
+    assert schedule_codes(TS12, eng, b3) == schedule_codes(
+        JS12, jax_engine_at(curve_name), b3) == codes
+    header = header_schedules()[curve_name]
+    assert header["madd"] == codes and header["words"] == eng.nw
+    assert header["curve"] == TS12.R12_CURVES.index(curve_name)
+    if eng.nw == je.nw:
+        assert got.count("norm") == 5 + sum(bin(c).count("1") for c in codes)
 
 
 def test_madd_r12_matches_jax_on_lanes():
