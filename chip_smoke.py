@@ -17,7 +17,12 @@ G2 and ECNTT kernel checks and paths, S1-S5 and S7:
   1. card    -- nvidia-smi name and power limit, torch's device name;
   2. build   -- every kernel library from icicle_tpu_torch/kernels/csrc, one
                nvcc per source, in parallel, with the compiler's report
-               (registers, stack, spills, each compile's seconds);
+               (registers, stack, spills, each compile's seconds); for B3's
+               wide instances (ec_wide.cuh, build.HEADERS) a line each with
+               their three passes' registers, spills and stack (or that the
+               library was up to date and not compiled), and the SASS
+               counts of one madd of their rescan, which the kernels line
+               carries in their entries;
   3. kernels -- each kernel against its plain torch version on the card,
                bit-exact, at the lane widths the main paths give it: dif_rows
                (NTT; every pass of the 2^26, 2^25, 2^24 and 2^16 NTTs and a
@@ -4317,20 +4322,40 @@ def time_dif_variants(f, dev, rand, K, smi: str) -> dict:
     return out
 
 
+B3_PASSES = ("scan_reduce", "carry_scan", "rescan")
+SASS_KINDS = ("total", "IMAD", "IMAD.WIDE", "IMAD.HI", "IADD3", "LOP3", "LDL", "STL")
+
+
+def wide_madd_trips(lib: str) -> int:
+    """Trips of the rolled multiply loop in one madd of a wide B3
+    instance's rescan: above 12 limbs ec_wide.cuh's multiply takes two
+    words of b an iteration after the first two, (L - 2) / 2; at 12 and
+    below it is unrolled."""
+    from icicle_tpu_torch.kernels import build
+    nl = build.define(lib, "ICICLE_EC_LIMBS", 8)
+    return 1 if nl <= 12 else (nl - 2) // 2
+
+
 def sass_counts():
     """The SASS instruction counts chip_smoke.py reports: the babybear t = 2
     single-permutation Poseidon2 kernel's (its count per hash), the
-    Keccak-256 word-row kernel's, and the BLAKE kernels' (BLAKE_SASS)."""
+    Keccak-256 word-row kernel's, the BLAKE kernels' (BLAKE_SASS), and one
+    madd of each wide B3 instance's rescan (`sass.outer_loop`: its slot
+    loop's blocks, the rolled multiply's at its trips)."""
     from icicle_tpu_torch.kernels import build, sass
 
-    def one(lib: str, pattern: str) -> dict:
-        found = sass.kernel_counts(build.lib_path(lib), pattern)
+    def one(lib: str, pattern: str, blocks: bool = False) -> dict:
+        found = sass.kernel_counts(build.lib_path(lib), pattern, blocks)
         if len(found) != 1:
             raise AssertionError(f"lib{lib}: {len(found)} kernels match {pattern}")
-        return next(iter(found.values()))["counts"]
+        return next(iter(found.values()))["blocks" if blocks else "counts"]
 
+    madds = {}
+    for lib in build.HEADERS:
+        counts = sass.outer_loop(one(lib, "wide_rescan_kernel", True), wide_madd_trips(lib))
+        madds[lib] = {k: counts.get(k, 0) for k in SASS_KINDS}
     return (one("poseidon2", P2_SASS_KERNEL), one("keccak", KECCAK_SASS_KERNEL),
-            {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS})
+            {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS}, madds)
 
 
 def main() -> None:
@@ -4338,7 +4363,7 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from icicle_tpu_torch import NTTConfig, NTTDir, get_field, get_group, ntt
-    from icicle_tpu_torch.kernels import build
+    from icicle_tpu_torch.kernels import build, msm_lib
     from icicle_tpu_torch.kernels.keccak_kernel import PERMUTATION_OPS
     from icicle_tpu_torch.kernels import ntt_kernel as K
     from icicle_tpu_torch.ops import ntt as N
@@ -4590,7 +4615,21 @@ def main() -> None:
             if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
                     or "spill" in line or line.startswith("nvcc: "):
                 log(f"  lib{lib}: {line.strip()}")
-    p2_sass, keccak_sass, hash_sass = build_out["sass"]
+    p2_sass, keccak_sass, hash_sass, madd_sass = build_out["sass"]
+    wide_ptxas = {}
+    for lib in build.HEADERS:
+        if lib not in reports:
+            wide_ptxas[lib] = "not compiled in this run: the library was up to date"
+            log(f"  lib{lib} (B3 over ec_wide.cuh) ptxas: {wide_ptxas[lib]}")
+            continue
+        wide_ptxas[lib] = build.ptxas_kernels(reports[lib], B3_PASSES)
+        log(f"  lib{lib} (B3 over ec_wide.cuh) ptxas: " + "; ".join(
+            f"{p} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} B spill "
+            f"stores / loads, {v['stack']} B stack" for p, v in wide_ptxas[lib].items()))
+    for lib, counts in madd_sass.items():
+        log(f"  lib{lib} rescan, SASS of one madd (the slot loop's blocks, the rolled "
+            f"multiply's at its trips; b3's add chains and the branches around them once): "
+            f"{counts}")
     log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
     log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
         f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
@@ -5094,6 +5133,15 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes a Keccak sponge
         "shape": [sp["batch"], sp["in_bytes"], sp["out_bytes"]],
         "sm_clock_mhz": sm_clock_mhz, "shapes": lp_rows["keccak_sponge"], "card": smi})
+    # B3's wide instances (build.HEADERS): their ptxas report and one
+    # madd's SASS
+    for e in entries:
+        if e["name"].split(" (")[0] == "prefix_scan":
+            g = get_group(e["shapes"][0]["curve"], g2=e["shapes"][0]["g2"])
+            lib = msm_lib.libraries("prefix_scan", g.degree)[g.base_limbs]
+            if lib in build.HEADERS:
+                e.update(redesigned="ec_wide.cuh", ptxas=wide_ptxas[lib],
+                         madd_sass=madd_sass[lib])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -3,9 +3,10 @@
 Each library is one `nvcc` call over its sources in kernels/csrc/, for
 Hopper (sm_90a), into icicle_tpu_torch/build/lib<name>.so, with a plain C
 interface that kernels/*.py load with ctypes. A library is rebuilt when it
-is missing or older than one of its sources or than any header (`*.cuh`)
-in csrc/. `build_all` starts one nvcc process per stale library, all at
-once, and waits for every one; a library whose compile another call (or
+is missing or older than one of its sources or headers (every `*.cuh` in
+csrc/ but those that HEADERS gives to some libraries only, and its own).
+`build_all` starts one nvcc process per stale library, all at once, and
+waits for every one; a library whose compile another call (or
 thread) started is waited for, not started again, so a caller may build
 everything in a background thread while `load` takes each library as it
 is ready.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -66,6 +68,24 @@ DEFINES = {**{f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
            "precompute_bases_fp2": ["-DICICLE_EC_DEGREE=2"],
            **{f"ecntt_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"] for nl in (12, 24)}}
 
+def define(name: str, macro: str, default: int) -> int:
+    """The value library `name`'s DEFINES give `macro`, else `default`."""
+    for flag in DEFINES.get(name, []):
+        key, _, value = flag.removeprefix("-D").partition("=")
+        if key == macro:
+            return int(value)
+    return default
+
+
+# headers in CSRC that only some libraries include: library name -> those
+# it includes. Every other *.cuh is a dependency of every library.
+# ec_wide.cuh (the wide arithmetic) is B3's: msm_scan.cu includes it where
+# ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a coordinate), so not in
+# bn254's libmsm_scan.
+HEADERS = {name: ["ec_wide.cuh"] for name, sources in LIBRARIES.items()
+           if sources == ["msm_scan.cu"]
+           and define(name, "ICICLE_EC_LIMBS", 8) * define(name, "ICICLE_EC_DEGREE", 1) >= 12}
+
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -96,6 +116,34 @@ def compile_reports() -> dict[str, str]:
         return dict(_reports)
 
 
+def ptxas_report(report: str) -> dict:
+    """A compile's `ptxas -v` lines -> {kernel (mangled name): {"registers",
+    "spill_stores", "spill_loads", "stack" (bytes)}}."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": None, "spill_stores": 0,
+                                              "spill_loads": 0, "stack": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_kernels(report: str, names: tuple) -> dict:
+    """ptxas_report's entries under short names: {name: the entry of the
+    kernel whose mangled name holds it}, for each name some kernel holds."""
+    found = ptxas_report(report)
+    return {n: v for n in names for k, v in found.items() if n in k}
+
+
 def nvcc() -> str:
     path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if os.path.exists(path):
@@ -112,9 +160,13 @@ def lib_path(name: str) -> str:
 
 
 def _inputs(name: str) -> list[str]:
-    """The files a library is compiled from: its sources and every header."""
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    return [os.path.join(CSRC, f) for f in LIBRARIES[name] + headers]
+    """The files a library is compiled from: its sources, every header that
+    HEADERS does not reserve, and its own HEADERS where CSRC has them (an
+    older tree's sources, built by kernels/msm_scan_probe.py, may not)."""
+    reserved = {h for hs in HEADERS.values() for h in hs}
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh") and f not in reserved)
+    own = [f for f in HEADERS.get(name, []) if os.path.exists(os.path.join(CSRC, f))]
+    return [os.path.join(CSRC, f) for f in LIBRARIES[name] + headers + own]
 
 
 def _stale(name: str) -> bool:

@@ -1,7 +1,8 @@
 """The MSM's CUDA libraries (`msm_scan` from kernels/csrc/msm_scan.cu,
 `ec_reduce` from ec_reduce.cu, `precompute_bases` from precompute_bases.cu,
 `msm_fold2` from msm_fold2.cu and `bucket_accum` from bucket_accum.cu, all
-over ec_field.cuh; `msm_scan_r12` from msm_scan_r12.cu over radix12.cuh):
+over ec_field.cuh, B3's instances of 12 or more words a coordinate over
+ec_wide.cuh too; `msm_scan_r12` from msm_scan_r12.cu over radix12.cuh):
 loading with ctypes, the curve constants their kernels take, and the checks
 the wrappers share.
 

@@ -14,9 +14,14 @@ segment s covers slots [s * ceil(K/S), min(K, (s + 1) * ceil(K/S))).
   3. rescan: each segment s >= 1 re-runs its madds from carry_s and writes
      every E_k (segment 0's pass-1 values are already final).
 The plain version computes the same association of adds, so the two agree
-bit for bit at a given S. The split changes which projective
-representative of each E_k comes out, not the point: at segments=1 both
-are the serial fold, and segment 0's rows are always the serial ones.
+bit for bit at a given S. The kernel's instances of 12 or more words a
+coordinate (every group but the 8-limb G1 of bn254 and grumpkin) do their
+field arithmetic with kernels/csrc/ec_wide.cuh (carry-chain multiplies,
+values kept in [0, 2p) between stores and stored canonical), the 8-limb
+one with ec_field.cuh; the function and its association of adds are the
+same. The split changes which projective representative of each E_k
+comes out, not the point: at segments=1 both are the serial fold, and
+segment 0's rows are always the serial ones.
 
 Layout: in (K, 2W, C) int32 Montgomery words, x rows then (sign-applied) y
 rows; out (K, 3W, C), x / y / z rows; W words a coordinate (L limbs over

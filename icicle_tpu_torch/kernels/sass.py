@@ -14,6 +14,8 @@ branch targets and after branches) with its start address, its counts
 and its branch's target; --path sums the blocks weighted by how often one
 thread runs each (A: a block's start address, N: its runs; blocks not
 listed run 0 times), a thread's dynamic count where a kernel loops.
+`outer_loop` counts one trip of a kernel's outermost loop (B3's slot
+loop: one madd and its stores) from the blocks.
 """
 
 from __future__ import annotations
@@ -119,6 +121,27 @@ def weighted(blks: list[dict], runs: dict) -> dict:
         for k, v in b["counts"].items():
             tot[k] += runs.get(b["start"], 0) * v
     return dict(sorted(tot.items()))
+
+
+def outer_loop(blks: list[dict], inner_trips: int = 1) -> dict:
+    """Counts of one trip of the kernel's outermost loop (the back edge
+    that spans the most blocks; a slot loop's one slot): each of its blocks
+    once, but the blocks of a loop nested in it that multiplies (IMAD.WIDE,
+    a rolled multiply) `inner_trips` times. Other nested loops and blocks
+    that a branch may skip count once: a static count where those branch."""
+    edges = [(b["branch_to"], b["start"]) for b in blks
+             if isinstance(b["branch_to"], int) and isinstance(b["start"], int)
+             and b["branch_to"] <= b["start"]]
+    if not edges:
+        raise ValueError("no loop")
+    head, latch = max(edges, key=lambda e: e[1] - e[0])
+    body = [b for b in blks if isinstance(b["start"], int) and head <= b["start"] <= latch]
+    runs = {b["start"]: 1 for b in body}
+    for top, end in edges:
+        inner = [b for b in body if top <= b["start"] <= end]
+        if (top, end) != (head, latch) and any(b["counts"].get("IMAD.WIDE") for b in inner):
+            runs.update((b["start"], inner_trips) for b in inner)
+    return weighted(body, runs)
 
 
 def kernel_counts(lib: str, pattern: str, with_blocks: bool = False) -> dict:
