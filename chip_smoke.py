@@ -18,7 +18,7 @@ G2 and ECNTT kernel checks and paths, S1-S5 and S7:
   2. build   -- every kernel library from icicle_tpu_torch/kernels/csrc, one
                nvcc per source, in parallel, with the compiler's report
                (registers, stack, spills, each compile's seconds); for B3's
-               wide instances (ec_wide.cuh, build.HEADERS) a line each with
+               wide instances (ec_wide.cuh, build.WIDE_SCANS) a line each with
                their three passes' registers, spills and stack (or that the
                library was up to date and not compiled), and the SASS
                counts of one madd of their rescan, which the kernels line
@@ -97,10 +97,10 @@ G2 and ECNTT kernel checks and paths, S1-S5 and S7:
                used, nothing else. Then the slice of B5 over every G1 curve
                and B6 and B7 at 12 and 24 limbs: M1's and M2's inputs
                through v2 (B6 + B4) and r12 (B5 + B4), each timed (median
-               of 3 after a warm-up) and profiled; v1 (msm_tpu, B7) over
-               bls12_381 2^20 and bw6_761 2^16 (timed once where the
-               checked call ran past SLOW_CALL_S); M1's bls12_377 2^16
-               distinct points through v2, r12 and v1, grumpkin 2^16
+               of 3 after a warm-up; once where the checked call ran past
+               SLOW_CALL_S) and profiled; v1 (msm_tpu, B7) over bls12_381
+               2^20 and bw6_761 2^16 (timed the same way); M1's bls12_377
+               2^16 distinct points through v2, r12 and v1, grumpkin 2^16
                distinct points through r12; each counted against its plan
                (expected_launches over the curve) and held to the oracle.
                Their kernels are checked in phase 3 after B3/B4 at 12 and
@@ -238,13 +238,17 @@ bit-exact to their plain versions at the lane widths M1 and M2 give them,
 the serial depth cut to 64 and 61, and as projective points to the serial
 plain version, then times them at those paths' full shapes; and
 precompute_bases (kernels/csrc/precompute_bases.cu) at 8, 12 and 24 limbs
-(bn254, bls12_377, bw6_761) over 2^12 points, two of them the identity, at
-nu 2, 4 and 23, bit-exact to its plain version and at one point a copy to
-Python-int doublings, timed at M3's and M4's bases. Its bound: per point 2
-Montgomery multiplies into the form, per further copy `shift` doublings of
-8 (the one by b3 an add chain), a Fermat inversion (bits(p - 2) squarings
-and popcount(p - 2) multiplies) and 4 more; n 2L words read and nu n 2L
-written.
+(bn254, bls12_377, bw6_761) over 2^12 points, three of them the identity,
+at nu 2 and 4, and over 4,000 points (off the kernel's block) at nu 23
+(the G2 groups over 1,000 at nu 23, PRE_EDGE), bit-exact to its plain
+version (run once a group at the chain that holds every check's copies,
+plain_cover) and at one point a copy to Python-int doublings, the same over
+several launches of the wrapper's chunks, timed at M3's and M4's bases. Its
+bound (precompute_bound): the least work, Jacobian doublings (2M + 5S, a
+squaring at its own count, big_mont_sqr_muls) and one batch inversion;
+beside it the kernel's own products (one Fermat power a block of
+PB.BLOCK_THREADS points, every squaring a multiply); n 2L words read and nu
+n 2L written.
 
 Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks and
 8-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in both
@@ -278,7 +282,8 @@ blake2s (blake2s.cu) at 0, 1, 8, 16, 17 and 40 words and 13 and 130 bytes,
 also against hashlib; blake3 (blake3.cu) at 0, 4, 64, 65, 1024, 1025,
 3072, 4096 and 5120 bytes (5120: five chunks, an odd chaining value carried
 up a level). A Poseidon hash counts poseidon_kernel.needed_monts Montgomery
-multiplies; a BLAKE compression its integer instructions, the non-adds on
+multiplies, the S-boxes' two squarings each at a squaring's count
+(poseidon_muls); a BLAKE compression its integer instructions, the non-adds on
 the ALU pipe (64 lanes a clock an SM) and all of them through the
 schedulers (128), its adds free to issue on the FMA pipe as IMAD.IADD.
 
@@ -460,7 +465,16 @@ def bound(nbytes: float, muls: float) -> tuple[float, str]:
 
 
 def big_mont_muls(nl: int) -> int:
+    """32-bit multiplies of an L-limb Montgomery multiply: the product's
+    L^2 low and high words (2 L^2) and the reduction's 2 L^2 + L."""
     return 4 * nl * nl + nl
+
+
+def big_mont_sqr_muls(nl: int) -> int:
+    """32-bit multiplies of an L-limb Montgomery squaring at its least: the
+    L (L + 1) / 2 distinct products' low and high words (L^2 + L) and the
+    reduction's 2 L^2 + L."""
+    return 3 * nl * nl + 2 * nl
 
 
 def coord_muls(g) -> tuple[int, int, int]:
@@ -556,6 +570,21 @@ def field_muls(f) -> int:
     if is_goldilocks(f):
         return GL64_MULS
     return MULS_PER_MONT if f.nlimbs == 1 else big_mont_muls(f.nlimbs)
+
+
+def poseidon_muls(h) -> int:
+    """32-bit integer multiplies of one Poseidon hash at its least: the
+    poseidon_kernel.needed_monts multiplies at field_muls each, but an
+    S-box's two squarings (x^2, x^4 of x^5; t a full round, one a partial)
+    at 3 L^2 + 2 L over L > 1 limbs (big_mont_sqr_muls). The 8-limb kernel
+    squares by its multiply, so it does more than this."""
+    from icicle_tpu_torch.kernels.poseidon_kernel import needed_monts
+    f = h.field
+    muls = needed_monts(h) * field_muls(f)
+    if f.nlimbs == 1 or is_goldilocks(f):
+        return muls
+    squarings = 2 * (h.full * h.t + h.partial)
+    return muls - squarings * (field_muls(f) - big_mont_sqr_muls(f.nlimbs))
 
 
 def poseidon2_bound(h, batch: int, n: int, plain: bool = False) -> tuple[float, str]:
@@ -2145,18 +2174,15 @@ BLAKE3_BYTES = (64, 0, 4, 65, 1024, 1025, 3072, 4096, 5120)
 BLAKE_CHECK_BATCH = 1 << 12
 BLAKE_SASS = (("blake2s", "blake2s_kernelILb1E"), ("blake3", "blake3_chunksILb1E"),
               ("blake3", "blake3_parents"), ("poseidon", "babybear_t9E"),
-              ("poseidon_limbs", "LimbsILi9ELi4ELi57E"))
+              ("poseidon_limbs", "LimbsILi9ELi4ELi57ELb0E"))
 
 
 def poseidon_bound(h, batch: int) -> tuple[float, str]:
     """Rows in and digests out once and the constant table once, against the
-    multiplies a hash needs (poseidon_kernel.needed_monts) at 3 (one word)
-    or 4 L^2 + L (L limbs) integer multiplies a Montgomery multiply."""
-    from icicle_tpu_torch.kernels.poseidon_kernel import needed_monts
+    integer multiplies a hash needs (poseidon_muls)."""
     nl = h.field.nlimbs
     table = h.constants("cpu").table.shape[0]
-    return bound((batch * (h.arity + 1) + table) * nl * 4,
-                 batch * needed_monts(h) * field_muls(h.field))
+    return bound((batch * (h.arity + 1) + table) * nl * 4, batch * poseidon_muls(h))
 
 
 def blake_bound(module, compressions: int, nbytes: int, clock_mhz: float) -> tuple[float, str]:
@@ -2336,8 +2362,7 @@ def hash_paths(dev, gen, smi: str, launches: dict, clock_mhz: float) -> dict:
         leaves = field_elements(f, (n,), gen, dev).reshape(n, lw)
         tree = MerkleTree([h] * P1_DEPTH, leaf_words=lw)
         torch.cuda.synchronize()
-        bound_ms, bound_by = bound((n + 2 * hashes - 1) * lw * 4,
-                                   hashes * PK.needed_monts(h) * field_muls(f))
+        bound_ms, bound_by = bound((n + 2 * hashes - 1) * lw * 4, hashes * poseidon_muls(h))
         out[label] = _tree_path(label, tree, leaves, "poseidon", launches, smi, gen, dev,
                                 lambda rows, h=h, lim=f.limb_shape: h.hash_fields_ref(
                                     rows.reshape((rows.shape[0], 8) + lim)).reshape(
@@ -2419,7 +2444,6 @@ def hash_paths(dev, gen, smi: str, launches: dict, clock_mhz: float) -> dict:
 # -- the MSM's long tail: B3/B4 at 12 and 24 limbs, precompute_bases, M1-M5 ------
 
 DBL_MONTS = 8     # RCB15 Alg 9, not counting its multiply by b3
-JAC_DBL_MONTS = 7  # Jacobian doubling at a = 0 (dbl-2009-l: 2M + 5S)
 M1_LOG = 24
 M2_LOG = 20       # a depth cut for run time: bw6_761's users run 2^20 and more
 LIMB_CURVES = ((12, "bls12_381", M1_LOG), (24, "bw6_761", M2_LOG))  # (L, curve, M1 / M2 log n)
@@ -2427,11 +2451,17 @@ PRE_CURVES = ((8, "bn254"), (12, "bls12_377"), (24, "bw6_761"))
 PRE_CHECK_N = 1 << 12
 PRE_CHECK_NU = (2, 4, 23)
 PRE_CHECK_C = 8
+# the batch inversion's edges, a size off the kernel's block at nu 23: G1's
+# nu 23 check takes PRE_EDGE_N points (31 blocks and 32 lanes of a 32nd);
+# G2 adds PRE_EDGE (7 blocks and 104 lanes of an eighth, a short shift: the
+# plain version's doublings are its time)
+PRE_EDGE_N = 4000
+PRE_EDGE = (1000, 23, 2)
 M1_MAIN = f"msm bls12_381 2^{M1_LOG} (repeated point)"
 M1_377_LOG = 16
 M1_377 = f"msm bls12_377 2^{M1_377_LOG} (distinct points)"
 M2_MAIN = f"msm bw6_761 2^{M2_LOG} (repeated point)"
-SLOW_CALL_S = 5.0   # a v1 slice path whose checked call took longer is timed once
+SLOW_CALL_S = 2.0   # a slice path whose checked call took longer is timed once
 R12_REPLACES = "icicle_tpu/pallas/msm_scan_r12.py:135 (make_prefix_scan_r12)"
 FOLD_REPLACES = "icicle_tpu/pallas/msm_fold2.py:75 (make_suffix_fold)"
 ACCUM_REPLACES = "icicle_tpu/pallas/msm_kernel.py:125 (make_bucket_accum)"
@@ -2454,36 +2484,49 @@ M5_MAIN["unshared batch"] = (f"msm bn254 {M5_BATCH} x 2^{M5_BATCH_LOG} unshared 
 
 
 def precompute_bound(g, n: int, nu: int, shift: int,
-                     fermat_per_copy: bool = False) -> tuple[float, str]:
+                     own_algorithm: bool = False) -> tuple[float, str]:
     """precompute_bases' least work over group g (or a curve's G1), in
-    base-field products (coord_muls: an Fp2 multiply 3, a squaring 2):
-    per point 2 D multiplies into the form (D the coordinate field's
-    degree); per copy after the first, `shift` Jacobian doublings at a = 0
-    (dbl-2009-l: 2M + 5S, no multiply by b: 7 over Fp, 16 over Fp2), the
-    batch inversion's share (3 over Fp; over Fp2 inverted through the norm
-    in Fp: 2 squarings for the norm, 3, and 2 for the conjugate) and 4 to
-    affine (Z^-2 a squaring, Z^-3, x Z^-2, y Z^-3: 4 over Fp, 11 over
-    Fp2); one Fermat inversion in Fp (bits(p - 2) squarings, popcount(p -
-    2) multiplies) for the whole batch. Bytes: n 2W words read, nu n 2W
-    written (W a coordinate's words). fermat_per_copy: the kernel's own
-    algorithm instead (RCB15 doublings, DBL_MONTS multiplies and one by b3,
-    and a Fermat inversion, through the norm over Fp2, and 4 multiplies a
-    copy)."""
+    base-field multiplies at big_mont_muls and squarings at
+    big_mont_sqr_muls (a coordinate multiply coord_muls' 1 or 3 multiplies;
+    a coordinate squaring 1 squaring over Fp and over Fp2 2, a floor: the
+    complex squaring's two products are not squares): per point 2 D
+    multiplies into the form (D the coordinate field's degree); per copy
+    after the first, `shift` Jacobian doublings at a = 0 (dbl-2009-l: 2M +
+    5S, no multiply by b), the batch inversion's share (3 multiplies over
+    Fp; over Fp2 inverted through the norm in Fp: 2 squarings for the norm,
+    3 multiplies, and 2 for the conjugate) and 4 to affine (Z^-2 a squaring,
+    Z^-3, x Z^-2, y Z^-3: 3 coordinate multiplies); one Fermat inversion in
+    Fp (bits(p - 2) squarings, popcount(p - 2) multiplies) for the whole
+    batch. Bytes: n 2W words read, nu n 2W written (W a coordinate's words).
+    own_algorithm: what the kernel does (precompute_bases.cu; every squaring
+    a multiply over Fp and 2 base multiplies over Fp2, all at
+    big_mont_muls): per point 2 D into the form; per copy the doublings, 3 M
+    of the batch inversion (the forward product, Z^-1 and the next inverse;
+    none of them at copy 1) and 4 M + D to affine (Z^-1 out of the form,
+    then Z^-2, Z^-3, x, y); per thread of every block (PB.BLOCK_THREADS a
+    block, the tail's too) 3 Fp products of the tree and over Fp2 4 more
+    (the norm, the conjugate); a Fermat power a block."""
+    from icicle_tpu_torch.kernels import precompute_kernel as PB
     from icicle_tpu_torch.kernels.msm_lib import as_group
     g = as_group(g)
     d = g.degree
-    mul, sqr, b3 = coord_muls(g)
+    nl = g.base_limbs
+    mul, sqr, _ = coord_muls(g)
     e = g.curve.fq.modulus - 2
-    inversion = e.bit_length() + bin(e).count("1")
-    if fermat_per_copy:
-        dbl = DBL_MONTS * mul + b3
-        inv = inversion + (4 if d == 2 else 0)
-        muls = n * (2 * d + (nu - 1) * (shift * dbl + inv + 4 * mul))
-    else:
-        dbl = 2 * mul + 5 * sqr
-        batch_inv = 3 if d == 1 else 2 + 3 + 2
-        muls = n * (2 * d + (nu - 1) * (shift * dbl + batch_inv + sqr + 3 * mul)) + inversion
-    return bound(n * (1 + nu) * 2 * g.nlimbs * 4, muls * big_mont_muls(g.base_limbs))
+    nbytes = n * (1 + nu) * 2 * g.nlimbs * 4
+    if own_algorithm:
+        inversion = e.bit_length() + bin(e).count("1")
+        blocks = -(-n // PB.BLOCK_THREADS)
+        per_thread = 3 + (4 if d == 2 else 0) if nu > 1 else 0
+        muls = (n * (2 * d + (nu - 1) * (shift * (2 * mul + 5 * sqr) + 4 * mul + d)
+                     + max(nu - 2, 0) * 3 * mul)
+                + blocks * (PB.BLOCK_THREADS * per_thread + (inversion if nu > 1 else 0)))
+        return bound(nbytes, muls * big_mont_muls(nl))
+    copies = n * (nu - 1)
+    base_muls = (2 * d * n + copies * (shift * 2 * mul + (3 if d == 1 else 5) + 3 * mul)
+                 + bin(e).count("1"))
+    base_sqrs = copies * (shift * 5 * sqr + (0 if d == 1 else 2) + sqr) + e.bit_length()
+    return bound(nbytes, base_muls * big_mont_muls(nl) + base_sqrs * big_mont_sqr_muls(nl))
 
 
 def v3_plan(curve_name: str, n: int, c=None, T=None, nu: int = 1, glv: bool = False,
@@ -2637,12 +2680,29 @@ def plan_checks(g, plan: dict, path: str) -> tuple[list, list]:
     return [r + ({},) for r in checks], [r + ({},) for r in full]
 
 
+def plain_cover(chains: list) -> tuple[int, int, int]:
+    """(n, nu, shift) of the one plain run whose copies hold every chain's:
+    copy j of (nu, shift) is 2^(j shift) P, copy j shift / s of a run at
+    shift s, the smallest shift, which must divide every other and their
+    longest chain's length."""
+    s = min(shift for _, _, shift in chains)
+    top = max((nu - 1) * shift for _, nu, shift in chains)
+    if any(shift % s for _, _, shift in chains) or top % s:
+        raise ValueError(f"no plain run covers the chains {chains}")
+    return max(n for n, _, _ in chains), top // s + 1, s
+
+
 def check_precompute_bases(dev, gen, smi: str, groups, chains, timed) -> list:
-    """precompute_bases over each group of `groups` at 2^12 points (two of
-    them the identity, (0, 0)), at each (nu, shift) of chains(group),
-    bit-exact with its plain version and, at one point a copy, with
-    Python-int doublings; then timed alone at each (group, n, nu, shift,
-    role) of `timed`, the main paths' shapes."""
+    """precompute_bases over each group of `groups` at each (n, nu, shift)
+    of chains(group), on the first n of one set of points (two of them, and
+    one in the last block of each n, the identity, (0, 0)): bit-exact with
+    its plain version, run once a group at plain_cover(chains) (every
+    chain's copies among its rows: the same canonical points as a run at
+    the chain's own shape), at one point a copy with Python-int doublings,
+    and where nu > 2 bit-equal over three or more of the wrapper's chunks
+    (PB.SCRATCH_MAX_WORDS cut for the call); then timed alone at each
+    (group, n, nu, shift, role) of `timed`, the main paths' shapes. A row's
+    plain_ms is its group's plain run, at plain_shape."""
     from icicle_tpu_torch.curves.host_ec import host_ops
     from icicle_tpu_torch.kernels import precompute_kernel as PB
 
@@ -2654,29 +2714,37 @@ def check_precompute_bases(dev, gen, smi: str, groups, chains, timed) -> list:
         f = g.coord_field
         cname = g.curve.name
         pool = pool_points(g)
-        idx = torch.randint(0, len(pool), (PRE_CHECK_N,), generator=gen, device=dev)
-        px = f.from_ints([p[0] for p in pool], dev)[idx]
-        py = f.from_ints([p[1] for p in pool], dev)[idx]
-        px[:2] = 0
-        py[:2] = 0                                               # the identity, (0, 0)
         _, dbl, _, ident = host_ops(g)
         read = (lambda v: tuple(int(c) for c in v)) if g.degree == 2 else int
+        todo = chains(g)
+        big, nu_all, s_all = plain_cover(todo)
+        idx = torch.randint(0, len(pool), (big,), generator=gen, device=dev)
+        px_all = f.from_ints([p[0] for p in pool], dev)[idx]
+        py_all = f.from_ints([p[1] for p in pool], dev)[idx]
+        for r in {0, 1, *(n - 3 for n, _, _ in todo)}:
+            px_all[r] = 0
+            py_all[r] = 0                                        # the identity, (0, 0)
         P = pool[int(idx[2])]
-        for nu, shift in chains(g):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = PB.precompute_bases_ref(g, px_all, py_all, nu_all, s_all)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        plain = [t.reshape(big, nu_all, -1) for t in plain]
+        for n, nu, shift in todo:
+            px, py = px_all[:n].contiguous(), py_all[:n].contiguous()
+            rows = [j * shift // s_all for j in range(nu)]
+            want = [t[:n, rows].reshape(n * nu, -1) for t in plain]
             got = PB.precompute_bases(g, px, py, nu, shift)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            want = PB.precompute_bases_ref(g, px, py, nu, shift)
-            end.record()
-            end.synchronize()
-            plain_ms = start.elapsed_time(end)
             err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                       for a, b in zip(got, want))
             if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"precompute_bases != its plain version, {label(g)} nu "
-                                     f"{nu}: max abs err {err}")
+                raise AssertionError(f"precompute_bases != its plain version, {label(g)} n {n} "
+                                     f"nu {nu}: max abs err {err}")
             ox, oy = (f.to_ints(t[:3 * nu]) for t in got)
+            tail = [f.to_ints(t[(n - 3) * nu:(n - 2) * nu]) for t in got]
             Q = P
             for j in range(nu):
                 for _ in range(shift if j else 0):
@@ -2684,21 +2752,37 @@ def check_precompute_bases(dev, gen, smi: str, groups, chains, timed) -> list:
                 if (read(ox[2 * nu + j]), read(oy[2 * nu + j])) != Q:   # copy j of point 2
                     raise AssertionError(f"precompute_bases {label(g)} nu {nu}: copy {j} != "
                                          f"2^{j * shift} P by Python ints")
-                if any((read(ox[r]), read(oy[r])) != ident for r in (j, nu + j)):
+                if any((read(ox[r]), read(oy[r])) != ident for r in (j, nu + j)) or \
+                        (read(tail[0][j]), read(tail[1][j])) != ident:
                     raise AssertionError(f"precompute_bases {label(g)} nu {nu}: the "
                                          f"identity's copy {j} is not (0, 0)")
+            parts = 1
+            if nu > 2:   # the same bits over the wrapper's chunks, a scratch cap cut to n / 3
+                cap = PB.SCRATCH_MAX_WORDS
+                PB.SCRATCH_MAX_WORDS = PB.scratch_words(n // 3, nu, g.nlimbs)
+                try:
+                    parts = len(PB.chunks(n, nu, g.nlimbs))
+                    split = PB.precompute_bases(g, px, py, nu, shift)
+                finally:
+                    PB.SCRATCH_MAX_WORDS = cap
+                if parts < 3 or not all(torch.equal(a, b) for a, b in zip(split, got)):
+                    raise AssertionError(f"precompute_bases {label(g)} n {n} nu {nu}: over "
+                                         f"{parts} launches != over one")
+                del split
             kernel_ms = cuda_ms(lambda: PB.precompute_bases(g, px, py, nu, shift))
-            bound_ms, bound_by = precompute_bound(g, PRE_CHECK_N, nu, shift)
-            pre.append({"role": f"{label(g)}, 2^12 points, nu {nu}", "curve": cname,
-                        "g2": g.g2, "n": PRE_CHECK_N, "nu": nu, "shift": shift,
+            bound_ms, bound_by = precompute_bound(g, n, nu, shift)
+            pre.append({"role": f"{label(g)}, {n} points, nu {nu}", "curve": cname,
+                        "g2": g.g2, "n": n, "nu": nu, "shift": shift,
                         "checked": True, "max_abs_diff": err, "kernel_ms": kernel_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "bound_fermat_per_copy_ms":
-                            precompute_bound(g, PRE_CHECK_N, nu, shift, True)[0]})
-            log(f"  precompute_bases {label(g)} ({PRE_CHECK_N}, {g.nlimbs}) nu {nu} shift "
-                f"{shift} exact, == Python ints at one point; kernel {kernel_ms:.4f} ms, plain "
-                f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        del px, py
+                        "plain_ms": plain_ms, "plain_shape": [big, nu_all, s_all],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "own_algorithm_ms": precompute_bound(g, n, nu, shift, True)[0]})
+            log(f"  precompute_bases {label(g)} ({n}, {g.nlimbs}) nu {nu} shift {shift} exact, "
+                f"== Python ints at one point, the same over {parts} launches; kernel "
+                f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); plain {plain_ms:.1f} "
+                f"ms, once for the group at ({big}, nu {nu_all}, shift {s_all})")
+            del px, py
+        del px_all, py_all, plain
     for g, n, nu, shift, role in timed:
         f = g.coord_field
         pts = pool_points(g, 16)
@@ -2707,14 +2791,13 @@ def check_precompute_bases(dev, gen, smi: str, groups, chains, timed) -> list:
         py = f.from_ints([p[1] for p in pts], dev)[idx]
         kernel_ms = cuda_ms(lambda: PB.precompute_bases(g, px, py, nu, shift), reps=3)
         bound_ms, bound_by = precompute_bound(g, n, nu, shift)
-        fermat_ms = precompute_bound(g, n, nu, shift, True)[0]
+        own_ms = precompute_bound(g, n, nu, shift, True)[0]
         pre.append({"role": role, "curve": g.curve.name, "g2": g.g2, "n": n, "nu": nu,
                     "shift": shift, "checked": False, "kernel_ms": kernel_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "bound_fermat_per_copy_ms": fermat_ms})
+                    "bound_ms": bound_ms, "bound_by": bound_by, "own_algorithm_ms": own_ms})
         log(f"  precompute_bases {label(g)} ({n}, {g.nlimbs}) nu {nu} shift {shift} kernel "
             f"{kernel_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-            f"{kernel_ms / bound_ms:.1f}x (its own algorithm's multiplies {fermat_ms:.3f} ms)"
+            f"{kernel_ms / bound_ms:.1f}x (its own algorithm's multiplies {own_ms:.3f} ms)"
             f"  [{role}] [{smi}]")
         del px, py
     torch.cuda.empty_cache()
@@ -2795,7 +2878,7 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
         """One MSM of `route` over cname's G1 through the entry point a user
         calls (route_entry), counted against its plan's launches and held to
         the oracle; with timed_too, timed (median of 3 after a warm-up, the
-        checked call; v1 one timed call where that ran past SLOW_CALL_S)
+        checked call; one timed call where that ran past SLOW_CALL_S)
         and profiled (not v1: host-bound, a launch a window slot)."""
         n = s.shape[0]
         label = slice_label(route, cname, n.bit_length() - 1)
@@ -2806,7 +2889,7 @@ def msm_long_tail_paths(dev, smi: str, launches: dict) -> dict:
         checked_s = time.perf_counter() - t0
         rec.update(route=route, n=n, checked_s=checked_s)
         if timed_too:
-            reps = 1 if route == "v1" and checked_s > SLOW_CALL_S else 3
+            reps = 1 if checked_s > SLOW_CALL_S else 3
             rec.update(timed(label, call, want, n, reps=reps, warmed=True), timed_reps=reps)
             if route != "v1":
                 rec["profile"] = profiled(label, call, want)
@@ -4336,6 +4419,15 @@ def wide_madd_trips(lib: str) -> int:
     return 1 if nl <= 12 else (nl - 2) // 2
 
 
+def lib_ptxas(reports: dict, lib: str):
+    """ptxas's registers, spills and stack of each kernel of `lib` from this
+    run's build report, or that the library was up to date."""
+    from icicle_tpu_torch.kernels import build
+    if lib not in reports:
+        return "not compiled in this run: the library was up to date"
+    return build.ptxas_report(reports[lib])
+
+
 def sass_counts():
     """The SASS instruction counts chip_smoke.py reports: the babybear t = 2
     single-permutation Poseidon2 kernel's (its count per hash), the
@@ -4351,7 +4443,7 @@ def sass_counts():
         return next(iter(found.values()))["blocks" if blocks else "counts"]
 
     madds = {}
-    for lib in build.HEADERS:
+    for lib in build.WIDE_SCANS:
         counts = sass.outer_loop(one(lib, "wide_rescan_kernel", True), wide_madd_trips(lib))
         madds[lib] = {k: counts.get(k, 0) for k in SASS_KINDS}
     return (one("poseidon2", P2_SASS_KERNEL), one("keccak", KECCAK_SASS_KERNEL),
@@ -4617,7 +4709,7 @@ def main() -> None:
                 log(f"  lib{lib}: {line.strip()}")
     p2_sass, keccak_sass, hash_sass, madd_sass = build_out["sass"]
     wide_ptxas = {}
-    for lib in build.HEADERS:
+    for lib in build.WIDE_SCANS:
         if lib not in reports:
             wide_ptxas[lib] = "not compiled in this run: the library was up to date"
             log(f"  lib{lib} (B3 over ec_wide.cuh) ptxas: {wide_ptxas[lib]}")
@@ -4652,7 +4744,8 @@ def main() -> None:
     nbits = lambda g: g.curve.fr.modulus.bit_length()
     limb_rows["precompute_bases"] = check_precompute_bases(
         dev, gen, smi, [get_group(cname) for _, cname in PRE_CURVES],
-        lambda g: [(nu, precompute_shift(nbits(g), PRE_CHECK_C, nu)) for nu in PRE_CHECK_NU],
+        lambda g: [(PRE_CHECK_N if nu != 23 else PRE_EDGE_N, nu,
+                    precompute_shift(nbits(g), PRE_CHECK_C, nu)) for nu in PRE_CHECK_NU],
         [(get_group(cname), 1 << log_n, nu, precompute_shift(nbits(get_group(cname)), c, nu),
           role) for cname, log_n, nu, c, role in (
               ("bls12_377", M3_LOG, M3_NU, M3_C, "M3's bases"),
@@ -4679,7 +4772,7 @@ def main() -> None:
     g2b = get_group("bn254", g2=True)
     g2_rows["precompute_bases"] = check_precompute_bases(
         dev, gen, smi, [get_group(cname, g2=True) for cname in G2_CURVES],
-        lambda g: [(G2_PRE_NU, G2_PRE_SHIFT)],
+        lambda g: [(PRE_CHECK_N, G2_PRE_NU, G2_PRE_SHIFT), PRE_EDGE],
         [(g2b, 1 << E4_LOG, E4_NU, precompute_shift(nbits(g2b), E4_C, E4_NU), "E4's bases")])
     phase_done("kernels: G2 B3/B4/precompute_bases")
     log("== kernels: ecntt_stage and ecntt_scale at 8, 12 and 24 limbs, GLV and plain ladders, "
@@ -4856,7 +4949,8 @@ def main() -> None:
             "plain_shape": [checked["depth"], checked["lanes"]],
             "checked_ms": checked["kernel_ms"], "shapes": rows, "card": smi})
     # precompute_bases: ms and bound_ms at M4's bases (2^22 bn254 points, nu 4),
-    # M3's beside them; plain_ms at the first checked shape (bn254, 2^12, nu 2)
+    # M3's beside them; plain_ms bn254's plain run (2^12 points, nu 23), beside
+    # the kernel's ms at the first checked shape (nu 2)
     pre = limb_rows["precompute_bases"]
     pre_main = next(r for r in pre if r["role"] == "M4's bases at nu 4")
     pre_m3 = next(r for r in pre if r["role"] == "M3's bases")
@@ -4871,11 +4965,11 @@ def main() -> None:
         "bound_ms": pre_main["bound_ms"], "bound_by": pre_main["bound_by"],
         "library_ms": None,  # no PyTorch call computes an elliptic-curve doubling chain
         "shape": [pre_main["n"], pre_main["nu"], pre_main["shift"]],
-        "plain_shape": [pre[0]["n"], pre[0]["nu"], pre[0]["shift"]],
+        "plain_shape": pre[0]["plain_shape"],
         "checked_ms": pre[0]["kernel_ms"], "m3_ms": pre_m3["kernel_ms"],
         "m3_bound_ms": pre_m3["bound_ms"],
-        "bound_fermat_per_copy_ms": pre_main["bound_fermat_per_copy_ms"],
-        "shapes": pre, "card": smi})
+        "own_algorithm_ms": pre_main["own_algorithm_ms"], "redesigned": "ec_wide.cuh",
+        "ptxas": lib_ptxas(reports, "precompute_bases"), "shapes": pre, "card": smi})
     # G2: B3 and B4 a (limbs, degree) instance, ms and bound_ms one launch at
     # the headline path's full-depth shape, plain_ms at the first checked
     # (cut) shape; bw6_761's G2 through the 24-limb libraries
@@ -4918,8 +5012,10 @@ def main() -> None:
         "bound_ms": pre2_main["bound_ms"], "bound_by": pre2_main["bound_by"],
         "library_ms": None,  # no PyTorch call computes an elliptic-curve doubling chain
         "shape": [pre2_main["n"], pre2_main["nu"], pre2_main["shift"]],
-        "plain_shape": [pre2_checked["n"], pre2_checked["nu"], pre2_checked["shift"]],
-        "checked_ms": pre2_checked["kernel_ms"], "shapes": pre2, "card": smi})
+        "plain_shape": pre2_checked["plain_shape"],
+        "checked_ms": pre2_checked["kernel_ms"], "own_algorithm_ms": pre2_main["own_algorithm_ms"],
+        "redesigned": "ec_wide.cuh",
+        "ptxas": lib_ptxas(reports, "precompute_bases_fp2"), "shapes": pre2, "card": smi})
     # ms and bound_ms: one launch at the 2^29 tree's leaf layer; plain_ms: the
     # plain version at babybear t = 2, batch 2^16, where it was checked, beside
     # the kernel's ms there ("checked_ms")
@@ -5032,7 +5128,9 @@ def main() -> None:
              dict(hashes[P1_MAIN]["leaf_layer"], t=9))):
         rows = [r for r in pos if (r["field"] in POSEIDON_WORD_FIELDS) == (fname == "babybear")]
         checked = next(r for r in rows if "plain_ms" in r)
-        entries.append({
+        redesign = ({} if fname == "babybear" else
+                    {"redesigned": "ec_wide.cuh", "ptxas": lib_ptxas(reports, "poseidon_limbs")})
+        entries.append({**redesign,
             "name": kname, "route": "cuda", "source": f"icicle_tpu_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[headline]["poseidon"],
             "headline_path": headline, "launches_per_path": per_path("poseidon"),
@@ -5133,13 +5231,13 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes a Keccak sponge
         "shape": [sp["batch"], sp["in_bytes"], sp["out_bytes"]],
         "sm_clock_mhz": sm_clock_mhz, "shapes": lp_rows["keccak_sponge"], "card": smi})
-    # B3's wide instances (build.HEADERS): their ptxas report and one
+    # B3's wide instances (build.WIDE_SCANS): their ptxas report and one
     # madd's SASS
     for e in entries:
         if e["name"].split(" (")[0] == "prefix_scan":
             g = get_group(e["shapes"][0]["curve"], g2=e["shapes"][0]["g2"])
             lib = msm_lib.libraries("prefix_scan", g.degree)[g.base_limbs]
-            if lib in build.HEADERS:
+            if lib in build.WIDE_SCANS:
                 e.update(redesigned="ec_wide.cuh", ptxas=wide_ptxas[lib],
                          madd_sass=madd_sass[lib])
     print(json.dumps({"kernels": entries}))

@@ -79,12 +79,16 @@ def define(name: str, macro: str, default: int) -> int:
 
 # headers in CSRC that only some libraries include: library name -> those
 # it includes. Every other *.cuh is a dependency of every library.
-# ec_wide.cuh (the wide arithmetic) is B3's: msm_scan.cu includes it where
+# ec_wide.cuh (the carry-chain arithmetic): msm_scan.cu includes it where
 # ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a coordinate), so not in
-# bn254's libmsm_scan.
+# bn254's libmsm_scan; precompute_bases.cu and poseidon_limbs.cu always.
+WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu")
 HEADERS = {name: ["ec_wide.cuh"] for name, sources in LIBRARIES.items()
-           if sources == ["msm_scan.cu"]
-           and define(name, "ICICLE_EC_LIMBS", 8) * define(name, "ICICLE_EC_DEGREE", 1) >= 12}
+           if sources[0] in WIDE_SOURCES or (
+               sources == ["msm_scan.cu"]
+               and define(name, "ICICLE_EC_LIMBS", 8) * define(name, "ICICLE_EC_DEGREE", 1) >= 12)}
+# B3's libraries over ec_wide.cuh (msm_scan.cu's wide instances)
+WIDE_SCANS = tuple(name for name in HEADERS if LIBRARIES[name] == ["msm_scan.cu"])
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -162,7 +166,7 @@ def lib_path(name: str) -> str:
 def _inputs(name: str) -> list[str]:
     """The files a library is compiled from: its sources, every header that
     HEADERS does not reserve, and its own HEADERS where CSRC has them (an
-    older tree's sources, built by kernels/msm_scan_probe.py, may not)."""
+    older tree's sources, built by kernels/tree_probe.py, may not)."""
     reserved = {h for hs in HEADERS.values() for h in hs}
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh") and f not in reserved)
     own = [f for f in HEADERS.get(name, []) if os.path.exists(os.path.join(CSRC, f))]

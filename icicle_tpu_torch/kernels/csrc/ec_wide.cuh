@@ -4,7 +4,10 @@
 // bn254 G2, Fp2<12> for bls12_377 / bls12_381 G2), for NVIDIA Hopper
 // (sm_90a). msm_scan.cu includes it only where ICICLE_EC_LIMBS *
 // ICICLE_EC_DEGREE >= 12; its 8-limb G1 instance (bn254, grumpkin) and the
-// other MSM kernels keep ec_field.cuh's arithmetic.
+// other MSM kernels keep ec_field.cuh's arithmetic. precompute_bases.cu
+// (every instance; the Jacobian doubling `jdbl` and the squaring `fsqr`
+// below are its) and poseidon_limbs.cu (the 8-limb Poseidon) include it
+// too.
 //
 // What differs from ec_field.cuh, and why:
 // - The Montgomery multiply is PTX carry chains (mad.lo.cc / madc.hi.cc:
@@ -512,6 +515,50 @@ __device__ __forceinline__ ECPoint<typename K::F> padd(const ECPoint<typename K:
   r.y = fadd(fmul(t1, z3, k), fmul(y3, t0, k), k);
   r.z = fadd(fmul(z3, t4, k), fmul(t0, t3, k), k);
   return r;
+}
+
+// -- the Jacobian doubling (precompute_bases.cu) ---------------------------------
+
+// a^2: over Fp the multiply itself (no dedicated squaring).
+template <int L>
+__device__ __forceinline__ Fp<L> fsqr(const Fp<L>& a, const WideFp<L>& k) {
+  return mul<L>(a, a, k.f);
+}
+
+// a^2 over Fp2, the complex squaring (2 base products): v = a0 a1,
+// c0 = (a0 + a1)(a0 + nr a1) - (1 + nr) v, c1 = 2 v; (1 + nr) v by an add
+// chain, none where nr = -1.
+template <int L>
+__device__ __forceinline__ Fp2<L> fsqr(const Fp2<L>& a, const WideFp2<L>& k) {
+  const Fp<L> v = mul<L>(a.c0, a.c1, k.f);
+  const Fp<L> t = mul<L>(add<L>(a.c0, a.c1, k.f),
+                         sub<L>(a.c0, mul_small<L>(a.c1, -k.nr, k.f), k.f), k.f);
+  const Fp<L> c0 = k.nr == -1 ? t : sub<L>(t, mul_small<L>(v, 1 + k.nr, k.f), k.f);
+  return {c0, add<L>(v, v, k.f)};
+}
+
+// 2 p for p = (X, Y, Z) in Jacobian coordinates (x = X / Z^2, y = Y / Z^3;
+// Z = 0 the identity, which it keeps), dbl-2009-l at a = 0 (2M + 5S):
+// A = X^2, B = Y^2, C = B^2, D = 2 ((X + B)^2 - A - C), E = 3 A, F = E^2,
+// X3 = F - 2 D, Y3 = E (D - X3) - 8 C, Z3 = 2 Y Z. b does not enter.
+template <class K>
+__device__ __forceinline__ ECPoint<typename K::F> jdbl(const ECPoint<typename K::F>& p,
+                                                       const K& k) {
+  using F = typename K::F;
+  F z3 = fmul(p.y, p.z, k);
+  z3 = fadd(z3, z3, k);
+  const F a = fsqr(p.x, k);
+  const F b = fsqr(p.y, k);
+  F d = fsqr(fadd(p.x, b, k), k);
+  const F c = fsqr(b, k);
+  d = fsub(fsub(d, a, k), c, k);
+  d = fadd(d, d, k);
+  const F e = fadd(fadd(a, a, k), a, k);
+  const F x3 = fsub(fsqr(e, k), fadd(d, d, k), k);
+  F c8 = fadd(c, c, k);
+  c8 = fadd(c8, c8, k);
+  c8 = fadd(c8, c8, k);
+  return {x3, fsub(fmul(e, fsub(d, x3, k), k), c8, k), z3};
 }
 
 // Threads a block of the wide instances' folding passes, and the blocks

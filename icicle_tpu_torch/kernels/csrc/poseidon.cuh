@@ -23,10 +23,11 @@
 //   the last round: x^5 on every lane, x MDS. Only lane 1 of its product is
 //   the digest, so the kernel computes that column alone: t multiplies
 //   where the plain version's matrix product takes t^2.
-// A matrix product is out_c = sum_r s_r M[r, c]. Every value stays
-// canonical after every add and multiply, so the order of a sum does not
-// change it, and the digest is bit-equal to the plain version and the JAX
-// package whatever order they add in.
+// A matrix product is out_c = sum_r s_r M[r, c]. Every value is the same
+// element of the field as the plain version's after every add and
+// multiply (canonical here; lazy in [0, 2p) in some 8-limb instances) and
+// the digest is stored canonical, so it is bit-equal to the plain version
+// and the JAX package whatever order they add in.
 //
 // Constants: one flat table an instance, in Montgomery form: the round
 // constants of every round in order (2 half t + partial), MDS (t^2),
@@ -42,19 +43,17 @@
 //   icicle_poseidon_upload. The largest, t = 12, is 672 words; all twelve
 //   instances take 17 KB of the 64 KB constant bank.
 //   8-limb instances (bn254_scalar, grumpkin_scalar, bls12_377_scalar,
-//   bls12_381_scalar, stark252; poseidon2.cuh's Limbs8 over ec_field.cuh's
-//   Fp<8> and CIOS mont_mul<8>) roll their round, lane and matrix loops up
-//   (state in thread-local memory): unrolled, an 8-limb Poseidon2 at t = 8
-//   took minutes of ptxas and spilled at 255 registers. They read
-//   the table from the device array Poseidon keeps, one uniform load of 8
-//   words a constant: a t = 12 table is 1,752 elements (56 KB) and the five
-//   instances' tables would not fit the 64 KB constant bank together.
+//   bls12_381_scalar, stark252): their own kernel in poseidon_limbs.cu,
+//   over ec_wide.cuh's arithmetic, the state in registers and the rounds
+//   rolled. They read the table from the device array Poseidon keeps: a
+//   t = 12 table is 1,752 elements (56 KB) and the five instances' tables
+//   would not fit the 64 KB constant bank together.
 //
 // Bound: integer multiplies. A hash needs (full - 1)(3t + t^2) + partial
 // (2t + 2) + 4t Montgomery multiplies (poseidon_kernel.needed_monts) and
 // n + 1 conversions; at 3 integer multiplies a single-word Montgomery
-// multiply and 4 L^2 + L = 264 an 8-limb one. No lazy reduction: every
-// product is reduced before the next add (a later PR's work).
+// multiply and 4 L^2 + L = 264 an 8-limb one. Every product is reduced
+// before the next add.
 
 #pragma once
 

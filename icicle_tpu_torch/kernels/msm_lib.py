@@ -1,8 +1,9 @@
 """The MSM's CUDA libraries (`msm_scan` from kernels/csrc/msm_scan.cu,
 `ec_reduce` from ec_reduce.cu, `precompute_bases` from precompute_bases.cu,
 `msm_fold2` from msm_fold2.cu and `bucket_accum` from bucket_accum.cu, all
-over ec_field.cuh, B3's instances of 12 or more words a coordinate over
-ec_wide.cuh too; `msm_scan_r12` from msm_scan_r12.cu over radix12.cuh):
+over ec_field.cuh, B3's instances of 12 or more words a coordinate and
+every precompute_bases instance over ec_wide.cuh too; `msm_scan_r12` from
+msm_scan_r12.cu over radix12.cuh):
 loading with ctypes, the curve constants their kernels take, and the checks
 the wrappers share.
 
@@ -46,7 +47,7 @@ KERNELS = {"prefix_scan": ({8: "msm_scan", 12: "msm_scan_l12", 24: "msm_scan_l24
            "ec_reduce": ({8: "ec_reduce", 12: "ec_reduce_l12", 24: "ec_reduce_l24"},
                          "icicle_msm_ec_reduce", 2, 3),
            "precompute_bases": (dict.fromkeys((8, 12, 24), "precompute_bases"),
-                                "icicle_msm_precompute_bases", 4, 3),
+                                "icicle_msm_precompute_bases", 5, 3),
            "prefix_scan_r12": ({8: "msm_scan_r12", 12: "msm_scan_r12_l12",
                                 24: "msm_scan_r12_l24"}, "icicle_msm_prefix_scan_r12", 3, 3),
            "suffix_fold": ({8: "msm_fold2", 12: "msm_fold2_l12", 24: "msm_fold2_l24"},

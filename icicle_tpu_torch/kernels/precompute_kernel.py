@@ -13,7 +13,12 @@ unique, so the two agree bit for bit.
 Layout: px, py (n, W) int32 canonical words; out (nu n, W) each; W words a
 coordinate (L limbs over Fp; 2L over Fp2 for G2, c0 then c1, where the
 kernel inverts through the norm in Fp). `curve` is a curve name, a `Curve`
-(its G1) or a `Group` (G2: `get_group(name, g2=True)`).
+(its G1) or a `Group` (G2: `get_group(name, g2=True)`). The kernel doubles
+in Jacobian coordinates and inverts every copy's Z with one Fermat power a
+block (Montgomery's batch inversion); for nu > 2 the wrapper gives it
+`scratch_words` of scratch for the copies' Z and running products, and
+launches it over chunks of points (`chunks`) so that the scratch stays
+within SCRATCH_MAX_WORDS (1 GiB) beside the (nu n, W) outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +31,10 @@ import torch
 from icicle_tpu_torch.curves.group import Group, Projective
 from icicle_tpu_torch.kernels import msm_lib
 from icicle_tpu_torch.math.params import limbs_of
+
+
+BLOCK_THREADS = 128  # precompute_bases.cu kThreads: points a block, one Fermat power a block
+SCRATCH_MAX_WORDS = 1 << 28   # a launch's scratch, at most
 
 
 def _check(px: torch.Tensor, py: torch.Tensor, nl: int, nu: int, shift: int) -> None:
@@ -50,14 +59,34 @@ def kernel_consts(group: Group):
     return (ctypes.c_uint32 * len(values))(*values)
 
 
+def scratch_words(n: int, nu: int, nl: int) -> int:
+    """The kernel's scratch: each copy but the first and the last keeps its
+    Z and the product of the Z before it (nl words each) for every point."""
+    return max(nu - 2, 0) * 2 * nl * n
+
+
+def chunks(n: int, nu: int, nl: int) -> list[tuple[int, int]]:
+    """The launches' points [a, b): as few as keep each launch's scratch
+    within SCRATCH_MAX_WORDS, each but the last a whole number of blocks
+    (so every block inverts the points it would in one launch). The
+    output rows of points [a, b) are rows [nu a, nu b)."""
+    per_point = scratch_words(1, nu, nl)
+    if per_point == 0 or per_point * n <= SCRATCH_MAX_WORDS:
+        return [(0, n)]
+    step = max(SCRATCH_MAX_WORDS // per_point // BLOCK_THREADS, 1) * BLOCK_THREADS
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
 def precompute_bases(curve, px: torch.Tensor, py: torch.Tensor, nu: int, shift: int):
     """(n, W) int32 canonical affine coordinates -> (ox, oy), (nu n, W) each:
     row nu i + j is 2^(j shift) (px[i], py[i]), canonical affine.
 
     On a CUDA tensor this launches the kernel on the current stream (no
     synchronisation), counts the launch in `precompute_bases.launches` and
-    raises if the launch is refused or the group has no instance. On a CPU
-    tensor it computes `precompute_bases_ref`."""
+    raises if the launch is refused or the group has no instance; one
+    launch a chunk of points (`chunks`: one up to 2^28 scratch words, bn254
+    2^22 points at nu 4 among them). On a CPU tensor it computes
+    `precompute_bases_ref`."""
     group = msm_lib.as_group(curve)
     nl = group.nlimbs
     _check(px, py, nl, nu, shift)
@@ -66,9 +95,14 @@ def precompute_bases(curve, px: torch.Tensor, py: torch.Tensor, nu: int, shift: 
     n = px.shape[0]
     ox = torch.empty((nu * n, nl), dtype=torch.int32, device=px.device)
     oy = torch.empty_like(ox)
-    msm_lib.launch("precompute_bases", group, [px, py, ox, oy], [n, nu, shift],
-                   kernel_consts(group))
-    precompute_bases.launches += 1
+    parts = chunks(n, nu, nl)
+    scratch = torch.empty(scratch_words(parts[0][1], nu, nl), dtype=torch.int32,
+                          device=px.device)
+    for a, b in parts:
+        msm_lib.launch("precompute_bases", group,
+                       [px[a:b], py[a:b], ox[nu * a:nu * b], oy[nu * a:nu * b], scratch],
+                       [b - a, nu, shift], kernel_consts(group))
+        precompute_bases.launches += 1
     return ox, oy
 
 

@@ -1,0 +1,226 @@
+"""Builds kernels from a directory of kernel sources and runs them through
+the port's wrappers on one CUDA card, with chip_smoke.py's inputs, checks
+and timing, so two trees can be compared one process a tree.
+
+    python -m icicle_tpu_torch.kernels.tree_probe [--csrc DIR] [--paths b3|bases]
+        [--against FILE]
+
+Run it from a checkout's root: it imports chip_smoke.py and the package
+from there. DIR defaults to this checkout's kernels/csrc; a DIR's libraries
+are built with build.py's flags into icicle_tpu_torch/build/tree_probe/<DIR
+as a name>/ and kept there (a second run of the same DIR builds nothing).
+Compare builds in turns (A, B, B, A) on one machine.
+
+--paths b3 (the default): B3's prefix scan (msm_scan.cu; bn254's msm_scan
+and build.WIDE_SCANS). Prints each library's ptxas report of the three
+passes and the SASS counts of one madd of its rescan (kernels/sass.py
+`outer_loop`), then chip_smoke.check_msm_kernels' log over plan_checks' B3
+rows for M1, E1, M2, E2, E3 (bls12_377 and bw6_761) and bn254 2^24
+(bit-exact against prefix_scan_ref at K 64 and 61 and equal to the serial
+fold as points, then timed at full depth). B3's C entry has kept its form,
+so DIR may be an older tree's sources (`git archive <rev>
+icicle_tpu_torch/kernels/csrc | tar -x -C build/<name>`).
+
+--paths bases: precompute_bases (precompute_bases.cu, G1 and Fp2 libraries)
+at M4's, E4's and M3's bases and the 8-limb Poseidon (poseidon_limbs.cu) at
+P1's leaf layer (bls12_381_scalar, and bn254_scalar, a lazy field, at the
+same shape), through precompute_kernel.precompute_bases and
+poseidon_kernel.poseidon: each output's first rows held to the plain
+version, then timed (chip_smoke.cuda_ms, a median of 3 after a warm-up) and
+hashed. Also prints ptxas's registers and spills of those libraries and the
+SASS counts of poseidon2_limbs' kernels. The wrappers' C calls have
+changed between trees, so to time an older tree run this file from a
+checkout of that commit (`git archive <rev> | tar -x -C build/parent`, this
+file copied into its icicle_tpu_torch/kernels/): its own wrappers, sources
+and build directory. With --against FILE (the last line another run
+printed) it fails unless every output hash and poseidon2_limbs' SASS
+counts equal that run's, and prints the two runs' times side by side.
+
+Last, one JSON line of the card, the tree and the times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+
+import torch
+
+from icicle_tpu_torch.kernels import build, sass
+
+BASES_LIBRARIES = ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
+                   "poseidon2_limbs")
+P1_FIELDS = ("bls12_381_scalar", "bn254_scalar")
+CHECK_ROWS = 128       # rows of each bases / leaf-layer output held to the plain version
+
+
+def madd_trips(lib: str, wide: bool) -> int:
+    """Trips of the rolled multiply loop in one madd of `lib`'s rescan:
+    ec_wide.cuh's where DIR has that header (chip_smoke.wide_madd_trips),
+    else ec_field.cuh's CIOS, one word of b a trip, rolled above 12 limbs."""
+    import chip_smoke
+
+    if wide:
+        return chip_smoke.wide_madd_trips(lib)
+    nl = build.define(lib, "ICICLE_EC_LIMBS", 8)
+    return 1 if nl <= 12 else nl
+
+
+def b3_paths(csrc: str, smi: str) -> dict:
+    import chip_smoke
+    from icicle_tpu_torch.curves.group import get_group
+    from icicle_tpu_torch.ops.msm import default_c, generic_plan
+
+    libraries = ("msm_scan", *build.WIDE_SCANS)
+    reports = build.build_all(libraries)
+    has_wide = os.path.exists(os.path.join(csrc, "ec_wide.cuh"))
+    ptxas, madds = {}, {}
+    for lib in libraries:
+        wide = has_wide and lib in build.WIDE_SCANS
+        found = sass.kernel_counts(build.lib_path(lib),
+                                   "wide_rescan_kernel" if wide else "rescan_kernel", True)
+        if len(found) != 1:
+            raise AssertionError(f"lib{lib}: {len(found)} rescan kernels")
+        counts = sass.outer_loop(next(iter(found.values()))["blocks"], madd_trips(lib, wide))
+        madds[lib] = {k: counts.get(k, 0) for k in chip_smoke.SASS_KINDS}
+        ptxas[lib] = (build.ptxas_kernels(reports[lib], chip_smoke.B3_PASSES) if lib in reports
+                      else "not compiled in this run: the library was up to date")
+        chip_smoke.log(f"lib{lib}: {reports[lib].splitlines()[-1] if lib in reports else ''}; "
+                       f"ptxas {ptxas[lib]}; one madd's SASS {madds[lib]}")
+
+    def g2_plan(cname: str) -> dict:
+        n = 1 << chip_smoke.G2_PATH_LOGS[cname]
+        return generic_plan(cname, n, default_c(n, g2=True), g2=True)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    times = {}
+    for path, cname, g2, plan in (
+            ("M1", "bls12_381", False, chip_smoke.v3_plan("bls12_381", 1 << chip_smoke.M1_LOG)),
+            ("E1", "bn254", True, g2_plan("bn254")),
+            ("M2", "bw6_761", False, chip_smoke.v3_plan("bw6_761", 1 << chip_smoke.M2_LOG)),
+            ("E2", "bls12_381", True, g2_plan("bls12_381")),
+            ("E3 bls12_377", "bls12_377", True, g2_plan("bls12_377")),
+            ("E3 bw6_761", "bw6_761", True, g2_plan("bw6_761")),
+            ("2^24", "bn254", False, chip_smoke.v3_plan("bn254", 1 << 24))):
+        g = get_group(cname, g2=g2)
+        checks, full = (
+            [r for r in rows if r[0] == "prefix_scan"]
+            for rows in chip_smoke.plan_checks(g, plan, path))
+        rows = chip_smoke.check_msm_kernels(dev, gen, smi, g, checks, full)["prefix_scan"]
+        times[path] = next(r["kernel_ms"] for r in rows if not r["checked"])
+    return {"ms": times, "ptxas": ptxas, "madd_sass": madds}
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def bases_paths(smi: str) -> dict:
+    import chip_smoke
+    from icicle_tpu_torch import Poseidon
+    from icicle_tpu_torch.curves.group import get_group
+    from icicle_tpu_torch.kernels import poseidon_kernel as PK
+    from icicle_tpu_torch.kernels import precompute_kernel as PB
+    from icicle_tpu_torch.ops.msm import precompute_shift
+
+    reports = build.build_all(BASES_LIBRARIES)
+    ptxas = {}
+    for lib in BASES_LIBRARIES[:3]:
+        ptxas[lib] = (build.ptxas_report(reports[lib]) if lib in reports
+                      else "not compiled in this run: the library was up to date")
+        chip_smoke.log(f"lib{lib}: ptxas {ptxas[lib]}")
+    # kernel names hold the source path's hash: compare the sorted counts
+    p2 = sorted(json.dumps(v["counts"], sort_keys=True) for v in
+                sass.kernel_counts(build.lib_path("poseidon2_limbs"), ".").values())
+    p2_sass = {"kernels": len(p2), "total": sum(json.loads(c)["total"] for c in p2),
+               "digest": hashlib.sha256("\n".join(p2).encode()).hexdigest()}
+    chip_smoke.log(f"libposeidon2_limbs: SASS {p2_sass}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    times, digests = {}, {}
+    for cname, g2, log_n, nu, c, label in (
+            ("bn254", False, chip_smoke.M4_LOG, 4, chip_smoke.M4_C, "M4's bases at nu 4"),
+            ("bn254", True, chip_smoke.E4_LOG, chip_smoke.E4_NU, chip_smoke.E4_C, "E4's bases"),
+            ("bls12_377", False, chip_smoke.M3_LOG, chip_smoke.M3_NU, chip_smoke.M3_C,
+             "M3's bases")):
+        g = get_group(cname, g2=g2)
+        f = g.coord_field
+        n = 1 << log_n
+        shift = precompute_shift(g.curve.fr.modulus.bit_length(), c, nu)
+        pts = chip_smoke.pool_points(g, 16)
+        idx = torch.randint(0, 16, (n,), generator=gen, device=dev)
+        px = f.from_ints([p[0] for p in pts], dev)[idx]
+        py = f.from_ints([p[1] for p in pts], dev)[idx]
+        px[:2] = 0        # identities
+        py[:2] = 0
+        ox, oy = PB.precompute_bases(g, px, py, nu, shift)
+        rx, ry = PB.precompute_bases_ref(g, px[:CHECK_ROWS], py[:CHECK_ROWS], nu, shift)
+        if not (torch.equal(ox[:nu * CHECK_ROWS], rx) and torch.equal(oy[:nu * CHECK_ROWS], ry)):
+            raise AssertionError(f"{label}: != precompute_bases_ref")
+        label = f"{label} ({cname}{' G2' if g2 else ''} 2^{log_n}, nu {nu}, shift {shift})"
+        digests[label] = digest(ox, oy)
+        times[label] = chip_smoke.cuda_ms(lambda: PB.precompute_bases(g, px, py, nu, shift),
+                                          reps=3)
+        chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        del px, py, ox, oy
+        torch.cuda.empty_cache()
+
+    n = 1 << (chip_smoke.P1_LOG - 3)
+    for fname in P1_FIELDS:
+        h = Poseidon(fname, 9, domain_tag=0)
+        x = chip_smoke.field_elements(h.field, (n, h.arity), gen, dev).contiguous()
+        out = PK.poseidon(h, x)
+        if not torch.equal(out[:CHECK_ROWS], h.hash_fields_ref(x[:CHECK_ROWS])):
+            raise AssertionError(f"poseidon {fname}: != hash_fields_ref")
+        label = f"P1 leaf layer, {fname} t=9 tag, {n} hashes"
+        digests[label] = digest(out)
+        times[label] = chip_smoke.cuda_ms(lambda: PK.poseidon(h, x), reps=3)
+        chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        del x, out
+        torch.cuda.empty_cache()
+    return {"ms": times, "digest": digests, "ptxas": ptxas, "poseidon2_limbs_sass": p2_sass}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", default=build.CSRC)
+    ap.add_argument("--paths", choices=("b3", "bases"), default="b3")
+    ap.add_argument("--against", metavar="FILE")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tree_probe: needs a CUDA card")
+    import chip_smoke
+
+    csrc = os.path.abspath(args.csrc)
+    if csrc != os.path.abspath(build.CSRC):
+        build.CSRC = csrc
+        build.BUILD_DIR = os.path.join(build.BUILD_DIR, "tree_probe",
+                                       csrc.strip(os.sep).replace(os.sep, "_"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    chip_smoke.log(f"{smi}; {args.paths} built from {csrc}, run from {os.getcwd()}")
+    result = b3_paths(csrc, smi) if args.paths == "b3" else bases_paths(smi)
+    if args.against:
+        other = json.loads(open(args.against).read().strip().splitlines()[-1])
+        for key in ("digest", "poseidon2_limbs_sass"):
+            if result.get(key) != other.get(key):
+                raise AssertionError(f"{key} differs from {args.against}'s run: "
+                                     f"{result.get(key)} against {other.get(key)}")
+        for label, ms in result["ms"].items():
+            chip_smoke.log(f"{label}: {ms} ms here, {other['ms'].get(label)} ms in "
+                           f"{other['tree']} (outputs bit-equal) [{smi}]")
+    print(json.dumps({"card": smi, "tree": os.getcwd(), "csrc": csrc, **result}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """The arithmetic of B3's wide instances (icicle_tpu_torch/kernels/csrc/
-ec_wide.cuh), modelled word by word on the CPU.
+ec_wide.cuh, also under precompute_bases and the 8-limb Poseidon),
+modelled word by word on the CPU.
 
 The CUDA source cannot run here, so this file keeps a Python model of its
 multiply, add, subtract and canonical form that follows the source step
@@ -32,7 +33,11 @@ from icicle_tpu_torch.kernels import build, msm_lib
 MASK = 0xFFFFFFFF
 CSRC = build.CSRC
 WIDE_HEADER = os.path.join(CSRC, "ec_wide.cuh")
-WIDE_LIBRARIES = ("msm_scan_l12", "msm_scan_l24", "msm_scan_fp2", "msm_scan_fp2_l12")
+WIDE_SCANS = ("msm_scan_l12", "msm_scan_l24", "msm_scan_fp2", "msm_scan_fp2_l12")
+# every library whose source includes ec_wide.cuh: B3's wide scans,
+# precompute_bases (both) and the 8-limb Poseidon
+WIDE_LIBRARIES = WIDE_SCANS + ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs")
+WIDE_SOURCES = {"msm_scan.cu", "precompute_bases.cu", "poseidon_limbs.cu"}
 # (curve, limbs) of each wide instance's base field
 FIELDS = (("bls12_377", 12), ("bls12_381", 12), ("bw6_761", 24), ("bn254", 8))
 # the sites where ec_wide.cuh drops a chain's carry out, and the carry it drops
@@ -336,32 +341,38 @@ def test_model_names_every_site_the_source_drops_a_carry():
 
 
 def test_build_gives_the_wide_header_to_the_four_wide_libraries():
-    """ec_wide.cuh is a dependency of exactly B3's four wide libraries,
-    and bn254's libmsm_scan neither depends on it nor compiles it (its
-    limb count times degree is below 12, msm_scan.cu's condition)."""
+    """ec_wide.cuh is a dependency of exactly the libraries that include
+    it: B3's four wide scans, both precompute_bases libraries and the
+    8-limb Poseidon; bn254's libmsm_scan neither depends on it nor
+    compiles it (its limb count times degree is below 12, msm_scan.cu's
+    condition). build.WIDE_SCANS are B3's four."""
     with_header = {name for name in build.LIBRARIES
                    if any(p.endswith("ec_wide.cuh") for p in build._inputs(name))}
     assert with_header == set(WIDE_LIBRARIES)
+    assert set(build.WIDE_SCANS) == set(WIDE_SCANS)
     assert os.path.exists(WIDE_HEADER)
 
     def words_a_coordinate(name):
         flags = dict(re.match(r"-D(\w+)=(\d+)", d).groups() for d in build.DEFINES.get(name, []))
         return int(flags.get("ICICLE_EC_LIMBS", 8)) * int(flags.get("ICICLE_EC_DEGREE", 1))
 
-    assert all(words_a_coordinate(n) >= 12 for n in WIDE_LIBRARIES)
+    assert all(words_a_coordinate(n) >= 12 for n in WIDE_SCANS)
     assert words_a_coordinate("msm_scan") == 8
     src = open(os.path.join(CSRC, "msm_scan.cu")).read()
     guard = "#if ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12"
     at = src.index(guard)
     assert at < src.index('#include "ec_wide.cuh"') < src.index("#else", at)
     b3 = {*msm_lib.KERNELS["prefix_scan"][0].values(), *msm_lib.FP2_KERNELS["prefix_scan"].values()}
-    assert b3 == {"msm_scan", *WIDE_LIBRARIES}
+    assert b3 == {"msm_scan", *WIDE_SCANS}
+    assert {build.LIBRARIES[n][0] for n in WIDE_LIBRARIES} == WIDE_SOURCES
 
 
 @pytest.mark.parametrize("name", sorted(build.LIBRARIES))
 def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, name):
-    """A change to ec_wide.cuh makes B3's four wide libraries stale, and
-    no other (build.py's staleness rule over a temp copy of csrc/)."""
+    """A change to ec_wide.cuh makes the libraries that include it stale
+    (B3's four wide scans, precompute_bases, precompute_bases_fp2,
+    poseidon_limbs), and no other (build.py's staleness rule over a temp
+    copy of csrc/)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
@@ -378,11 +389,12 @@ def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, 
 
 
 def test_only_msm_scan_includes_the_wide_header():
-    """build.HEADERS gives ec_wide.cuh to B3's libraries alone, so another
-    source that includes it would not rebuild when it changes: none does."""
+    """build.HEADERS gives ec_wide.cuh to the libraries of msm_scan.cu,
+    precompute_bases.cu and poseidon_limbs.cu alone, so another source
+    that included it would not rebuild when it changes: none does."""
     including = {f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
                  and '#include "ec_wide.cuh"' in open(os.path.join(CSRC, f)).read()}
-    assert including == {"msm_scan.cu"}
+    assert including == WIDE_SOURCES
 
 
 @pytest.mark.parametrize("name, limbs, degree", [("msm_scan", 8, 1), ("msm_scan_l24", 24, 1),
