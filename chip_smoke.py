@@ -256,11 +256,14 @@ instances: the passes of the goldilocks 2^24 and bn254_scalar 2^22 NTTs
 in all four layouts, with and without the factor, 64 sampled rows (and
 rows 0, 1 and the last) of each full-length pass compared, 0 and p - 1
 among the inputs; and both passes of a whole 2^16 NTT for every 8-limb
-field; the goldilocks poseidon2 instances at every width (batch 2^16,
-one permutation, the sponge and a domain tag) against hash_fields_ref, and
-t = 2 timed at the 2^28 tree's leaf layer. A goldilocks multiply counts as
-8 integer multiplies (four 32 x 32 products, low and high words; no m p
-terms), and goldilocks converts nothing into or out of Montgomery form.
+field; the goldilocks poseidon2 instances at every width, t = 2 to 24
+(batch 2^16, one permutation, the sponge and a domain tag) against
+hash_fields_ref, and t = 2 timed at the 2^28 tree's leaf layer. A
+goldilocks multiply counts as 8 integer multiplies (four 32 x 32
+products, low and high words; no m p terms), and goldilocks converts
+nothing into or out of Montgomery form; beside that bound the build
+report gives the t = 2 kernel's floors from its SASS mix (ALU_KINDS on the
+ALU pipe, `pipe_floors`).
 
 Phase 3 also holds the protocol kernels to their plain versions, bit for
 bit: keccak (all four variants, hash_words of 1, 8, 16, 34 and 35 words
@@ -1174,7 +1177,7 @@ POSEIDON2_CHECKS = (
        ("m31", 16, None, 40, 1 << 16, "m31 t=16 sponge n=40")]
     + [(f, t, None, t, 1 << 12, f"{f} t={t}") for f in ("bn254_scalar", "bls12_377_scalar",
                                                        "stark252") for t in (2, 3, 4, 8)]
-    + [("goldilocks", t, None, t, 1 << 16, f"goldilocks t={t}") for t in (2, 3, 4, 8, 12)]
+    + [("goldilocks", t, None, t, 1 << 16, f"goldilocks t={t}") for t in P2_WIDTHS]
     + [("goldilocks", 3, None, 7, 1 << 16, "goldilocks t=3 sponge n=7"),
        ("goldilocks", 4, 99, 3, 1 << 16, "goldilocks t=4 domain tag"),
        ("goldilocks", 8, 99, 20, 1 << 16, "goldilocks t=8 domain tag, sponge n=20")]
@@ -1186,6 +1189,11 @@ GL_MERKLE_LOG = 28   # goldilocks leaves: 2 GiB, the bytes of the 2^29 babybear 
 GL_POSEIDON2_TIMED = 1 << (GL_MERKLE_LOG - 1)  # its leaf layer
 GL_POSEIDON2_ROLE = f"goldilocks t=2, the 2^{GL_MERKLE_LOG} tree's leaf layer"
 P2_SASS_KERNEL = "babybear_t2ELb0E"  # poseidon2_kernel<babybear_t2, false>
+# poseidon2_kernel<Gl64Instance<2, 4, 27, 7>, false>: one goldilocks t = 2 permutation
+GL64_SASS_KERNEL = "Gl64InstanceILi2ELi4ELi27ELi7EEELb0E"
+# SASS kinds that issue on the ALU pipe (64 lanes a clock an SM): the floor
+# of a kernel's time from its instruction mix
+ALU_KINDS = ("IADD3", "LOP3", "SEL", "ISETP", "SHF", "LEA", "PLOP3", "IMNMX", "VIMNMX", "ICMP")
 KECCAK_SASS_KERNEL = "keccak_kernelILi34ELj1ELi8ELb0E"  # keccak_kernel<34, 0x01, 8, false>
 # (field, width, log2 leaves): trees held against the torch backend's build
 MERKLE_SMALLER = (("babybear", 2, 22), ("babybear", 4, 20), ("bn254_scalar", 2, 12))
@@ -4428,9 +4436,21 @@ def lib_ptxas(reports: dict, lib: str):
     return build.ptxas_report(reports[lib])
 
 
+def pipe_floors(counts: dict, items: int, clock_mhz: float) -> dict:
+    """A loop-free kernel's floors from its SASS counts a thread (`counts`,
+    kernels/sass.py) over `items` threads: its ALU_KINDS instructions on the
+    ALU pipe (64 lanes a clock an SM), and all its instructions through the
+    four schedulers (128 lanes a clock an SM), in ms at clock_mhz."""
+    alu = sum(counts.get(k, 0) for k in ALU_KINDS)
+    rate = alu_ops_per_s(clock_mhz)
+    return {"alu_instructions": alu, "alu_floor_ms": items * alu / rate * 1e3,
+            "issue_floor_ms": items * counts["total"] / (2 * rate) * 1e3}
+
+
 def sass_counts():
     """The SASS instruction counts chip_smoke.py reports: the babybear t = 2
-    single-permutation Poseidon2 kernel's (its count per hash), the
+    and goldilocks t = 2 single-permutation Poseidon2 kernels' (their
+    counts per hash), the
     Keccak-256 word-row kernel's, the BLAKE kernels' (BLAKE_SASS), and one
     madd of each wide B3 instance's rescan (`sass.outer_loop`: its slot
     loop's blocks, the rolled multiply's at its trips)."""
@@ -4447,7 +4467,8 @@ def sass_counts():
         counts = sass.outer_loop(one(lib, "wide_rescan_kernel", True), wide_madd_trips(lib))
         madds[lib] = {k: counts.get(k, 0) for k in SASS_KINDS}
     return (one("poseidon2", P2_SASS_KERNEL), one("keccak", KECCAK_SASS_KERNEL),
-            {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS}, madds)
+            {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS}, madds,
+            one("poseidon2_gl64", GL64_SASS_KERNEL))
 
 
 def main() -> None:
@@ -4707,7 +4728,7 @@ def main() -> None:
             if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
                     or "spill" in line or line.startswith("nvcc: "):
                 log(f"  lib{lib}: {line.strip()}")
-    p2_sass, keccak_sass, hash_sass, madd_sass = build_out["sass"]
+    p2_sass, keccak_sass, hash_sass, madd_sass, gl64_sass = build_out["sass"]
     wide_ptxas = {}
     for lib in build.WIDE_SCANS:
         if lib not in reports:
@@ -4723,6 +4744,12 @@ def main() -> None:
             f"multiply's at its trips; b3's add chains and the branches around them once): "
             f"{counts}")
     log(f"  libposeidon2 babybear t=2 single permutation, SASS per hash: {p2_sass}")
+    gl64_floors = pipe_floors(gl64_sass, GL_POSEIDON2_TIMED, sm_clock_mhz)
+    log(f"  libposeidon2_gl64 goldilocks t=2 single permutation, SASS per hash: {gl64_sass}; "
+        f"at the 2^{GL_MERKLE_LOG} tree's leaf layer ({GL_POSEIDON2_TIMED} hashes) the ALU "
+        f"pipe's floor {gl64_floors['alu_floor_ms']:.3f} ms ({gl64_floors['alu_instructions']} "
+        f"{'/'.join(ALU_KINDS)} a hash), the schedulers' {gl64_floors['issue_floor_ms']:.3f} "
+        f"ms, at {sm_clock_mhz:g} MHz")
     log(f"  libkeccak Keccak-256 word rows, SASS (one block's path and the loop around it; "
         f"the permutation needs {PERMUTATION_OPS} logic and shift instructions): {keccak_sass}")
     for lib, pattern in BLAKE_SASS:
@@ -5114,7 +5141,8 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes a Poseidon2 permutation
         "shape": [gl_main["batch"], gl_main["n"]],
         "plain_shape": [gl_checked["batch"], gl_checked["n"]],
-        "checked_ms": gl_checked["kernel_ms"], "shapes": gl_rows, "card": smi})
+        "checked_ms": gl_checked["kernel_ms"], "sass_per_hash": gl64_sass, **gl64_floors,
+        "ptxas": lib_ptxas(reports, "poseidon2_gl64"), "shapes": gl_rows, "card": smi})
     # poseidon (one wrapper, two libraries): single-word ms and bound_ms at
     # babybear t = 9 with a tag, 2^24 hashes, timed alone; 8-limb at P1's
     # leaf layer; plain_ms at the checked batch of the same (field, t, tag)
@@ -5186,6 +5214,8 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes an elliptic-curve scalar ladder
         "shape": [stage["lanes"], stage["digit_rows"]], "scale_ms": scale["kernel_ms"],
         "scale_plain_ms": scale["plain_ms"], "scale_bound_ms": scale["bound_ms"],
+        "redesigned": "ec_wide.cuh",
+        "ptxas": {lib: lib_ptxas(reports, lib) for lib in ("ecntt", "ecntt_l12", "ecntt_l24")},
         "shapes": ecntt_rows, "card": smi})
     # rq_ntt: one forward launch over L1's 2^16 polynomials, from its check
     rq = next(r for r in lp_rows["rq_ntt"] if r["dir"] == "forward")

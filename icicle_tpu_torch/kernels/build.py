@@ -81,8 +81,9 @@ def define(name: str, macro: str, default: int) -> int:
 # it includes. Every other *.cuh is a dependency of every library.
 # ec_wide.cuh (the carry-chain arithmetic): msm_scan.cu includes it where
 # ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a coordinate), so not in
-# bn254's libmsm_scan; precompute_bases.cu and poseidon_limbs.cu always.
-WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu")
+# bn254's libmsm_scan; precompute_bases.cu, poseidon_limbs.cu and ecntt.cu
+# always.
+WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu")
 HEADERS = {name: ["ec_wide.cuh"] for name, sources in LIBRARIES.items()
            if sources[0] in WIDE_SOURCES or (
                sources == ["msm_scan.cu"]

@@ -6,8 +6,9 @@
 // ICICLE_EC_DEGREE >= 12; its 8-limb G1 instance (bn254, grumpkin) and the
 // other MSM kernels keep ec_field.cuh's arithmetic. precompute_bases.cu
 // (every instance; the Jacobian doubling `jdbl` and the squaring `fsqr`
-// below are its) and poseidon_limbs.cu (the 8-limb Poseidon) include it
-// too.
+// below are its), poseidon_limbs.cu (the 8-limb Poseidon) and ecntt.cu
+// (the ECNTT's stage and ladder at 8, 12 and 24 limbs; the projective
+// doubling `pdbl` below is its) include it too.
 //
 // What differs from ec_field.cuh, and why:
 // - The Montgomery multiply is PTX carry chains (mad.lo.cc / madc.hi.cc:
@@ -28,18 +29,17 @@
 //   coordinates at most beside the multiply in flight, by the order of its
 //   lines): the slot's x is loaded just before its first use and y after
 //   the x products, and each input dies at its last use.
-// Bit-exactness: the formulas are RCB15 Alg 8 and Alg 7 line for line
-// (ec_field.cuh madd / padd), so every coordinate is the same element of
+// Bit-exactness: the formulas are RCB15 Alg 8, Alg 7 and Alg 9 line for
+// line (ec_field.cuh madd / padd / dbl), so every coordinate is the same element of
 // the field as the plain version's; canonical limbs of the same element
 // are the same bits.
 //
-// A PTX carry flag lives from one instruction of a chain to the next:
-// every primitive below is one `asm volatile` statement, so the compiler
-// keeps them in program order, and no other instruction between two of
-// them reads or writes the flag. Where a chain ends without taking its
-// carry out (an instruction without .cc), the comment "carry out: none"
-// says why there is none; tests/test_torch_msm_wide_arith.py models every
-// chain word by word with a one-bit flag and checks each of those places.
+// A PTX carry flag lives from one instruction of a chain to the next
+// (carry_chain.cuh's primitives, one `asm volatile` statement each). Where
+// a chain ends without taking its carry out (an instruction without .cc),
+// the comment "carry out: none" says why there is none;
+// tests/test_torch_msm_wide_arith.py models every chain word by word with
+// a one-bit flag and checks each of those places.
 //
 // The 24-limb multiply keeps its outer loop rolled (two words of b an
 // iteration, b from a local copy): unrolled, each of a madd's eleven
@@ -50,73 +50,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "carry_chain.cuh"
 #include "ec_field.cuh"
 
 namespace icicle_ec {
 namespace wide {
 
-// -- PTX primitives: one instruction each, the carry flag between them ----
-
-__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-// lo(a b) + c, hi(a b) + c (+ the carry flag with madc)
-__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
+using namespace icicle_ptx;  // the PTX primitives: add_cc, madc_hi, ...
 
 // -- constants ---------------------------------------------------------------
 
@@ -514,6 +454,33 @@ __device__ __forceinline__ ECPoint<typename K::F> padd(const ECPoint<typename K:
   r.x = fsub(fmul(t3, t1, k), fmul(t4, y3, k), k);
   r.y = fadd(fmul(t1, z3, k), fmul(y3, t0, k), k);
   r.z = fadd(fmul(z3, t4, k), fmul(t0, t3, k), k);
+  return r;
+}
+
+// 2 p, RCB15 Alg 9 (a = 0), the same lines as ec_field.cuh dbl, in their
+// order (ecntt.cu's ladders): 8 products and one by b3.
+template <class K>
+__device__ __forceinline__ ECPoint<typename K::F> pdbl(const ECPoint<typename K::F>& p,
+                                                       const K& k) {
+  using F = typename K::F;
+  F t0 = fmul(p.y, p.y, k);
+  F z3 = fadd(t0, t0, k);
+  z3 = fadd(z3, z3, k);
+  z3 = fadd(z3, z3, k);                                 // 8 y^2
+  F t1 = fmul(p.y, p.z, k);
+  F t2 = fmul_b3(fmul(p.z, p.z, k), k);                 // 3b z^2
+  F x3 = fmul(t2, z3, k);
+  F y3 = fadd(t0, t2, k);
+  z3 = fmul(t1, z3, k);
+  t1 = fadd(t2, t2, k);
+  t2 = fadd(t1, t2, k);                                 // 9b z^2
+  t0 = fsub(t0, t2, k);                                 // y^2 - 9b z^2
+  y3 = fadd(fmul(t0, y3, k), x3, k);
+  x3 = fmul(t0, fmul(p.x, p.y, k), k);
+  ECPoint<F> r;
+  r.x = fadd(x3, x3, k);
+  r.y = y3;
+  r.z = z3;
   return r;
 }
 

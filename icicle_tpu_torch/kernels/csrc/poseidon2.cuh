@@ -73,15 +73,20 @@
 //   No lazy reduction: p > 2^30 leaves no headroom for a sum of three
 //   values or for a product of two values above p, and every multiply here
 //   squares a fresh sum or takes a canonical constant.
-// 8-limb fields (bn254_scalar, grumpkin_scalar, bls12_377_scalar,
-// Goldilocks (poseidon2_gl64.cu, t = 2, 3, 4, 8, 12): gl64.cuh's add and
-// multiply on one uint64 a lane; the field has no Montgomery form, so the
-// conversions in and out are none and the constants are plain values. Its
-// M_ext and, at t = 2 and 3, its M_int have the structure above; at
-// t >= 4 M_int's diagonal is general, t multiplies a partial round. State in
-// registers, every round of one permutation unrolled, as the single-word
-// instances; the constants come from the global arrays, as the 8-limb
-// ones'.
+// Goldilocks (poseidon2_gl64.cu, t = 2, 3, 4, 8, 12, 16, 20, 24):
+// gl64.cuh's lazy add and multiply on one uint64 a lane: between the load
+// and the store a lane holds any 64-bit word congruent to its value, and
+// the digest is made canonical once, at its store (`from_mont`), so it is
+// bit-equal to the plain version. A multiply is four 32x32 products and
+// the folds of 2^96 = -1 and 2^64 = eps as carry chains, an add a 64-bit
+// add and its carries folded back as eps, none with a compare or a final
+// subtract (ntt_wide.cu keeps the canonical functions). The field has no
+// Montgomery form, so the conversion in is none and the constants are
+// plain values. Its M_ext and, at t = 2 and 3, its M_int have the structure above; at t >= 4
+// M_int's diagonal is general, t multiplies a partial round. State in
+// registers, every round of one permutation unrolled up to t = 12 (above,
+// the rounds rolled: compile time), as the single-word instances; the
+// constants come from the global arrays, as the 8-limb ones'.
 // 8-limb fields (bn254_scalar, grumpkin_scalar, bls12_377_scalar,
 // bls12_381_scalar, stark252): ec_field.cuh's CIOS mont_mul<8> and
 // add_mod<8> with R = 2^256; mont_mul's one final subtraction needs its
@@ -119,6 +124,7 @@ constexpr uint32_t inverse32(uint32_t p) {
 template <uint32_t P>
 struct Word {
   static constexpr bool kRegisters = true;
+  static constexpr int kUnrolledT = 24;  // one permutation unrolled up to this width
   static constexpr int kWords = 1;
   static constexpr uint32_t pinv = inverse32(P);  // p pinv = 1 mod 2^32
   static constexpr uint32_t one = static_cast<uint32_t>((uint64_t{1} << 32) % P);  // R mod p
@@ -150,6 +156,7 @@ struct Word {
 // run time: {p, one, inv32} and R^2 mod p.
 struct Limbs8 {
   static constexpr bool kRegisters = false;
+  static constexpr int kUnrolledT = 0;
   static constexpr int L = 8;
   static constexpr int kWords = L;
   using E = icicle_ec::Fp<L>;
@@ -201,18 +208,23 @@ struct Limbs8 {
   }
 };
 
-// Goldilocks (gl64.cuh): one uint64 a lane, no Montgomery form, nothing at
-// run time.
+// Goldilocks (gl64.cuh's lazy functions): one uint64 a lane, any word
+// congruent to the value; no Montgomery form, nothing at run time.
+// from_mont makes the digest canonical.
 struct Gl64 {
   static constexpr bool kRegisters = true;
+  // wider permutations keep their round loops rolled (the lanes unrolled):
+  // with every round of t = 16, 20, 24 unrolled the library took 355 s of
+  // nvcc on the H100 machine
+  static constexpr int kUnrolledT = 12;
   static constexpr int kWords = 2;
   using E = uint64_t;
   struct C {};
-  static __device__ __forceinline__ E add(E a, E b, const C&) { return icicle_gl::add(a, b); }
-  static __device__ __forceinline__ E dbl(E a, const C&) { return icicle_gl::add(a, a); }
-  static __device__ __forceinline__ E mul(E a, E b, const C&) { return icicle_gl::mul(a, b); }
+  static __device__ __forceinline__ E add(E a, E b, const C&) { return icicle_gl::lazy_add(a, b); }
+  static __device__ __forceinline__ E dbl(E a, const C&) { return icicle_gl::lazy_add(a, a); }
+  static __device__ __forceinline__ E mul(E a, E b, const C&) { return icicle_gl::lazy_mul(a, b); }
   static __device__ __forceinline__ E to_mont(E a, const C&) { return a; }
-  static __device__ __forceinline__ E from_mont(E a, const C&) { return a; }
+  static __device__ __forceinline__ E from_mont(E a, const C&) { return icicle_gl::canonical(a); }
   static __device__ __forceinline__ E zero() { return 0; }
   static __device__ __forceinline__ E one_mont(const C&) { return 1; }
   static __device__ __forceinline__ E load(const uint32_t* src, size_t i) {
@@ -343,7 +355,7 @@ poseidon2_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, lon
   using F = typename I::F;
   using E = typename F::E;
   constexpr int T = I::kT;
-  constexpr bool kUnroll = F::kRegisters && !kSponge;
+  constexpr bool kUnroll = F::kRegisters && !kSponge && T <= F::kUnrolledT;
   const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= batch) return;
   const uint32_t* in = x + static_cast<size_t>(row) * n * F::kWords;

@@ -1,6 +1,6 @@
-// The goldilocks Poseidon2 instances (t = 2, 3, 4, 8, 12) on NVIDIA Hopper
-// (sm_90a); the kernel and its design are in poseidon2.cuh, the arithmetic
-// in gl64.cuh. Bound to Python with ctypes
+// The goldilocks Poseidon2 instances (t = 2, 3, 4, 8, 12, 16, 20, 24) on
+// NVIDIA Hopper (sm_90a); the kernel and its design are in poseidon2.cuh,
+// the arithmetic in gl64.cuh (its lazy functions). Bound to Python with ctypes
 // (icicle_tpu_torch/kernels/poseidon2_kernel.py: poseidon2).
 
 #include "poseidon2.cuh"
@@ -12,12 +12,15 @@ using namespace icicle_p2;
 // (field, t, half_full, partial, alpha) of goldilocks' constants
 // (ops/hash/data/poseidon2_goldilocks.npz, its t<t>_meta);
 // tests/test_torch_poseidon2_layers.py holds this table against the file.
-#define POSEIDON2_GL64(X)      \
-  X(goldilocks, 2, 4, 27, 7)   \
-  X(goldilocks, 3, 4, 23, 7)   \
-  X(goldilocks, 4, 4, 21, 7)   \
-  X(goldilocks, 8, 4, 22, 7)   \
-  X(goldilocks, 12, 4, 22, 7)
+#define POSEIDON2_GL64(X)       \
+  X(goldilocks, 2, 4, 27, 7)    \
+  X(goldilocks, 3, 4, 23, 7)    \
+  X(goldilocks, 4, 4, 21, 7)    \
+  X(goldilocks, 8, 4, 22, 7)    \
+  X(goldilocks, 12, 4, 22, 7)   \
+  X(goldilocks, 16, 4, 22, 7)   \
+  X(goldilocks, 20, 4, 22, 7)   \
+  X(goldilocks, 24, 4, 22, 7)
 
 // A goldilocks instance: constants in global memory (Poseidon2's device
 // arrays), one uniform 8-byte load each, the state in registers.

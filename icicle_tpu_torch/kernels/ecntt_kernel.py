@@ -21,11 +21,13 @@ int32, most significant first; flags (lanes,) bool.
 
 No Pallas kernel is replaced: JAX runs these in XLA (`_ecntt_core`,
 icicle_tpu/ops/ecntt.py:220). The plain versions run the port's group ops
-(curves/group.py) in the JAX order; the kernel runs ec_field.cuh's RCB15
-formulas, line for line the same, in the same order, so the two agree bit
-for bit (projective coordinates, not only points). Instances: L = 8
+(curves/group.py) in the JAX order; the kernel runs ec_wide.cuh's RCB15
+formulas (carry-chain multiplies, values lazy in [0, 2p), stored
+canonical), line for line the same, in the same order, so the two agree
+bit for bit (projective coordinates, not only points). Instances: L = 8
 (bn254, grumpkin), 12 (bls12_377, bls12_381), 24 (bw6_761), one library
-each.
+each; the launch refuses a modulus without two spare bits (none of
+these).
 """
 
 from __future__ import annotations

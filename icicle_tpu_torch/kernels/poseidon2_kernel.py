@@ -14,12 +14,13 @@ inputs to the digest. Its plain version is `Poseidon2.hash_fields_ref`.
 
 Instantiated for the single-word fields babybear, koalabear and m31 at
 every width their constants have, t in {2, 3, 4, 8, 12, 16, 20, 24}; for
-goldilocks at t in {2, 3, 4, 8, 12}, over gl64.cuh's arithmetic (no
-Montgomery form); and for 8-limb fields below 2^255 (bn254_scalar,
-grumpkin_scalar, bls12_377_scalar, bls12_381_scalar, stark252) at t in
-{2, 3, 4, 8}, over ec_field.cuh's Montgomery arithmetic. Other fields and
-widths (bw6_761_scalar, 12 limbs; goldilocks at t = 16, 20, 24) raise on a
-CUDA tensor.
+goldilocks at the same widths, every width of its constant file, over
+gl64.cuh's lazy arithmetic (no Montgomery form; any 64-bit word congruent
+to the value between the load and the digest's canonical store); and for
+8-limb fields below 2^255 (bn254_scalar, grumpkin_scalar,
+bls12_377_scalar, bls12_381_scalar, stark252) at t in {2, 3, 4, 8}, over
+ec_field.cuh's Montgomery arithmetic. Other fields and widths
+(bw6_761_scalar, 12 limbs) raise on a CUDA tensor.
 
 The kernel applies the linear layers as add chains over their small
 integer entries (`ext_chain`, `int_chain`; `ext_layer` and `int_layer` run
@@ -48,7 +49,7 @@ from icicle_tpu_torch.math.params import limbs_of
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
 # limbs -> the widths t the kernel is instantiated for (2: goldilocks)
-KERNEL_WIDTHS = {1: (2, 3, 4, 8, 12, 16, 20, 24), 2: (2, 3, 4, 8, 12), 8: (2, 3, 4, 8)}
+KERNEL_WIDTHS = {1: (2, 3, 4, 8, 12, 16, 20, 24), 2: (2, 3, 4, 8, 12, 16, 20, 24), 8: (2, 3, 4, 8)}
 WORD_FIELDS = ("babybear", "koalabear", "m31")  # the single-word instances' moduli
 MAX_BITS_8 = 255  # mont_mul<8>'s one final subtraction needs 2p < 2^256
 M4 = ((5, 7, 1, 3), (4, 6, 1, 1), (1, 3, 5, 7), (1, 1, 4, 6))  # the reference's 4x4 block

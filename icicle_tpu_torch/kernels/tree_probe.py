@@ -2,8 +2,8 @@
 the port's wrappers on one CUDA card, with chip_smoke.py's inputs, checks
 and timing, so two trees can be compared one process a tree.
 
-    python -m icicle_tpu_torch.kernels.tree_probe [--csrc DIR] [--paths b3|bases]
-        [--against FILE]
+    python -m icicle_tpu_torch.kernels.tree_probe [--csrc DIR]
+        [--paths b3|bases|gl64|ecntt] [--against FILE]
 
 Run it from a checkout's root: it imports chip_smoke.py and the package
 from there. DIR defaults to this checkout's kernels/csrc; a DIR's libraries
@@ -33,8 +33,26 @@ changed between trees, so to time an older tree run this file from a
 checkout of that commit (`git archive <rev> | tar -x -C build/parent`, this
 file copied into its icicle_tpu_torch/kernels/): its own wrappers, sources
 and build directory. With --against FILE (the last line another run
-printed) it fails unless every output hash and poseidon2_limbs' SASS
-counts equal that run's, and prints the two runs' times side by side.
+printed) it fails unless every output hash both runs have and
+poseidon2_limbs' SASS counts equal that run's, and prints the two runs'
+times side by side.
+
+--paths gl64: the goldilocks Poseidon2 (poseidon2_gl64.cu) at the 2^28
+tree's leaf layer (t = 2, 2^27 hashes) and at batch 2^16 at every width
+the tree's wrapper sends to the kernel (an older tree has fewer: the
+others are skipped), through poseidon2_kernel.poseidon2: the first rows
+(rows of 0 and of p - 1 among them) held to hash_fields_ref, then timed
+and hashed. Also prints the library's ptxas report and the SASS counts of
+the t = 2 single-permutation kernel, its count a hash (no loop).
+
+--paths ecntt: the ECNTT kernel (ecntt.cu; ecntt, ecntt_l12, ecntt_l24)
+on EC1's inputs (chip_smoke.EC1_PATHS: bn254 2^16, bls12_381 2^13,
+bw6_761 2^8): its last stage with the GLV ladder (n / 2 lanes), the GLV
+scale of n lanes by random scalars, each through ecntt_kernel's wrapper,
+its first lanes held to the plain version on a cut of the same lanes, then
+timed and hashed; and a forward transform through icicle_tpu_torch.ecntt,
+timed on the host clock and hashed. Also prints each library's ptxas
+report.
 
 Last, one JSON line of the card, the tree and the times.
 """
@@ -51,10 +69,18 @@ import torch
 
 from icicle_tpu_torch.kernels import build, sass
 
+PATHS = ("b3", "bases", "gl64", "ecntt")
 BASES_LIBRARIES = ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
                    "poseidon2_limbs")
 P1_FIELDS = ("bls12_381_scalar", "bn254_scalar")
-CHECK_ROWS = 128       # rows of each bases / leaf-layer output held to the plain version
+CHECK_ROWS = 128       # rows of each output held to the plain version
+GL64_WIDTHS = (2, 3, 4, 8, 12, 16, 20, 24)
+GL64_BATCH = 1 << 16
+# poseidon2_kernel<Gl64Instance<2, 4, 27, 7>, false>: one t = 2 permutation
+# (chip_smoke.GL64_SASS_KERNEL; a copy, since an older tree's chip_smoke.py
+# has none)
+GL64_SASS_KERNEL = "Gl64InstanceILi2ELi4ELi27ELi7EEELb0E"
+ECNTT_LIBRARIES = ("ecntt", "ecntt_l12", "ecntt_l24")
 
 
 def madd_trips(lib: str, wide: bool) -> int:
@@ -134,8 +160,7 @@ def bases_paths(smi: str) -> dict:
     reports = build.build_all(BASES_LIBRARIES)
     ptxas = {}
     for lib in BASES_LIBRARIES[:3]:
-        ptxas[lib] = (build.ptxas_report(reports[lib]) if lib in reports
-                      else "not compiled in this run: the library was up to date")
+        ptxas[lib] = chip_smoke.lib_ptxas(reports, lib)
         chip_smoke.log(f"lib{lib}: ptxas {ptxas[lib]}")
     # kernel names hold the source path's hash: compare the sorted counts
     p2 = sorted(json.dumps(v["counts"], sort_keys=True) for v in
@@ -191,12 +216,126 @@ def bases_paths(smi: str) -> dict:
     return {"ms": times, "digest": digests, "ptxas": ptxas, "poseidon2_limbs_sass": p2_sass}
 
 
-def main() -> None:
+def gl64_paths(smi: str) -> dict:
+    import chip_smoke
+    from icicle_tpu_torch import Poseidon2, get_field
+    from icicle_tpu_torch.kernels import poseidon2_kernel as PK
+
+    reports = build.build_all(["poseidon2_gl64"])
+    ptxas = chip_smoke.lib_ptxas(reports, "poseidon2_gl64")
+    chip_smoke.log(f"libposeidon2_gl64: ptxas {ptxas}")
+    found = sass.kernel_counts(build.lib_path("poseidon2_gl64"), GL64_SASS_KERNEL)
+    if len(found) != 1:
+        raise AssertionError(f"libposeidon2_gl64: {len(found)} kernels match {GL64_SASS_KERNEL}")
+    t2_sass = next(iter(found.values()))["counts"]
+    chip_smoke.log(f"libposeidon2_gl64 t=2 single permutation, SASS per hash: {t2_sass}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    f = get_field("goldilocks")
+    times, digests = {}, {}
+    shapes = [(2, chip_smoke.GL_POSEIDON2_TIMED, chip_smoke.GL_POSEIDON2_ROLE)] + [
+        (t, GL64_BATCH, f"goldilocks t={t}, batch {GL64_BATCH}") for t in GL64_WIDTHS]
+    for t, batch, label in shapes:
+        h = Poseidon2(f, t)
+        if not PK.supported_on_cuda(h):
+            chip_smoke.log(f"{label}: skipped, this tree's wrapper has no kernel at t={t}")
+            continue
+        gen = torch.Generator(device=dev).manual_seed(19 + t)
+        x = chip_smoke.field_elements(f, (batch, t), gen, dev)
+        x[0] = f.zeros((t,), dev)
+        x[1] = f.from_ints([f.modulus - 1] * t, dev)
+        out = PK.poseidon2(h, x)
+        if not torch.equal(out[:CHECK_ROWS], h.hash_fields_ref(x[:CHECK_ROWS])):
+            raise AssertionError(f"{label}: != hash_fields_ref")
+        digests[label] = digest(out)
+        times[label] = chip_smoke.cuda_ms(lambda: PK.poseidon2(h, x), reps=5)
+        chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        del x, out
+        torch.cuda.empty_cache()
+    return {"ms": times, "digest": digests, "ptxas": ptxas, "t2_sass": t2_sass}
+
+
+def ecntt_paths(smi: str) -> dict:
+    import numpy as np
+
+    import chip_smoke
+    from icicle_tpu_torch import NTTDir, ecntt, get_group
+    from icicle_tpu_torch.curves.group import Projective
+    from icicle_tpu_torch.kernels import ecntt_kernel as EK
+    from icicle_tpu_torch.ops import ecntt as E
+
+    reports = build.build_all(ECNTT_LIBRARIES)
+    ptxas = {lib: chip_smoke.lib_ptxas(reports, lib) for lib in ECNTT_LIBRARIES}
+    for lib, rep in ptxas.items():
+        chip_smoke.log(f"lib{lib}: {reports[lib].splitlines()[-1] if lib in reports else ''}; "
+                       f"ptxas {rep}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times, digests = {}, {}
+    for cname, logn, _, _ in chip_smoke.EC1_PATHS:
+        g = get_group(cname)
+        n, m = 1 << logn, 1 << (logn - 1)
+        P, _ = chip_smoke.ecntt_points(g, n, dev)
+        r = g.curve.fr.modulus
+        rng = np.random.default_rng(logn)
+        scalars = [int.from_bytes(rng.bytes(r.bit_length() // 8 + 8), "little") % r
+                   for _ in range(n)]
+        scale_rows = E._to_device(E._glv_rows(cname, scalars), dev)
+        stage_rows = E._stage_rows(cname, logn, False, True, dev)[-1]
+        k = min(CHECK_ROWS, m)
+        # the first k lanes of each launch: a stage's lanes j < k read points
+        # j and m + j and column j of the rows; the scale's lane j point j
+        cut = Projective(*(torch.cat([c[:k], c[m:m + k]]) for c in P))
+        for label, call, want in (
+                (f"ecntt_stage {cname} 2^{logn} last stage, GLV ({m} lanes)",
+                 lambda: EK.ecntt_stage(g, P, m, stage_rows, True),
+                 lambda: EK.ecntt_stage_ref(g, cut, k, tuple(t[..., :k] for t in stage_rows),
+                                            True)),
+                (f"ecntt_scale {cname} 2^{logn}, GLV ({n} lanes)",
+                 lambda: EK.ecntt_scale(g, P, scale_rows),
+                 lambda: EK.ecntt_scale_ref(g, Projective(*(c[:k] for c in P)),
+                                            tuple(t[..., :k] for t in scale_rows)))):
+            out = call()
+            ref = want()
+            rows = (torch.cat([torch.arange(k), torch.arange(m, m + k)]).to(dev)
+                    if "stage" in label else torch.arange(k, device=dev))
+            if not all(torch.equal(o[rows], w) for o, w in zip(out, ref)):
+                raise AssertionError(f"{label}: != its plain version on the first {k} lanes")
+            digests[label] = digest(*out)
+            times[label] = chip_smoke.cuda_ms(call, reps=3)
+            chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        label = f"ecntt {cname} 2^{logn} fwd"
+        digests[label] = digest(*ecntt(cname, P, NTTDir.FORWARD))
+        times[label] = chip_smoke.host_ms(lambda: ecntt(cname, P, NTTDir.FORWARD), reps=3)[0]
+        chip_smoke.log(f"{label}: {times[label]} ms, host clock [{smi}]")
+        del P, cut, scale_rows, stage_rows
+        torch.cuda.empty_cache()
+    return {"ms": times, "digest": digests, "ptxas": ptxas}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", default=build.CSRC)
-    ap.add_argument("--paths", choices=("b3", "bases"), default="b3")
+    ap.add_argument("--paths", choices=PATHS, default="b3")
     ap.add_argument("--against", metavar="FILE")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
+
+
+def mismatches(result: dict, other: dict) -> list:
+    """The keys of `digest` that both runs have and whose hashes differ, and
+    "poseidon2_limbs_sass" where both runs have it and it differs."""
+    ours, theirs = result.get("digest", {}), other.get("digest", {})
+    bad = [label for label in ours if label in theirs and ours[label] != theirs[label]]
+    key = "poseidon2_limbs_sass"
+    if key in result and key in other and result[key] != other[key]:
+        bad.append(key)
+    return bad
+
+
+def main() -> None:
+    args = parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tree_probe: needs a CUDA card")
     import chip_smoke
@@ -209,13 +348,13 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     chip_smoke.log(f"{smi}; {args.paths} built from {csrc}, run from {os.getcwd()}")
-    result = b3_paths(csrc, smi) if args.paths == "b3" else bases_paths(smi)
+    result = {"b3": lambda: b3_paths(csrc, smi), "bases": lambda: bases_paths(smi),
+              "gl64": lambda: gl64_paths(smi), "ecntt": lambda: ecntt_paths(smi)}[args.paths]()
     if args.against:
         other = json.loads(open(args.against).read().strip().splitlines()[-1])
-        for key in ("digest", "poseidon2_limbs_sass"):
-            if result.get(key) != other.get(key):
-                raise AssertionError(f"{key} differs from {args.against}'s run: "
-                                     f"{result.get(key)} against {other.get(key)}")
+        bad = mismatches(result, other)
+        if bad:
+            raise AssertionError(f"{bad} differ from {args.against}'s run")
         for label, ms in result["ms"].items():
             chip_smoke.log(f"{label}: {ms} ms here, {other['ms'].get(label)} ms in "
                            f"{other['tree']} (outputs bit-equal) [{smi}]")

@@ -1,6 +1,6 @@
 """The arithmetic of B3's wide instances (icicle_tpu_torch/kernels/csrc/
-ec_wide.cuh, also under precompute_bases and the 8-limb Poseidon),
-modelled word by word on the CPU.
+ec_wide.cuh, also under precompute_bases, the 8-limb Poseidon and the
+ECNTT kernel), modelled word by word on the CPU.
 
 The CUDA source cannot run here, so this file keeps a Python model of its
 multiply, add, subtract and canonical form that follows the source step
@@ -14,7 +14,9 @@ carry it drops is what the source says it is. Each function is held to
 Python-int arithmetic mod p (a b R^-1 for the multiply) on the base fields
 of every wide instance: bls12_377, bls12_381 and bw6_761 Fq, and bn254 Fq
 (the base field of Fp2<8>), with edge values and numpy-seeded values in
-[0, 2p), the lazy range.
+[0, 2p), the lazy range. The ECNTT's projective doubling (ec_wide.cuh
+pdbl, RCB15 Alg 9) runs over the model and is held to the port's plain
+group doubling.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from icicle_tpu_torch.curves.group import get_group
 from icicle_tpu_torch.curves.params import get_curve
@@ -35,9 +38,10 @@ CSRC = build.CSRC
 WIDE_HEADER = os.path.join(CSRC, "ec_wide.cuh")
 WIDE_SCANS = ("msm_scan_l12", "msm_scan_l24", "msm_scan_fp2", "msm_scan_fp2_l12")
 # every library whose source includes ec_wide.cuh: B3's wide scans,
-# precompute_bases (both) and the 8-limb Poseidon
-WIDE_LIBRARIES = WIDE_SCANS + ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs")
-WIDE_SOURCES = {"msm_scan.cu", "precompute_bases.cu", "poseidon_limbs.cu"}
+# precompute_bases (both), the 8-limb Poseidon and the ECNTT (every limb count)
+WIDE_LIBRARIES = WIDE_SCANS + ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
+                               "ecntt", "ecntt_l12", "ecntt_l24")
+WIDE_SOURCES = {"msm_scan.cu", "precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu"}
 # (curve, limbs) of each wide instance's base field
 FIELDS = (("bls12_377", 12), ("bls12_381", 12), ("bw6_761", 24), ("bn254", 8))
 # the sites where ec_wide.cuh drops a chain's carry out, and the carry it drops
@@ -322,6 +326,64 @@ def test_fp2_mul(curve):
         assert value(c1) < 2 * f.p and value(c1) % f.p == (a0 * b1 + a1 * b0) * rinv % f.p
 
 
+def pdbl(F: Flag, p, f: Base, b3: int):
+    """ec_wide.cuh pdbl (RCB15 Alg 9, a = 0) over the model, line for line:
+    p = (x, y, z) word lists, values in [0, 2p); b3 a small integer."""
+    x, y, z = p
+    t0 = mul(F, y, y, f)
+    z3 = add(F, t0, t0, f)
+    z3 = add(F, z3, z3, f)
+    z3 = add(F, z3, z3, f)
+    t1 = mul(F, y, z, f)
+    t2 = mul_small(F, mul(F, z, z, f), b3, f)
+    x3 = mul(F, t2, z3, f)
+    y3 = add(F, t0, t2, f)
+    z3 = mul(F, t1, z3, f)
+    t1 = add(F, t2, t2, f)
+    t2 = add(F, t1, t2, f)
+    t0 = sub(F, t0, t2, f)
+    y3 = add(F, mul(F, t0, y3, f), x3, f)
+    x3 = mul(F, t0, mul(F, x, y, f), f)
+    return add(F, x3, x3, f), y3, z3
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bw6_761"])
+def test_pdbl_is_the_plain_doubling(curve):
+    """The ECNTT's doubling over the lazy model, its coordinates made
+    canonical, equals the port's plain group doubling (Group.dbl, the same
+    formula over canonical values) bit for bit on G1: the identity, a point
+    with y = 0 (off the curve: the formula's values, not the group law, are
+    compared), the generator and multiples of it in projective form with
+    z != 1; each input both canonical and as its lazy representative plus
+    p where that is below 2p (the values ecntt.cu's ladders hand it)."""
+    from icicle_tpu_torch.curves.group import Projective
+    g = get_group(curve)
+    f = Base(curve, g.nlimbs)
+    L = f.L
+    b3 = msm_lib.b3_small(g)
+    F = Flag()
+    R = f.R % f.p
+    rng = np.random.default_rng(f.L)
+    gx, gy = (int(v) for v in g.gen_int)               # Montgomery form
+    pts = [(0, R, 0), (gx, 0, R), (gx, gy, R)]
+    for _ in range(3):                                  # (lambda x, lambda y, lambda)
+        lam = int.from_bytes(rng.bytes(4 * L), "little") % f.p
+        pts.append((gx * lam % f.p, gy * lam % f.p, lam))
+
+    def tensor(vals):
+        w = np.array([words(v, L) for v in vals], dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(w.copy())
+
+    want = g.dbl(Projective(*(tensor([p[i] for p in pts]) for i in range(3))))
+    want = [[value([int(w) & MASK for w in row]) for row in c.tolist()] for c in want]
+    for lift in (0, 1):
+        for i, p in enumerate(pts):
+            lazy = [v + f.p if lift and v + f.p < 2 * f.p else v for v in p]
+            out = pdbl(F, [words(v, L) for v in lazy], f, b3)
+            got = [value(canonical(F, c, f)) for c in out]
+            assert got == [want[c][i] for c in range(3)], (curve, i, lift)
+
+
 def test_model_names_every_site_the_source_drops_a_carry():
     """ec_wide.cuh marks each chain end without a carry out "carry out:
     none"; the model has one named site for each, and every one is reached
@@ -342,8 +404,8 @@ def test_model_names_every_site_the_source_drops_a_carry():
 
 def test_build_gives_the_wide_header_to_the_four_wide_libraries():
     """ec_wide.cuh is a dependency of exactly the libraries that include
-    it: B3's four wide scans, both precompute_bases libraries and the
-    8-limb Poseidon; bn254's libmsm_scan neither depends on it nor
+    it: B3's four wide scans, both precompute_bases libraries, the 8-limb
+    Poseidon and the three ECNTT libraries; bn254's libmsm_scan neither depends on it nor
     compiles it (its limb count times degree is below 12, msm_scan.cu's
     condition). build.WIDE_SCANS are B3's four."""
     with_header = {name for name in build.LIBRARIES
@@ -371,7 +433,7 @@ def test_build_gives_the_wide_header_to_the_four_wide_libraries():
 def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, name):
     """A change to ec_wide.cuh makes the libraries that include it stale
     (B3's four wide scans, precompute_bases, precompute_bases_fp2,
-    poseidon_limbs), and no other (build.py's staleness rule over a temp
+    poseidon_limbs, ecntt, ecntt_l12, ecntt_l24), and no other (build.py's staleness rule over a temp
     copy of csrc/)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
@@ -390,8 +452,8 @@ def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, 
 
 def test_only_msm_scan_includes_the_wide_header():
     """build.HEADERS gives ec_wide.cuh to the libraries of msm_scan.cu,
-    precompute_bases.cu and poseidon_limbs.cu alone, so another source
-    that included it would not rebuild when it changes: none does."""
+    precompute_bases.cu, poseidon_limbs.cu and ecntt.cu alone, so another
+    source that included it would not rebuild when it changes: none does."""
     including = {f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
                  and '#include "ec_wide.cuh"' in open(os.path.join(CSRC, f)).read()}
     assert including == WIDE_SOURCES
@@ -441,3 +503,28 @@ def test_outer_loop_counts_one_slot(trips):
             {"start": 80, "counts": {"EXIT": 1}, "branch_to": None}]
     assert sass.outer_loop(blks, trips) == {"BRA": trips + 1, "IADD3": 2 + trips,
                                             "IMAD.WIDE": 4 * trips, "STG": 3}
+
+
+@pytest.mark.parametrize("curve", ["bn254", "grumpkin", "bls12_377", "bls12_381", "bw6_761"])
+def test_every_ecntt_curve_has_two_spare_bits(curve):
+    """ecntt.cu computes over ec_wide.cuh's lazy values and its launch
+    refuses a modulus without two spare bits (lazy_ok): every G1 curve the
+    wrapper sends to a library has them, at that library's limb count."""
+    from icicle_tpu_torch.kernels import ecntt_kernel as EK
+    g = get_group(curve)
+    EK.require_instance(g)
+    f = Base(curve, g.nlimbs)
+    assert f.L in EK.LIBRARIES and 4 * f.p < f.R and f.pw[-1] >> 30 == 0
+
+
+def test_ecntt_source_takes_the_wide_formulas():
+    """ecntt.cu's add and doubling are ec_wide.cuh's padd and pdbl, its
+    beta product the wide multiply, every store canonical: no
+    ec_field.cuh field operation is left in it."""
+    src = open(os.path.join(CSRC, "ecntt.cu")).read()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for call in ("wide::padd<K>", "wide::pdbl<K>", "wide::mul<L>", "wide::canonical<L>",
+                 "wide::lazy_ok"):
+        assert call in code, call
+    for old in ("mont_mul", "add_mod", "sub_mod", "dbl<C>", "padd<C>"):
+        assert old not in code, old

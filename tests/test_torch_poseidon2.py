@@ -267,8 +267,10 @@ def test_goldilocks_against_python_poseidon2(t):
 
 
 def test_goldilocks_kernel_instantiations():
-    for t in GOLDILOCKS_WIDTHS:
+    """Every width of goldilocks' constant file has an instance: t = 16,
+    20 and 24 too (tests/test_torch_poseidon2_gl64_wide.py holds their
+    plain version to the JAX package)."""
+    for t in GOLDILOCKS_WIDTHS + [16, 20, 24]:
         assert PK.supported_on_cuda(Poseidon2("goldilocks", t)), t
-    for t in (16, 20, 24):                    # constants exist, no instance
-        assert not PK.supported_on_cuda(Poseidon2("goldilocks", t)), t
+    assert sorted(TP.supported_arities("goldilocks")) == list(PK.KERNEL_WIDTHS[2])
     assert PK.LIBRARY[2] == "poseidon2_gl64"
