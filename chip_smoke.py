@@ -21,8 +21,10 @@ G2 and ECNTT kernel checks and paths, S1-S5 and S7:
                wide instances (ec_wide.cuh, build.WIDE_SCANS) a line each with
                their three passes' registers, spills and stack (or that the
                library was up to date and not compiled), and the SASS
-               counts of one madd of their rescan, which the kernels line
-               carries in their entries;
+               counts of one madd of their rescan; for B4's
+               (build.WIDE_REDUCES) its kernel's registers, spills, stack
+               and static SASS counts; the kernels line carries both in
+               their entries;
   3. kernels -- each kernel against its plain torch version on the card,
                bit-exact, at the lane widths the main paths give it: dif_rows
                (NTT; every pass of the 2^26, 2^25, 2^24 and 2^16 NTTs and a
@@ -299,8 +301,9 @@ scale of n lanes by random scalars below r; rq_ntt (rq_ntt.cu) over L1's
 2^16 R_q polynomials both ways with rows of 0 and q - 1; the three mlkem
 ops (mlkem.cu) at ML-KEM-768 2^16 (196,608 and 589,824 polynomials) with
 rows of 0 and 3328; keccak.cu's icicle_keccak_sponge for every sponge
-ML-KEM calls at Q1's batch for it and a 31-block squeeze (row 0 also
-against hashlib). An ECNTT ladder's bound counts the least multiplies its
+ML-KEM calls at Q1's batch for it, a 31-block squeeze and ML-KEM-768's
+matrix at 2^16 keys, its 9 x 2^16 XOFs in one launch (row 0 also against
+hashlib). An ECNTT ladder's bound counts the least multiplies its
 digits need (ladder_monts); rq_ntt 256 64-bit Montgomery multiplies of 11
 32-bit products a polynomial; the sponge its permutations on the ALU pipe.
 After the hashes: EC1, the ECNTT through icicle_tpu_torch.ecntt (bn254
@@ -918,7 +921,7 @@ def check_msm_kernels(dev, gen, smi: str, g, checks: list, full: list) -> dict:
         "ec_reduce": (TR.ec_reduce, TR.ec_reduce_ref,
                       lambda d, c: (curve_proj(d, c),),
                       lambda d, c, a: ec_reduce_bound(d, c, g),
-                      lambda d, c, a: TR.reduce_segments(d, c)),
+                      lambda d, c, a: TR.reduce_segments(d, c, TR.plan_threads(g))),
         "prefix_scan_r12": (TS12.prefix_scan_r12, TS12.prefix_scan_r12_ref,
                             lambda d, c: (r12_affine(d, c),),
                             lambda d, c, a: prefix_scan_bound(d, c, curve),
@@ -3323,7 +3326,17 @@ SPONGE_CHECKS = (
     ("SHAKE256 J(z || c) 768", 16, 32 + 1088, 136, 0x1F, 32),
     ("SHAKE256 J(z || c) 1024", 12, 32 + 1568, 136, 0x1F, 32),
     ("SHAKE256 31 blocks out", 12, 5, 136, 0x1F, 4200))
-SPONGE_MAIN = "SHAKE128 XOF(rho || j || i)"   # the kernels line's sponge: the matrix XOF
+# ML-KEM-768's matrix at Q1's 2^16 keys: its k^2 = 9 XOFs a key in one
+# launch (ops/pqc/ml_kem_tpu.py _gen_matrix), (role, batch, ...) with the
+# batch as a count
+SPONGE_MATRIX = ("SHAKE128 XOF matrix, 9 entries a key", 9 << 16, 34, 168, 0x1F, 504 * 3)
+SPONGE_MAIN = SPONGE_MATRIX[0]   # the kernels line's sponge: the matrix's one launch
+
+
+def sponge_rows() -> list:
+    """Every sponge check as (role, batch, message bytes, rate, pad byte,
+    output bytes): SPONGE_CHECKS at their batches, then SPONGE_MATRIX."""
+    return [(role, 1 << log_b, *rest) for role, log_b, *rest in SPONGE_CHECKS] + [SPONGE_MATRIX]
 
 
 def check_against_plain(label: str, fn, ref, args: tuple, bound_of: tuple,
@@ -3628,8 +3641,9 @@ def check_lattice_pqc_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
     and inverse over L1's 2^16 polynomials (rows of 0 and q - 1), the
     three mlkem ops at ML-KEM-768 2^16 (MLKEM_POLYS; rows of 0 and 3328)
     and icicle_keccak_sponge for every (length, rate, pad, output) ML-KEM
-    calls at Q1's batch for it, and a long squeeze (SPONGE_CHECKS), row 0
-    also held to hashlib."""
+    calls at Q1's batch for it, a long squeeze (SPONGE_CHECKS) and the
+    matrix's one launch at ML-KEM-768 2^16 (SPONGE_MATRIX), row 0 also held
+    to hashlib."""
     from icicle_tpu_torch.kernels import keccak_kernel as KK
     from icicle_tpu_torch.kernels import mlkem_kernel as MK
     from icicle_tpu_torch.kernels import rq_ntt_kernel as RK
@@ -3660,21 +3674,21 @@ def check_lattice_pqc_kernels(dev, gen, smi: str, clock_mhz: float) -> dict:
             f"[{smi}]")
         del args
 
-    for role, log_batch, nbytes, rate, pad, outb in SPONGE_CHECKS:
-        data = torch.randint(0, 256, (1 << log_batch, nbytes), generator=gen, device=dev,
+    for role, batch, nbytes, rate, pad, outb in sponge_rows():
+        data = torch.randint(0, 256, (batch, nbytes), generator=gen, device=dev,
                              dtype=torch.uint8)
         row = check_against_plain(f"keccak_sponge {role}", KK.keccak_sponge, KK.keccak_sponge_ref,
                                   (data, rate, pad, outb),
-                                  sponge_bound(1 << log_batch, nbytes, rate, outb, clock_mhz))
+                                  sponge_bound(batch, nbytes, rate, outb, clock_mhz))
         hl = {72: hashlib.sha3_512, 136: hashlib.sha3_256 if pad == 0x06 else hashlib.shake_256,
               168: hashlib.shake_128}[rate]
         row0 = bytes(data[0].cpu().numpy())
         digest = hl(row0).digest(outb) if pad == 0x1F else hl(row0).digest()
         if bytes(KK.keccak_sponge(data[:1], rate, pad, outb)[0].cpu().numpy()) != digest:
             raise AssertionError(f"keccak_sponge {role}: row 0 != hashlib")
-        rows["keccak_sponge"].append(dict(row, role=role, batch=1 << log_batch, in_bytes=nbytes,
+        rows["keccak_sponge"].append(dict(row, role=role, batch=batch, in_bytes=nbytes,
                                           rate=rate, pad=pad, out_bytes=outb))
-        log(f"  keccak_sponge {role}: {nbytes} -> {outb} bytes, batch 2^{log_batch}: exact, row 0 "
+        log(f"  keccak_sponge {role}: {nbytes} -> {outb} bytes, batch {batch}: exact, row 0 "
             f"== hashlib; kernel {row['kernel_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
         del data
@@ -3800,11 +3814,12 @@ def lattice_paths(dev, gen, smi: str, launches: dict) -> dict:
 
 def mlkem_expected(op: str, k: int) -> dict:
     """Kernel launches of one batched ML-KEM op at module rank k: sponges
-    (G, H, J, the PRFs, the k^2 matrix XOFs) and ring ops."""
-    enc = {"keccak_sponge": k * k + 2 * k + 1, "mlkem_ntt": 1, "mlkem_multiply_ntts": 2,
+    (G, H, J, the PRFs, and the k^2 matrix XOFs in one launch) and ring
+    ops."""
+    enc = {"keccak_sponge": 2 * k + 2, "mlkem_ntt": 1, "mlkem_multiply_ntts": 2,
            "mlkem_intt": 2}
     if op == "keygen":
-        return {"keccak_sponge": k * k + 2 * k + 2, "mlkem_ntt": 2, "mlkem_multiply_ntts": 1}
+        return {"keccak_sponge": 2 * k + 3, "mlkem_ntt": 2, "mlkem_multiply_ntts": 1}
     if op == "encaps":
         return dict(enc, keccak_sponge=enc["keccak_sponge"] + 2)
     return {"keccak_sponge": enc["keccak_sponge"] + 2, "mlkem_ntt": 2, "mlkem_multiply_ntts": 3,
@@ -4414,6 +4429,7 @@ def time_dif_variants(f, dev, rand, K, smi: str) -> dict:
 
 
 B3_PASSES = ("scan_reduce", "carry_scan", "rescan")
+B4_WIDE_KERNEL = "wide_ec_reduce_kernel"   # ec_reduce.cu's kernel in build.WIDE_REDUCES
 SASS_KINDS = ("total", "IMAD", "IMAD.WIDE", "IMAD.HI", "IADD3", "LOP3", "LDL", "STL")
 
 
@@ -4451,9 +4467,11 @@ def sass_counts():
     """The SASS instruction counts chip_smoke.py reports: the babybear t = 2
     and goldilocks t = 2 single-permutation Poseidon2 kernels' (their
     counts per hash), the
-    Keccak-256 word-row kernel's, the BLAKE kernels' (BLAKE_SASS), and one
+    Keccak-256 word-row kernel's, the BLAKE kernels' (BLAKE_SASS), one
     madd of each wide B3 instance's rescan (`sass.outer_loop`: its slot
-    loop's blocks, the rolled multiply's at its trips)."""
+    loop's blocks, the rolled multiply's at its trips), and each wide B4
+    instance's kernel (a static count: its row loop's padd_row, its tree's
+    and the store)."""
     from icicle_tpu_torch.kernels import build, sass
 
     def one(lib: str, pattern: str, blocks: bool = False) -> dict:
@@ -4466,9 +4484,12 @@ def sass_counts():
     for lib in build.WIDE_SCANS:
         counts = sass.outer_loop(one(lib, "wide_rescan_kernel", True), wide_madd_trips(lib))
         madds[lib] = {k: counts.get(k, 0) for k in SASS_KINDS}
+    reduces = {lib: {k: v for k, v in one(lib, B4_WIDE_KERNEL).items()
+                     if k in SASS_KINDS or k == "BAR"}
+               for lib in build.WIDE_REDUCES}
     return (one("poseidon2", P2_SASS_KERNEL), one("keccak", KECCAK_SASS_KERNEL),
             {pattern: one(lib, pattern) for lib, pattern in BLAKE_SASS}, madds,
-            one("poseidon2_gl64", GL64_SASS_KERNEL))
+            one("poseidon2_gl64", GL64_SASS_KERNEL), reduces)
 
 
 def main() -> None:
@@ -4728,7 +4749,7 @@ def main() -> None:
             if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) \
                     or "spill" in line or line.startswith("nvcc: "):
                 log(f"  lib{lib}: {line.strip()}")
-    p2_sass, keccak_sass, hash_sass, madd_sass, gl64_sass = build_out["sass"]
+    p2_sass, keccak_sass, hash_sass, madd_sass, gl64_sass, reduce_sass = build_out["sass"]
     wide_ptxas = {}
     for lib in build.WIDE_SCANS:
         if lib not in reports:
@@ -4739,6 +4760,15 @@ def main() -> None:
         log(f"  lib{lib} (B3 over ec_wide.cuh) ptxas: " + "; ".join(
             f"{p} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} B spill "
             f"stores / loads, {v['stack']} B stack" for p, v in wide_ptxas[lib].items()))
+    for lib in build.WIDE_REDUCES:
+        wide_ptxas[lib] = (build.ptxas_kernels(reports[lib], (B4_WIDE_KERNEL,))
+                           if lib in reports else
+                           "not compiled in this run: the library was up to date")
+        log(f"  lib{lib} (B4 over ec_wide.cuh) ptxas: " + (wide_ptxas[lib] if lib not in reports
+            else "; ".join(f"{v['registers']} registers, {v['spill_stores']} / "
+                           f"{v['spill_loads']} B spill stores / loads, {v['stack']} B stack"
+                           for v in wide_ptxas[lib].values()))
+            + f"; SASS (static): {reduce_sass[lib]}")
     for lib, counts in madd_sass.items():
         log(f"  lib{lib} rescan, SASS of one madd (the slot loop's blocks, the rolled "
             f"multiply's at its trips; b3's add chains and the branches around them once): "
@@ -5261,15 +5291,19 @@ def main() -> None:
         "library_ms": None,  # no PyTorch call computes a Keccak sponge
         "shape": [sp["batch"], sp["in_bytes"], sp["out_bytes"]],
         "sm_clock_mhz": sm_clock_mhz, "shapes": lp_rows["keccak_sponge"], "card": smi})
-    # B3's wide instances (build.WIDE_SCANS): their ptxas report and one
-    # madd's SASS
+    # B3's and B4's wide instances (build.WIDE_SCANS, build.WIDE_REDUCES):
+    # their ptxas report and SASS (B3: one madd's; B4: the kernel's, static)
     for e in entries:
-        if e["name"].split(" (")[0] == "prefix_scan":
+        kname = e["name"].split(" (")[0]
+        if kname in ("prefix_scan", "ec_reduce"):
             g = get_group(e["shapes"][0]["curve"], g2=e["shapes"][0]["g2"])
-            lib = msm_lib.libraries("prefix_scan", g.degree)[g.base_limbs]
+            lib = msm_lib.libraries(kname, g.degree)[g.base_limbs]
             if lib in build.WIDE_SCANS:
                 e.update(redesigned="ec_wide.cuh", ptxas=wide_ptxas[lib],
                          madd_sass=madd_sass[lib])
+            if lib in build.WIDE_REDUCES:
+                e.update(redesigned="ec_wide.cuh", ptxas=wide_ptxas[lib],
+                         sass=reduce_sass[lib])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -79,17 +79,20 @@ def define(name: str, macro: str, default: int) -> int:
 
 # headers in CSRC that only some libraries include: library name -> those
 # it includes. Every other *.cuh is a dependency of every library.
-# ec_wide.cuh (the carry-chain arithmetic): msm_scan.cu includes it where
-# ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a coordinate), so not in
-# bn254's libmsm_scan; precompute_bases.cu, poseidon_limbs.cu and ecntt.cu
-# always.
+# ec_wide.cuh (the carry-chain arithmetic): msm_scan.cu and ec_reduce.cu
+# include it where ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a
+# coordinate), so not in bn254's libmsm_scan and libec_reduce;
+# precompute_bases.cu, poseidon_limbs.cu and ecntt.cu always.
 WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu")
+GATED_SOURCES = ("msm_scan.cu", "ec_reduce.cu")
 HEADERS = {name: ["ec_wide.cuh"] for name, sources in LIBRARIES.items()
            if sources[0] in WIDE_SOURCES or (
-               sources == ["msm_scan.cu"]
+               sources[0] in GATED_SOURCES
                and define(name, "ICICLE_EC_LIMBS", 8) * define(name, "ICICLE_EC_DEGREE", 1) >= 12)}
-# B3's libraries over ec_wide.cuh (msm_scan.cu's wide instances)
+# B3's and B4's libraries over ec_wide.cuh (msm_scan.cu's and ec_reduce.cu's
+# wide instances)
 WIDE_SCANS = tuple(name for name in HEADERS if LIBRARIES[name] == ["msm_scan.cu"])
+WIDE_REDUCES = tuple(name for name in HEADERS if LIBRARIES[name] == ["ec_reduce.cu"])
 
 # -Xptxas -v: the compiler reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,10 +1,12 @@
-// Field arithmetic and curve formulas for the prefix scan's wide instances
-// (msm_scan.cu, B3, at 12 or more words a coordinate: Fp<12> for
-// bls12_377 / bls12_381 G1, Fp<24> for bw6_761 G1 and G2, Fp2<8> for
-// bn254 G2, Fp2<12> for bls12_377 / bls12_381 G2), for NVIDIA Hopper
-// (sm_90a). msm_scan.cu includes it only where ICICLE_EC_LIMBS *
-// ICICLE_EC_DEGREE >= 12; its 8-limb G1 instance (bn254, grumpkin) and the
-// other MSM kernels keep ec_field.cuh's arithmetic. precompute_bases.cu
+// Field arithmetic and curve formulas for the prefix scan's and the EC
+// reduce's wide instances (msm_scan.cu, B3, and ec_reduce.cu, B4, at 12 or
+// more words a coordinate: Fp<12> for bls12_377 / bls12_381 G1, Fp<24> for
+// bw6_761 G1 and G2, Fp2<8> for bn254 G2, Fp2<12> for bls12_377 /
+// bls12_381 G2), for NVIDIA Hopper (sm_90a). Those two sources include it
+// only where ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12; their 8-limb G1
+// instances (bn254, grumpkin) and the other MSM kernels keep ec_field.cuh's
+// arithmetic (the padd of ec_reduce.cu's row loop and tree: `padd_row`
+// below). precompute_bases.cu
 // (every instance; the Jacobian doubling `jdbl` and the squaring `fsqr`
 // below are its), poseidon_limbs.cu (the 8-limb Poseidon) and ecntt.cu
 // (the ECNTT's stage and ladder at 8, 12 and 24 limbs; the projective
@@ -433,7 +435,8 @@ __device__ __forceinline__ ECPoint<typename K::F> madd_slot(const ECPoint<typena
 
 // p + q, RCB15 Alg 7 (a = 0), the same lines as ec_field.cuh padd, in
 // their order: the carry scan runs S - 1 of them a lane, against the
-// folds' 2 K (S - 1) / S madds.
+// folds' 2 K (S - 1) / S madds (where it is the inner loop, ec_reduce.cu,
+// padd_row below loads q a coordinate at a time).
 template <class K>
 __device__ __forceinline__ ECPoint<typename K::F> padd(const ECPoint<typename K::F>& p,
                                                        const ECPoint<typename K::F>& q,
@@ -445,6 +448,43 @@ __device__ __forceinline__ ECPoint<typename K::F> padd(const ECPoint<typename K:
   const F t3 = fsub(fmul(fadd(p.x, p.y, k), fadd(q.x, q.y, k), k), fadd(t0, t1, k), k);
   const F t4 = fsub(fmul(fadd(p.y, p.z, k), fadd(q.y, q.z, k), k), fadd(t1, t2, k), k);
   F y3 = fsub(fmul(fadd(p.x, p.z, k), fadd(q.x, q.z, k), k), fadd(t0, t2, k), k);
+  t0 = fadd(fadd(t0, t0, k), t0, k);
+  t2 = fmul_b3(t2, k);
+  const F z3 = fadd(t1, t2, k);
+  t1 = fsub(t1, t2, k);
+  y3 = fmul_b3(y3, k);
+  ECPoint<F> r;
+  r.x = fsub(fmul(t3, t1, k), fmul(t4, y3, k), k);
+  r.y = fadd(fmul(t1, z3, k), fmul(y3, t0, k), k);
+  r.z = fadd(fmul(z3, t4, k), fmul(t0, t3, k), k);
+  return r;
+}
+
+// p + (x2, y2, z2), RCB15 Alg 7 (a = 0), with the second point's
+// coordinates at src (x in words src[j row], y and z in the W rows after
+// each other): ec_reduce.cu's row loop and tree, where it is the inner
+// loop. The same lines as padd, ordered for registers as madd_slot: each
+// of x2, y2, z2 is loaded just before its first product and dies at its
+// last sum, and each of x1, y1, z1 dies at its last use, so at most nine
+// coordinates are live beside the multiply in flight.
+template <class K>
+__device__ __forceinline__ ECPoint<typename K::F> padd_row(const ECPoint<typename K::F>& p,
+                                                           const uint32_t* __restrict__ src,
+                                                           size_t row, const K& k) {
+  using F = typename K::F;
+  constexpr int W = F::kWords;
+  const F x2 = load_coord<F>(src, row);
+  F t0 = fmul(p.x, x2, k);                              // x1 x2
+  const F sxy = fadd(p.x, p.y, k);                      // x1 + y1
+  const F sxz = fadd(p.x, p.z, k);                      // x1 + z1
+  const F y2 = load_coord<F>(src + W * row, row);
+  F t1 = fmul(p.y, y2, k);                              // y1 y2
+  const F syz = fadd(p.y, p.z, k);                      // y1 + z1
+  const F t3 = fsub(fmul(sxy, fadd(x2, y2, k), k), fadd(t0, t1, k), k);
+  const F z2 = load_coord<F>(src + 2 * W * row, row);
+  F t2 = fmul(p.z, z2, k);                              // z1 z2
+  const F t4 = fsub(fmul(syz, fadd(y2, z2, k), k), fadd(t1, t2, k), k);
+  F y3 = fsub(fmul(sxz, fadd(x2, z2, k), k), fadd(t0, t2, k), k);
   t0 = fadd(fadd(t0, t0, k), t0, k);
   t2 = fmul_b3(t2, k);
   const F z3 = fadd(t1, t2, k);

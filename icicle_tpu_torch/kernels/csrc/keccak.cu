@@ -27,7 +27,7 @@
 // same permutation (ML-KEM's SHA3-256/512 and SHAKE128/256; replaces no
 // Pallas kernel: the JAX package's sponge is XLA, icicle_tpu/ops/pqc/
 // ml_kem_tpu.py:88 _sponge):
-//   in   (batch, in_bytes) uint8, one message a row, read a byte at a time;
+//   in   (batch, in_bytes) uint8, one message a row;
 //   pad  in registers: the pad byte (0x06 SHA-3, 0x1F SHAKE) at byte
 //        in_bytes, 0x80 or-ed into the last byte of block
 //        in_bytes / rate, as `_sponge` pads;
@@ -35,7 +35,12 @@
 //        permutation between squeezed blocks, as many blocks as out_bytes
 //        takes (SHAKE128 for ML-KEM's matrix entries squeezes nine).
 // One instance a rate (72, 136, 168 bytes: the lane loops unrolled, the
-// state in registers); the pad byte and both lengths are arguments.
+// state in registers); the pad byte and both lengths are arguments. One
+// thread a message, 128 a block; the block's rows are one span of `in`
+// and one of `out`, which it reads and writes through shared memory in
+// whole words in address order, a rate's bytes of each row at a time
+// (sponge_kernel). ML-KEM's matrix, k^2 XOFs a key, is one launch
+// (ops/pqc/ml_kem_tpu.py _gen_matrix).
 //
 // Bound: operations on the ALU pipe. A permutation needs 4,309 32-bit
 // logic and shift instructions (keccak_kernel.PERMUTATION_OPS, counted
@@ -143,50 +148,108 @@ cudaError_t launch(const void* in, void* out, long long batch, int in_words, int
   return cudaGetLastError();
 }
 
+// The sponge's blocks: kThreads threads, a message each, whose rows lie one
+// after another in `in` and in `out`.
+//
+// Copies `rows` pieces of len bytes, piece r from src + r src_stride to
+// dst + r dst_stride, in words of U bytes (U divides both pointers, both
+// strides and len), the block's threads taking consecutive words in
+// address order: a warp's accesses cover consecutive addresses within a
+// piece, and runs on into the next piece. (r, i), the word's piece and
+// its word in it, steps by kThreads words with no division.
+template <class U>
+__device__ __forceinline__ void copy_pieces(uint8_t* dst, int dst_stride, const uint8_t* src,
+                                            int src_stride, int len, int rows) {
+  const int n = len / static_cast<int>(sizeof(U));
+  const int step_r = kThreads / n, step_i = kThreads % n;
+  int r = threadIdx.x / n, i = threadIdx.x % n;
+  while (r < rows) {
+    reinterpret_cast<U*>(dst + static_cast<size_t>(r) * dst_stride)[i] =
+        reinterpret_cast<const U*>(src + static_cast<size_t>(r) * src_stride)[i];
+    r += step_r;
+    i += step_i;
+    if (i >= n) {
+      i -= n;
+      ++r;
+    }
+  }
+}
+
+// copy_pieces in the widest words that `align` (the global side's pointer,
+// its stride and len or-ed together; the shared side is 8-byte aligned
+// with a stride of RATE) allows: 8 bytes at every ML-KEM output length
+// and at the lengths of ek and of z || c, single bytes at 33.
+__device__ __forceinline__ void copy_rows(uint8_t* dst, int dst_stride, const uint8_t* src,
+                                          int src_stride, int len, int rows, unsigned align) {
+  if ((align & 7u) == 0)
+    copy_pieces<uint64_t>(dst, dst_stride, src, src_stride, len, rows);
+  else if ((align & 3u) == 0)
+    copy_pieces<uint32_t>(dst, dst_stride, src, src_stride, len, rows);
+  else if ((align & 1u) == 0)
+    copy_pieces<uint16_t>(dst, dst_stride, src, src_stride, len, rows);
+  else
+    copy_pieces<uint8_t>(dst, dst_stride, src, src_stride, len, rows);
+}
+
 // One thread a message of in_bytes bytes; RATE bytes a block (72, 136, 168).
+// A block of kThreads messages moves each absorbed and each squeezed
+// block of its rows through `stage` (a row of RATE bytes a thread): the
+// absorb copies the rows' next RATE message bytes in, and each thread
+// reads its lanes from its row; the squeeze has each thread write its
+// lanes to its row, then copies the rows' RATE bytes out. Both copies are
+// copy_rows', in address order, so a warp's load or store covers whole
+// sectors rather than one byte of each of 32 rows.
 template <int RATE>
 __global__ void __launch_bounds__(kThreads)
     sponge_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long batch,
                   int in_bytes, uint32_t pad, int out_bytes) {
   constexpr int kLanes = RATE / 8;
-  const long long row = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (row >= batch) return;
-  const uint8_t* x = in + row * in_bytes;
+  __shared__ uint64_t stage[kThreads * kLanes];
+  uint8_t* const rows_stage = reinterpret_cast<uint8_t*>(stage);
+  uint64_t* const mine = stage + threadIdx.x * kLanes;
+  const long long row0 = blockIdx.x * static_cast<long long>(kThreads);
+  const int rows = static_cast<int>(min(static_cast<long long>(kThreads), batch - row0));
+  const uint8_t* x = in + row0 * in_bytes;
+  const unsigned in_align =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(in)) | static_cast<unsigned>(in_bytes);
   const int blocks = in_bytes / RATE + 1;
-  const int last = blocks * RATE - 1;
   uint64_t s[25];
 #pragma unroll
   for (int w = 0; w < 25; ++w) s[w] = 0;
   for (int blk = 0; blk < blocks; ++blk) {
+    const int base = blk * RATE;
+    const int len = min(RATE, in_bytes - base);   // message bytes in the block, 0 in a pad block
+    if (len > 0) {
+      __syncthreads();   // the last block's lanes are read
+      copy_rows(rows_stage, RATE, x + base, in_bytes, len, rows,
+                in_align | static_cast<unsigned>(len));
+      __syncthreads();
+    }
 #pragma unroll
     for (int w = 0; w < kLanes; ++w) {
-      uint64_t lane = 0;
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int k = blk * RATE + 8 * w + b;
-        uint32_t v = k < in_bytes ? __ldg(x + k) : 0u;
-        if (k == in_bytes) v |= pad;
-        if (k == last) v |= 0x80u;
-        lane |= static_cast<uint64_t>(v) << (8 * b);
-      }
+      const int have = len - 8 * w;   // message bytes in lane w
+      uint64_t lane = have > 0 ? mine[w] : 0;
+      if (have < 8) lane &= (1ull << (8 * max(have, 0))) - 1;  // the bytes past the message
+      if (have >= 0 && have < 8) lane |= static_cast<uint64_t>(pad) << (8 * have);
+      if (w == kLanes - 1 && blk == blocks - 1) lane |= 0x80ull << 56;
       s[w] ^= lane;
     }
     keccak_f(s);
   }
-  uint8_t* o = out + row * out_bytes;
+  uint8_t* y = out + row0 * out_bytes;
+  const unsigned out_align =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(out)) | static_cast<unsigned>(out_bytes);
   for (int base = 0; base < out_bytes; base += RATE) {
+    const int len = min(RATE, out_bytes - base);
+    __syncthreads();   // the stage's last reads (absorb or copy out) are done
 #pragma unroll
-    for (int w = 0; w < kLanes; ++w) {
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int k = base + 8 * w + b;
-        if (k < out_bytes) o[k] = static_cast<uint8_t>(s[w] >> (8 * b));
-      }
-    }
+    for (int w = 0; w < kLanes; ++w) mine[w] = s[w];
+    __syncthreads();
+    copy_rows(y + base, out_bytes, rows_stage, RATE, len, rows,
+              out_align | static_cast<unsigned>(len));
     if (base + RATE < out_bytes) keccak_f(s);
   }
 }
-
 template <int RATE>
 cudaError_t launch_sponge(const void* in, void* out, long long batch, int in_bytes, int pad,
                           int out_bytes, cudaStream_t s) {

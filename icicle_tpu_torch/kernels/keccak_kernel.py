@@ -243,7 +243,9 @@ def keccak_sponge(data: torch.Tensor, rate_bytes: int, pad_byte: int,
     the sponge at `rate_bytes` with domain byte `pad_byte`.
 
     On a CUDA tensor this launches `icicle_keccak_sponge` (K1's library,
-    one thread a message, sharing K1's permutation) on the current stream
+    one thread a message, sharing K1's permutation; a block of 128 messages
+    reads its rows and writes its digests through shared memory in whole
+    words, a rate's bytes of each row at a time) on the current stream
     (no synchronisation), counts the launch in `keccak_sponge.launches` and
     raises if the launch is refused. On a CPU tensor it computes
     `keccak_sponge_ref`."""

@@ -1,8 +1,8 @@
 """The MSM's CUDA libraries (`msm_scan` from kernels/csrc/msm_scan.cu,
 `ec_reduce` from ec_reduce.cu, `precompute_bases` from precompute_bases.cu,
 `msm_fold2` from msm_fold2.cu and `bucket_accum` from bucket_accum.cu, all
-over ec_field.cuh, B3's instances of 12 or more words a coordinate and
-every precompute_bases instance over ec_wide.cuh too; `msm_scan_r12` from
+over ec_field.cuh, B3's and B4's instances of 12 or more words a
+coordinate and every precompute_bases instance over ec_wide.cuh too; `msm_scan_r12` from
 msm_scan_r12.cu over radix12.cuh):
 loading with ctypes, the curve constants their kernels take, and the checks
 the wrappers share.
@@ -72,7 +72,9 @@ def libraries(kernel: str, degree: int) -> dict:
 # waves of one resident 256-thread block on each of the H100's 132 SMs
 TARGET_THREADS = 1 << 16
 # B5's and B6's: one such wave (128 of the 132 SMs); on the card the scan
-# and fold ran no faster at twice these threads and half as fast at half
+# and fold ran no faster at twice these threads and half as fast at half.
+# B4's wide instances' (ec_reduce.plan_threads): one wave of their two
+# 128-thread blocks an SM
 ONE_WAVE_THREADS = 1 << 15
 
 

@@ -3,7 +3,7 @@ the port's wrappers on one CUDA card, with chip_smoke.py's inputs, checks
 and timing, so two trees can be compared one process a tree.
 
     python -m icicle_tpu_torch.kernels.tree_probe [--csrc DIR]
-        [--paths b3|bases|gl64|ecntt] [--against FILE]
+        [--paths b3|bases|gl64|ecntt|b4|sponge] [--against FILE]
 
 Run it from a checkout's root: it imports chip_smoke.py and the package
 from there. DIR defaults to this checkout's kernels/csrc; a DIR's libraries
@@ -54,6 +54,28 @@ timed and hashed; and a forward transform through icicle_tpu_torch.ecntt,
 timed on the host clock and hashed. Also prints each library's ptxas
 report.
 
+--paths b4: B4, the EC reduce (ec_reduce.cu; bn254's ec_reduce and the
+wide libraries ec_reduce_l12, _l24, _fp2, _fp2_l12). Prints each library's
+ptxas report of its kernel and the kernel's static SASS counts, then
+chip_smoke.check_msm_kernels' log over plan_checks' B4 rows for M1, E1,
+M2, E2, E3 (bls12_377 and bw6_761) and bn254 2^24 (bit-exact against
+ec_reduce_ref at R 64 and 61 and equal to the serial fold as points, then
+the cross-tile sum and both bucket passes timed at full depth at the
+wrapper's plan), with the cross-tile sum also timed at each segment count
+of B4_SEGMENTS (the wrapper's `_segments`). B4's C entry has kept its form, so DIR may be
+an older tree's sources, as for b3.
+
+--paths sponge: keccak.cu's icicle_keccak_sponge at every row of
+chip_smoke.SPONGE_CHECKS and at ML-KEM-768's matrix in one launch
+(SPONGE_MATRIX: 9 x 2^16 messages of 34 bytes, squeezed to 1512), through
+keccak_kernel.keccak_sponge: each output held to keccak_sponge_ref on its
+first rows, then timed and hashed; then ML-KEM-768 keygen, encaps and
+decaps at a batch of 2^16 through icicle_tpu_torch's ml_kem_tpu, each
+counted, timed on the host clock (chip_smoke.host_ms) and hashed. Also
+prints the library's ptxas report and the static SASS counts of the three
+sponge instances. To time an older tree's ML-KEM, run this file from a
+checkout of it (as for bases); DIR alone changes the kernel only.
+
 Last, one JSON line of the card, the tree and the times.
 """
 
@@ -69,7 +91,7 @@ import torch
 
 from icicle_tpu_torch.kernels import build, sass
 
-PATHS = ("b3", "bases", "gl64", "ecntt")
+PATHS = ("b3", "bases", "gl64", "ecntt", "b4", "sponge")
 BASES_LIBRARIES = ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
                    "poseidon2_limbs")
 P1_FIELDS = ("bls12_381_scalar", "bn254_scalar")
@@ -81,6 +103,12 @@ GL64_BATCH = 1 << 16
 # has none)
 GL64_SASS_KERNEL = "Gl64InstanceILi2ELi4ELi27ELi7EEELb0E"
 ECNTT_LIBRARIES = ("ecntt", "ecntt_l12", "ecntt_l24")
+B4_LIBRARIES = ("ec_reduce", "ec_reduce_l12", "ec_reduce_l24", "ec_reduce_fp2", "ec_reduce_fp2_l12")
+B4_SEGMENTS = (4, 8, 16, 32)   # the cross-tile sum's segment counts timed beside the plan's
+# ML-KEM-768's matrix at 2^16 keys in one launch (chip_smoke.SPONGE_MATRIX;
+# a copy, since an older tree's chip_smoke.py has none)
+SPONGE_MATRIX = ("SHAKE128 XOF matrix, 9 entries a key", 9 << 16, 34, 168, 0x1F, 504 * 3)
+MLKEM_LOG = 16
 
 
 def madd_trips(lib: str, wide: bool) -> int:
@@ -315,6 +343,113 @@ def ecntt_paths(smi: str) -> dict:
     return {"ms": times, "digest": digests, "ptxas": ptxas}
 
 
+def b4_paths(csrc: str, smi: str) -> dict:
+    import chip_smoke
+    from icicle_tpu_torch.curves.group import get_group
+    from icicle_tpu_torch.ops.msm import default_c, generic_plan
+
+    reports = build.build_all(B4_LIBRARIES)
+    has_wide = '#include "ec_wide.cuh"' in open(os.path.join(csrc, "ec_reduce.cu")).read()
+    ptxas, counts = {}, {}
+    for lib in B4_LIBRARIES:
+        kernel = "wide_ec_reduce_kernel" if has_wide and lib != "ec_reduce" else "ec_reduce_kernel"
+        found = sass.kernel_counts(build.lib_path(lib), kernel)
+        if len(found) != 1:
+            raise AssertionError(f"lib{lib}: {len(found)} kernels match {kernel}")
+        c = next(iter(found.values()))["counts"]
+        counts[lib] = {k: c.get(k, 0) for k in (*chip_smoke.SASS_KINDS, "BAR")}
+        ptxas[lib] = (build.ptxas_kernels(reports[lib], (kernel,)) if lib in reports
+                      else "not compiled in this run: the library was up to date")
+        chip_smoke.log(f"lib{lib}: {reports[lib].splitlines()[-1] if lib in reports else ''}; "
+                       f"ptxas {ptxas[lib]}; {kernel} SASS (static) {counts[lib]}")
+
+    def g2_plan(cname: str) -> dict:
+        n = 1 << chip_smoke.G2_PATH_LOGS[cname]
+        return generic_plan(cname, n, default_c(n, g2=True), g2=True)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    times = {}
+    for path, cname, g2, plan in (
+            ("M1", "bls12_381", False, chip_smoke.v3_plan("bls12_381", 1 << chip_smoke.M1_LOG)),
+            ("E1", "bn254", True, g2_plan("bn254")),
+            ("M2", "bw6_761", False, chip_smoke.v3_plan("bw6_761", 1 << chip_smoke.M2_LOG)),
+            ("E2", "bls12_381", True, g2_plan("bls12_381")),
+            ("E3 bls12_377", "bls12_377", True, g2_plan("bls12_377")),
+            ("E3 bw6_761", "bw6_761", True, g2_plan("bw6_761")),
+            ("2^24", "bn254", False, chip_smoke.v3_plan("bn254", 1 << 24))):
+        g = get_group(cname, g2=g2)
+        checks, full = ([r for r in rows if r[0] == "ec_reduce"]
+                        for rows in chip_smoke.plan_checks(g, plan, path))
+        _, R, CR, role, _ = full[0]          # the cross-tile sum at full depth
+        full += [("ec_reduce", R, CR, f"{role}, S {s}", {"_segments": s})
+                 for s in B4_SEGMENTS if s <= R]
+        rows = chip_smoke.check_msm_kernels(dev, gen, smi, g, checks, full)["ec_reduce"]
+        for r in rows:
+            if not r["checked"]:
+                times[f"{path}: {r['role']}"] = r["kernel_ms"]
+        torch.cuda.empty_cache()
+    return {"ms": times, "ptxas": ptxas, "sass": counts}
+
+
+def sponge_paths(smi: str) -> dict:
+    import numpy as np
+
+    import chip_smoke
+    from icicle_tpu_torch.kernels import keccak_kernel as KK
+    from icicle_tpu_torch.ops.pqc import ml_kem_tpu as D
+
+    reports = build.build_all(["keccak"])
+    ptxas = chip_smoke.lib_ptxas(reports, "keccak")
+    found = sass.kernel_counts(build.lib_path("keccak"), "sponge_kernel")
+    counts = {name: {k: v["counts"].get(k, 0) for k in ("total", "LOP3", "SHF", "STG", "LDG",
+                                                       "STS", "LDS", "BAR")}
+              for name, v in found.items()}
+    chip_smoke.log(f"libkeccak: ptxas {ptxas}; sponge kernels' SASS (static) {counts}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    times, digests = {}, {}
+    rows = [(role, 1 << log_b, *rest) for role, log_b, *rest in chip_smoke.SPONGE_CHECKS]
+    for role, batch, nbytes, rate, pad, outb in rows + [SPONGE_MATRIX]:
+        data = torch.randint(0, 256, (batch, nbytes), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        out = KK.keccak_sponge(data, rate, pad, outb)
+        if not torch.equal(out[:CHECK_ROWS],
+                           KK.keccak_sponge_ref(data[:CHECK_ROWS], rate, pad, outb)):
+            raise AssertionError(f"{role}: != keccak_sponge_ref")
+        label = f"{role}: {nbytes} -> {outb} bytes, batch {batch}"
+        digests[label] = digest(out)
+        times[label] = chip_smoke.cuda_ms(lambda: KK.keccak_sponge(data, rate, pad, outb))
+        chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        del data, out
+    torch.cuda.empty_cache()
+
+    B = 1 << MLKEM_LOG
+    rng = np.random.default_rng(768)
+    ent = torch.from_numpy(rng.integers(0, 256, (B, 64), dtype=np.uint8)).to(dev)
+    msg = torch.from_numpy(rng.integers(0, 256, (B, 32), dtype=np.uint8)).to(dev)
+    ek, dk = D.keygen("768", ent)
+    c, K = D.encaps("768", msg, ek)
+    for op, fn, outs in (("keygen", lambda: D.keygen("768", ent), (ek, dk)),
+                         ("encaps", lambda: D.encaps("768", msg, ek), (c, K)),
+                         ("decaps", lambda: D.decaps("768", c, dk), None)):
+        label = f"ML-KEM-768 2^{MLKEM_LOG} {op}"
+        KK.keccak_sponge.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        launches = KK.keccak_sponge.launches
+        if op == "decaps" and not torch.equal(got, K):
+            raise AssertionError(f"{label}: a decapsulated secret != the encapsulated one")
+        digests[label] = digest(*(outs or (got,)))
+        times[label] = chip_smoke.host_ms(fn, reps=3)[0]
+        chip_smoke.log(f"{label}: {launches} sponge launches, {times[label]} ms, host clock "
+                       f"[{smi}]")
+    return {"ms": times, "digest": digests, "ptxas": ptxas, "sponge_sass": counts}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", default=build.CSRC)
@@ -349,7 +484,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     chip_smoke.log(f"{smi}; {args.paths} built from {csrc}, run from {os.getcwd()}")
     result = {"b3": lambda: b3_paths(csrc, smi), "bases": lambda: bases_paths(smi),
-              "gl64": lambda: gl64_paths(smi), "ecntt": lambda: ecntt_paths(smi)}[args.paths]()
+              "gl64": lambda: gl64_paths(smi), "ecntt": lambda: ecntt_paths(smi),
+              "b4": lambda: b4_paths(csrc, smi), "sponge": lambda: sponge_paths(smi)}[args.paths]()
     if args.against:
         other = json.loads(open(args.against).read().strip().splitlines()[-1])
         bad = mismatches(result, other)

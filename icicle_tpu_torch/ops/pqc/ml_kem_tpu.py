@@ -7,7 +7,8 @@ sequence of torch ops over the whole batch on the input's device, with
 three kinds of work in hand-written kernels (backend "cuda", or "auto" on a
 CUDA tensor; `MlKemConfig.backend`):
   * the Keccak sponges SHA3-256/512 and SHAKE128/256 (keccak.cu's
-    `icicle_keccak_sponge`, one thread a message; kernels/keccak_kernel.py);
+    `icicle_keccak_sponge`, one thread a message; kernels/keccak_kernel.py),
+    the k^2 XOFs of a key's matrix in one call over the whole batch;
   * the Z_3329 NTT, its inverse and the base-case products (mlkem.cu, one
     block a polynomial; kernels/mlkem_kernel.py).
 Backend "torch" runs their plain versions on any device. The rest is torch
@@ -143,17 +144,16 @@ def _cbd_vector(ops: _Ops, eta: int, sigma: torch.Tensor, first: int, k: int) ->
 
 def _gen_matrix(ops: _Ops, rho: torch.Tensor, k: int, transposed: bool) -> torch.Tensor:
     """(B, 32) rho -> (B, k, k, 256) A-hat (row i, column j): entry (i, j)
-    from SHAKE128(rho || j || i), or rho || i || j transposed."""
+    from SHAKE128(rho || j || i), or rho || i || j transposed. The B k^2
+    messages are one (B k^2, 34) batch, key-major then i then j: one
+    shake128 call (one sponge launch) and one sample_ntt call."""
     B = rho.shape[0]
-    rows = []
-    for i in range(k):
-        cols = []
-        for j in range(k):
-            a, b = (j, i) if not transposed else (i, j)
-            sfx = torch.tensor([[a, b]], dtype=U8, device=rho.device).expand(B, 2)
-            cols.append(sample_ntt(ops.shake128(_cat(rho, sfx), _GEN_MATRIX_BYTES)))
-        rows.append(torch.stack(cols, dim=1))
-    return torch.stack(rows, dim=1)
+    idx = torch.arange(k, dtype=U8, device=rho.device)
+    i, j = idx.view(k, 1).expand(k, k), idx.view(1, k).expand(k, k)
+    sfx = torch.stack((i, j) if transposed else (j, i), dim=-1)          # (k, k, 2)
+    msgs = torch.cat([rho.view(B, 1, 1, 32).expand(B, k, k, 32),
+                      sfx.expand(B, k, k, 2)], dim=-1).reshape(B * k * k, 34)
+    return sample_ntt(ops.shake128(msgs, _GEN_MATRIX_BYTES)).view(B, k, k, 256)
 
 
 def _mat_vec(ops: _Ops, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

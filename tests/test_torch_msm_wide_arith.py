@@ -1,5 +1,5 @@
-"""The arithmetic of B3's wide instances (icicle_tpu_torch/kernels/csrc/
-ec_wide.cuh, also under precompute_bases, the 8-limb Poseidon and the
+"""The arithmetic of B3's and B4's wide instances (icicle_tpu_torch/kernels/
+csrc/ec_wide.cuh, also under precompute_bases, the 8-limb Poseidon and the
 ECNTT kernel), modelled word by word on the CPU.
 
 The CUDA source cannot run here, so this file keeps a Python model of its
@@ -16,7 +16,9 @@ of every wide instance: bls12_377, bls12_381 and bw6_761 Fq, and bn254 Fq
 (the base field of Fp2<8>), with edge values and numpy-seeded values in
 [0, 2p), the lazy range. The ECNTT's projective doubling (ec_wide.cuh
 pdbl, RCB15 Alg 9) runs over the model and is held to the port's plain
-group doubling.
+group doubling; B4's projective add (ec_wide.cuh padd_row, RCB15 Alg 7
+ordered for registers) runs over the model and is held to the port's
+plain group add.
 """
 
 from __future__ import annotations
@@ -37,11 +39,17 @@ MASK = 0xFFFFFFFF
 CSRC = build.CSRC
 WIDE_HEADER = os.path.join(CSRC, "ec_wide.cuh")
 WIDE_SCANS = ("msm_scan_l12", "msm_scan_l24", "msm_scan_fp2", "msm_scan_fp2_l12")
-# every library whose source includes ec_wide.cuh: B3's wide scans,
-# precompute_bases (both), the 8-limb Poseidon and the ECNTT (every limb count)
-WIDE_LIBRARIES = WIDE_SCANS + ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
-                               "ecntt", "ecntt_l12", "ecntt_l24")
-WIDE_SOURCES = {"msm_scan.cu", "precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu"}
+WIDE_REDUCES = ("ec_reduce_l12", "ec_reduce_l24", "ec_reduce_fp2", "ec_reduce_fp2_l12")
+# every library whose source includes ec_wide.cuh: B3's and B4's wide
+# instances, precompute_bases (both), the 8-limb Poseidon and the ECNTT
+# (every limb count)
+WIDE_LIBRARIES = WIDE_SCANS + WIDE_REDUCES + ("precompute_bases", "precompute_bases_fp2",
+                                              "poseidon_limbs", "ecntt", "ecntt_l12", "ecntt_l24")
+WIDE_SOURCES = {"msm_scan.cu", "ec_reduce.cu", "precompute_bases.cu", "poseidon_limbs.cu",
+                "ecntt.cu"}
+# the sources that include ec_wide.cuh only at 12 or more words a
+# coordinate, and their 8-limb G1 libraries, which do not
+GATED = {"msm_scan.cu": ("msm_scan", WIDE_SCANS), "ec_reduce.cu": ("ec_reduce", WIDE_REDUCES)}
 # (curve, limbs) of each wide instance's base field
 FIELDS = (("bls12_377", 12), ("bls12_381", 12), ("bw6_761", 24), ("bn254", 8))
 # the sites where ec_wide.cuh drops a chain's carry out, and the carry it drops
@@ -384,6 +392,77 @@ def test_pdbl_is_the_plain_doubling(curve):
             assert got == [want[c][i] for c in range(3)], (curve, i, lift)
 
 
+def padd_row(F: Flag, p, q, f: Base, b3: int):
+    """ec_wide.cuh padd_row (RCB15 Alg 7, a = 0) over the model, line for
+    line in the source's order: p the accumulator, q the row, each a list
+    of (x, y, z) word lists with values in [0, 2p)."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0 = mul(F, x1, x2, f)
+    sxy = add(F, x1, y1, f)
+    sxz = add(F, x1, z1, f)
+    t1 = mul(F, y1, y2, f)
+    syz = add(F, y1, z1, f)
+    t3 = sub(F, mul(F, sxy, add(F, x2, y2, f), f), add(F, t0, t1, f), f)
+    t2 = mul(F, z1, z2, f)
+    t4 = sub(F, mul(F, syz, add(F, y2, z2, f), f), add(F, t1, t2, f), f)
+    y3 = sub(F, mul(F, sxz, add(F, x2, z2, f), f), add(F, t0, t2, f), f)
+    t0 = add(F, add(F, t0, t0, f), t0, f)
+    t2 = mul_small(F, t2, b3, f)
+    z3 = add(F, t1, t2, f)
+    t1 = sub(F, t1, t2, f)
+    y3 = mul_small(F, y3, b3, f)
+    return (sub(F, mul(F, t3, t1, f), mul(F, t4, y3, f), f),
+            add(F, mul(F, t1, z3, f), mul(F, y3, t0, f), f),
+            add(F, mul(F, z3, t4, f), mul(F, t0, t3, f), f))
+
+
+@pytest.mark.parametrize("curve", ["bls12_381", "bls12_377", "bw6_761"])
+def test_padd_row_is_the_plain_add(curve):
+    """B4's add over the lazy model, its coordinates made canonical, equals
+    the port's plain group add (Group.add, RCB15 Alg 7 in its own order
+    over canonical values) bit for bit on the wide G1 curves: sums with the
+    identity on either side, a point with itself, a point with its
+    negative and multiples of the generator in projective form with z != 1;
+    each input both canonical and as its lazy representative plus p where
+    that is below 2p (the values ec_reduce.cu's accumulators and partials
+    hold)."""
+    from icicle_tpu_torch.curves.group import Projective
+    g = get_group(curve)
+    f = Base(curve, g.nlimbs)
+    L = f.L
+    b3 = msm_lib.b3_small(g)
+    F = Flag()
+    R = f.R % f.p
+    rng = np.random.default_rng(f.L + 5)
+    gx, gy = (int(v) for v in g.gen_int)               # Montgomery form
+    ident = (0, R, 0)
+
+    def scaled(x, y, z):
+        lam = int.from_bytes(rng.bytes(4 * L), "little") % f.p
+        return (x * lam % f.p, y * lam % f.p, z * lam % f.p)
+
+    gen = scaled(gx, gy, R)
+    two = tuple(value(canonical(F, c, f)) for c in pdbl(F, [words(v, L) for v in gen], f, b3))
+    pairs = [(ident, ident), (ident, gen), (gen, ident), (gen, scaled(*gen)),
+             (gen, scaled(gx, f.p - gy, R)), (two, gen), (scaled(*two), scaled(*gen))]
+
+    def tensor(vals):
+        w = np.array([words(v, L) for v in vals], dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(w.copy())
+
+    want = g.add(*(Projective(*(tensor([pq[s][i] for pq in pairs]) for i in range(3)))
+                   for s in (0, 1)))
+    want = [[value([int(w) & MASK for w in row]) for row in c.tolist()] for c in want]
+    for lift in (0, 1):
+        for i, (p, q) in enumerate(pairs):
+            lazy = [[words(v + f.p if lift and v + f.p < 2 * f.p else v, L) for v in pt]
+                    for pt in (p, q)]
+            out = padd_row(F, *lazy, f, b3)
+            got = [value(canonical(F, c, f)) for c in out]
+            assert got == [want[c][i] for c in range(3)], (curve, i, lift)
+
+
 def test_model_names_every_site_the_source_drops_a_carry():
     """ec_wide.cuh marks each chain end without a carry out "carry out:
     none"; the model has one named site for each, and every one is reached
@@ -404,37 +483,45 @@ def test_model_names_every_site_the_source_drops_a_carry():
 
 def test_build_gives_the_wide_header_to_the_four_wide_libraries():
     """ec_wide.cuh is a dependency of exactly the libraries that include
-    it: B3's four wide scans, both precompute_bases libraries, the 8-limb
-    Poseidon and the three ECNTT libraries; bn254's libmsm_scan neither depends on it nor
-    compiles it (its limb count times degree is below 12, msm_scan.cu's
-    condition). build.WIDE_SCANS are B3's four."""
+    it: B3's and B4's four wide instances each, both precompute_bases
+    libraries, the 8-limb Poseidon and the three ECNTT libraries; bn254's
+    libmsm_scan and libec_reduce neither depend on it nor compile it (their
+    limb count times degree is below 12, the condition of msm_scan.cu and
+    ec_reduce.cu). build.WIDE_SCANS are B3's four, build.WIDE_REDUCES
+    B4's."""
     with_header = {name for name in build.LIBRARIES
                    if any(p.endswith("ec_wide.cuh") for p in build._inputs(name))}
     assert with_header == set(WIDE_LIBRARIES)
     assert set(build.WIDE_SCANS) == set(WIDE_SCANS)
+    assert set(build.WIDE_REDUCES) == set(WIDE_REDUCES)
     assert os.path.exists(WIDE_HEADER)
 
     def words_a_coordinate(name):
         flags = dict(re.match(r"-D(\w+)=(\d+)", d).groups() for d in build.DEFINES.get(name, []))
         return int(flags.get("ICICLE_EC_LIMBS", 8)) * int(flags.get("ICICLE_EC_DEGREE", 1))
 
-    assert all(words_a_coordinate(n) >= 12 for n in WIDE_SCANS)
-    assert words_a_coordinate("msm_scan") == 8
-    src = open(os.path.join(CSRC, "msm_scan.cu")).read()
     guard = "#if ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12"
-    at = src.index(guard)
-    assert at < src.index('#include "ec_wide.cuh"') < src.index("#else", at)
-    b3 = {*msm_lib.KERNELS["prefix_scan"][0].values(), *msm_lib.FP2_KERNELS["prefix_scan"].values()}
-    assert b3 == {"msm_scan", *WIDE_SCANS}
+    for source, (narrow, wide) in GATED.items():
+        assert all(words_a_coordinate(n) >= 12 for n in wide)
+        assert words_a_coordinate(narrow) == 8
+        src = open(os.path.join(CSRC, source)).read()
+        at = src.index(guard)
+        assert at < src.index('#include "ec_wide.cuh"') < src.index("#else", at), source
+    kernel = {"msm_scan.cu": "prefix_scan", "ec_reduce.cu": "ec_reduce"}
+    for source, (narrow, wide) in GATED.items():
+        libs = {*msm_lib.KERNELS[kernel[source]][0].values(),
+                *msm_lib.FP2_KERNELS[kernel[source]].values()}
+        assert libs == {narrow, *wide}
+        assert all(build.LIBRARIES[n] == [source] for n in libs)
     assert {build.LIBRARIES[n][0] for n in WIDE_LIBRARIES} == WIDE_SOURCES
 
 
 @pytest.mark.parametrize("name", sorted(build.LIBRARIES))
 def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, name):
     """A change to ec_wide.cuh makes the libraries that include it stale
-    (B3's four wide scans, precompute_bases, precompute_bases_fp2,
-    poseidon_limbs, ecntt, ecntt_l12, ecntt_l24), and no other (build.py's staleness rule over a temp
-    copy of csrc/)."""
+    (B3's and B4's four wide instances each, precompute_bases,
+    precompute_bases_fp2, poseidon_limbs, ecntt, ecntt_l12, ecntt_l24), and
+    no other (build.py's staleness rule over a temp copy of csrc/)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
@@ -451,12 +538,57 @@ def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, 
 
 
 def test_only_msm_scan_includes_the_wide_header():
-    """build.HEADERS gives ec_wide.cuh to the libraries of msm_scan.cu,
-    precompute_bases.cu, poseidon_limbs.cu and ecntt.cu alone, so another
-    source that included it would not rebuild when it changes: none does."""
+    """Only the sources that build.HEADERS gives ec_wide.cuh to include it:
+    msm_scan.cu, ec_reduce.cu, precompute_bases.cu, poseidon_limbs.cu and
+    ecntt.cu (build.WIDE_SOURCES and build.GATED_SOURCES), so no other
+    source misses a rebuild when the header changes. (The name predates
+    ec_reduce.cu's wide instances.)"""
     including = {f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
                  and '#include "ec_wide.cuh"' in open(os.path.join(CSRC, f)).read()}
     assert including == WIDE_SOURCES
+    assert including == set(build.WIDE_SOURCES) | set(build.GATED_SOURCES)
+
+
+def test_ec_reduce_source_takes_the_wide_formulas():
+    """ec_reduce.cu's wide kernel, under the 12-word gate, adds with
+    ec_wide.cuh's padd_row (rows and the tree's partials), stores through
+    store_canonical and is launched after lazy_ok; its 8-limb kernel keeps
+    ec_field.cuh's padd over load_pt and its plain store, launched in its
+    blocks of kSplitThreads, outside the gate."""
+    src = open(os.path.join(CSRC, "ec_reduce.cu")).read()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    start = code.index("template <class C>\n__global__")
+    narrow = code[start:code.index("\n}\n", start)]
+    assert "padd(acc, load_pt<F>(in +" in narrow and "padd(acc, load_pt<F>(part +" in narrow
+    assert "store_pt<F>(out + lane, row, acc)" in narrow and "wide::" not in narrow
+    gates = [m.start() for m in re.finditer(r"#if ICICLE_EC_WIDE\n", code)]
+    assert len(gates) == 2
+    wide_kernel = code[gates[0]:code.index("#endif", gates[0])]
+    assert "wide_ec_reduce_kernel" in wide_kernel
+    assert wide_kernel.count("wide::padd_row(acc,") == 2
+    assert "wide::store_canonical(out + lane, row, acc, q)" in wide_kernel
+    assert "padd(acc, load_pt" not in wide_kernel
+    launch = code[gates[1]:code.index("#endif", gates[1])]
+    wide_launch, narrow_launch = launch.split("#else")
+    assert "wide::lazy_ok" in wide_launch and "wide_ec_reduce_kernel<Q>" in wide_launch
+    assert "wide::kWideSplitThreads" in wide_launch
+    assert "ec_reduce_kernel<Consts>, kSplitThreads" in narrow_launch
+
+
+@pytest.mark.parametrize("curve, g2", [("bls12_377", False), ("bls12_381", False),
+                                       ("bw6_761", False), ("bw6_761", True), ("bn254", True),
+                                       ("bls12_377", True), ("bls12_381", True)])
+def test_every_wide_reduce_group_has_two_spare_bits(curve, g2):
+    """ec_reduce.cu's wide kernel computes over lazy values and its launch
+    refuses a modulus without two spare bits (lazy_ok): the base field of
+    every group that reaches a wide library (bls12_377 and bls12_381 G1
+    and G2, bw6_761 G1 and G2, bn254 G2) has them."""
+    g = get_group(curve, g2=g2)
+    msm_lib.require_instance("ec_reduce", g)
+    nl, degree = msm_lib.instance(g)
+    assert msm_lib.libraries("ec_reduce", degree)[nl] in WIDE_REDUCES
+    f = Base(curve, g.base_limbs)
+    assert 4 * f.p < f.R and f.pw[-1] >> 30 == 0
 
 
 @pytest.mark.parametrize("name, limbs, degree", [("msm_scan", 8, 1), ("msm_scan_l24", 24, 1),
@@ -528,3 +660,25 @@ def test_ecntt_source_takes_the_wide_formulas():
         assert call in code, call
     for old in ("mont_mul", "add_mod", "sub_mod", "dbl<C>", "padd<C>"):
         assert old not in code, old
+
+
+@pytest.mark.parametrize("curve, g2, R, C, S", [
+    ("bls12_381", False, 2048, 2048, 16),   # M1's cross-tile sum (S 32 at TARGET_THREADS)
+    ("bn254", True, 512, 4096, 8),          # E1's (16)
+    ("bw6_761", False, 128, 8192, 4),       # M2's (8)
+    ("bls12_381", True, 128, 8192, 4),      # E2's and E3's (8)
+    ("bw6_761", True, 128, 8192, 4),
+    ("bls12_381", False, 8, 3072, 8),       # bucket pass 1: capped at R
+    ("bls12_381", False, 128, 24, 32),      # bucket pass 2: capped at 32
+    ("bn254", False, 2048, 2048, 32),       # the 8-limb instance keeps its plan
+])
+def test_wide_reduce_plan_is_one_wave(curve, g2, R, C, S):
+    """ec_reduce's segment plan: a group over a wide library aims at
+    ONE_WAVE_THREADS (one wave of two 128-thread blocks an SM), the 8-limb
+    G1 instance at TARGET_THREADS; the wrapper on a CPU tensor computes the
+    plain version at that plan."""
+    from icicle_tpu_torch.kernels import ec_reduce as TR
+    g = get_group(curve, g2=g2)
+    assert TR.reduce_segments(R, C, TR.plan_threads(g)) == S
+    assert TR.plan_threads(g) == (msm_lib.ONE_WAVE_THREADS if g.nlimbs >= 12
+                                  else msm_lib.TARGET_THREADS)
