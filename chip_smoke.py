@@ -154,14 +154,19 @@ G2 and ECNTT kernel checks and paths, S1-S5 and S7:
                (the round pass and the reduction of its partials), the proof
                verifies and a tampered round is refused, every round
                polynomial equals the plain path's; host-clock ms, a profile;
-  9. field layer -- the NTT over goldilocks and 8-limb fields through
-               icicle_tpu_torch.ntt on CUDA tensors: goldilocks 2^24
+  9. field layer -- the NTT over goldilocks, 8- and 12-limb fields
+               through icicle_tpu_torch.ntt on CUDA tensors: goldilocks 2^24
                (forward, inverse, a coset forward), bn254_scalar 2^22,
-               stark252 and bls12_381_scalar 2^16; each NTT exactly two
-               dif_rows_wide launches (counted), the forward equal to
-               `_ntt_torch` on the card (at full size; bn254_scalar also at
-               2^18), the inverse giving the input back, host-clock ms and
-               butterflies/s, a profile of the two large forwards; then
+               stark252 and bls12_381_scalar 2^16, bw6_761_scalar 2^22; and
+               rows that span a thread-block cluster: bn254_scalar 2^25 and
+               goldilocks 2^29; each NTT exactly two dif_rows_wide launches
+               (counted), the forward equal to `_ntt_torch` on the card (at
+               full size; bn254_scalar and bw6_761_scalar also at 2^18) or,
+               at 2^25 and 2^29, to Python-int sums at sampled outputs (a
+               geometric input with random spikes, whose transform has a
+               closed form), the inverse giving the input back, host-clock
+               ms and butterflies/s, a profile of the two 2^24 and 2^22
+               forwards; then
                MerkleTree([Poseidon2(goldilocks, 2)] * 28, leaf_words=2) over
                2^28 leaves (2 GiB, the 2^29 babybear tree's bytes): 28
                poseidon2 launches and no other device kernel (counted and
@@ -252,14 +257,18 @@ beside it the kernel's own products (one Fermat power a block of
 PB.BLOCK_THREADS points, every squaring a multiply); n 2L words read and nu
 n 2L written.
 
-Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks and
-8-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in both
-instances: the passes of the goldilocks 2^24 and bn254_scalar 2^22 NTTs
-in all four layouts, with and without the factor, 64 sampled rows (and
-rows 0, 1 and the last) of each full-length pass compared, 0 and p - 1
-among the inputs; and both passes of a whole 2^16 NTT for every 8-limb
-field; the goldilocks poseidon2 instances at every width, t = 2 to 24
-(batch 2^16, one permutation, the sponge and a domain tag) against
+Phase 3 also holds dif_rows_wide (the NTT row kernel for goldilocks, 8-
+and 12-limb fields, kernels/csrc/ntt_wide.cu) to dif_rows_wide_ref in
+every instance: the passes of the goldilocks 2^24, bn254_scalar 2^22 and
+bw6_761_scalar 2^22 NTTs and bls12_381_scalar's 2^22 pass A (its
+canonical instance) in all four layouts, with and without the factor, 64
+sampled rows (and rows 0, 1 and the last) of each full-length pass
+compared, 0 and p - 1 among the inputs; both passes of a whole 2^16 NTT
+for every 8-limb field; and 64 rows at each length whose rows span a
+thread-block cluster (WIDE_CLUSTER_SHAPES: Fp<8> 2^13, 2^14, Gl64 2^15,
+Fp<12> 2^13, 2^14), in both passes' layouts; the goldilocks poseidon2
+instances at every width, t = 2 to 24 (batch 2^16, one permutation, the
+sponge and a domain tag) against
 hash_fields_ref, and t = 2 timed at the 2^28 tree's leaf layer. A
 goldilocks multiply counts as 8 integer multiplies (four 32 x 32
 products, low and high words; no m p terms), and goldilocks converts
@@ -401,9 +410,9 @@ REPS = 10
 PROFILE_PAD_S = 1.0  # idle seconds before and after a profiled call, doubled a retry
 PROFILE_TRIES = 3
 # the libraries of the phases that overlap the build, compiled first
-EARLY_LIBRARIES = ("ntt", "ntt_wide", "poseidon2", "poseidon2_limbs", "poseidon2_gl64", "keccak",
-                   "fri_fold", "sumcheck", "program", "poseidon", "poseidon_limbs", "blake2s",
-                   "blake3", "rq_ntt", "mlkem")
+EARLY_LIBRARIES = ("ntt", "ntt_wide", "ntt_wide_l12", "poseidon2", "poseidon2_limbs",
+                   "poseidon2_gl64", "keccak", "fri_fold", "sumcheck", "program", "poseidon",
+                   "poseidon_limbs", "blake2s", "blake3", "rq_ntt", "mlkem")
 PROFILE_KEPT = 0.99  # share of the launch calls a profile must keep, else retried
 # the CUDA activity alone: it brings the device activities and the host's
 # CUDA runtime calls that start them; the CPU activity's operator events add
@@ -1825,8 +1834,12 @@ def sumcheck_main_path(dev, smi: str, launches: dict) -> dict:
 
 GL_NTT_LOG = 24
 BN_NTT_LOG = 22
+BW_NTT_LOG = 22
+GL_CLUSTER_LOG = 29   # rows of 2^15: a cluster of 8 blocks a tile of 4
+BN_CLUSTER_LOG = 25   # rows of 2^13: a cluster of 4
 GL_NTT_MAIN = f"ntt goldilocks 2^{GL_NTT_LOG} fwd+inv"
 BN_NTT_MAIN = f"ntt bn254_scalar 2^{BN_NTT_LOG} fwd+inv"
+BW_NTT_MAIN = f"ntt bw6_761_scalar 2^{BW_NTT_LOG} fwd+inv"
 GL_MERKLE_MAIN = f"merkle goldilocks poseidon2 t=2 2^{GL_MERKLE_LOG}"
 POLY_BN_LOG = 20      # coefficients of each factor: their product's NTTs are 2^21
 POLY_BB_LOG = 21      # babybear: 2^22 NTTs, dif_rows
@@ -1844,7 +1857,29 @@ WIDE_SHAPES = [
     ("goldilocks", 4096, 12, False, "goldilocks 2^24 inv pass B"),
     ("bn254_scalar", 2048, 11, True, "bn254_scalar 2^22 fwd pass A"),
     ("bn254_scalar", 2048, 11, False, "bn254_scalar 2^22 inv pass B"),
+    ("bls12_381_scalar", 2048, 11, True, "bls12_381_scalar 2^22 fwd pass A"),
+    ("bw6_761_scalar", 2048, 11, True, "bw6_761_scalar 2^22 fwd pass A"),
+    ("bw6_761_scalar", 2048, 11, False, "bw6_761_scalar 2^22 inv pass B"),
 ]
+# (field, log_n, role): rows that span a thread-block cluster, 64 rows of
+# full length through dif_rows_wide in pass A's and pass B's layouts, every
+# row compared: each (instance, TR, cluster) plan that `wide_plan` gives a
+# pass of an NTT from 2^16 to the instance's limit and WIDE_SHAPES does not
+# (bn254_scalar 2^25's pass B has rows of 2^13, goldilocks 2^29's 2^14 and
+# 2^15, bw6_761_scalar 2^24's 2^12)
+WIDE_CLUSTER_SHAPES = [
+    ("bn254_scalar", 12, "Fp<8> rows of 2^12 (bn254_scalar 2^24)"),
+    ("bn254_scalar", 13, "Fp<8> rows of 2^13 (bn254_scalar 2^26)"),
+    ("bn254_scalar", 14, "Fp<8> rows of 2^14 (bn254_scalar 2^28)"),
+    ("goldilocks", 13, "Gl64 rows of 2^13 (goldilocks 2^26)"),
+    ("goldilocks", 14, "Gl64 rows of 2^14 (goldilocks 2^28)"),
+    ("goldilocks", 15, "Gl64 rows of 2^15 (goldilocks 2^30)"),
+    ("goldilocks", 16, "Gl64 rows of 2^16 (goldilocks 2^32)"),
+    ("bw6_761_scalar", 12, "Fp<12> rows of 2^12 (bw6_761_scalar 2^24)"),
+    ("bw6_761_scalar", 13, "Fp<12> rows of 2^13 (bw6_761_scalar 2^26)"),
+    ("bw6_761_scalar", 14, "Fp<12> rows of 2^14 (bw6_761_scalar 2^28)"),
+]
+WIDE_CLUSTER_ROWS = 64
 
 
 def element_bytes(f) -> int:
@@ -1852,13 +1887,14 @@ def element_bytes(f) -> int:
 
 
 def dif_rows_wide_bound(f, rows: int, log_n: int, factor: bool) -> tuple[float, str]:
-    """x and out (and the factor) once, the (log_n, N) stage table once;
-    log_n N / 2 butterfly multiplies a row (and N by the factor), each
-    `field_muls(f)` integer multiplies."""
+    """x and out (and the factor) once, the stage table's N - 1 compact
+    twiddles once; a row's log_n N / 2 butterflies less the N - 1 whose
+    twiddle is w^0 multiply (and N by the factor), each `field_muls(f)`
+    integer multiplies."""
     n = 1 << log_n
     eb = element_bytes(f)
-    nbytes = rows * n * eb * (3 if factor else 2) + log_n * n * eb
-    muls = rows * (log_n * n // 2 + (n if factor else 0)) * field_muls(f)
+    nbytes = rows * n * eb * (3 if factor else 2) + (n - 1) * eb
+    muls = rows * (log_n * n // 2 - (n - 1) + (n if factor else 0)) * field_muls(f)
     return bound(nbytes, muls)
 
 
@@ -1884,10 +1920,13 @@ def check_wide_kernel(dev, gen, smi: str) -> list:
     """dif_rows_wide against dif_rows_wide_ref on the card: WIDE_SHAPES in
     all four layouts with and without the factor (64 sampled rows of the
     full-length pass compared; rows are independent), then both passes of a
-    whole 2^16 NTT for every 8-limb field (grumpkin_scalar, which has no
+    whole 2^16 NTT for every 8-limb field, then WIDE_CLUSTER_SHAPES
+    (rows that span a cluster) in both passes' layouts, every row compared
+    (grumpkin_scalar, which has no
     root of unity, with a stage table built from random elements in place
     of the powers of w: the kernel reads tw[s, k], the plain version the
-    bottom lanes' tw[s, k + m], equal only in a table of that structure). Each launch timed (median
+    bottom lanes' tw[s, k + m], equal only in a table of that structure;
+    neither reads w^0). Each launch timed (median
     CUDA-event ms), the plain version at the sampled rows in the layout the
     four-step gives the pass."""
     from icicle_tpu_torch import get_field
@@ -1964,32 +2003,102 @@ def check_wide_kernel(dev, gen, smi: str) -> list:
             compare(f, x, tw, factor, not pass_b, True, 256, f"{fname} 2^16 pass "
                     f"{'B' if pass_b else 'A'}", False, fname == "bn254_scalar", 8)
     torch.cuda.empty_cache()
+    for fname, log_n, role in WIDE_CLUSTER_SHAPES:
+        f = get_field(fname)
+        for pass_b in (False, True):
+            tw = K._stage_twiddles(f, log_n, not pass_b, dev)
+            shape = ((WIDE_CLUSTER_ROWS, 1 << log_n) if pass_b
+                     else (1 << log_n, WIDE_CLUSTER_ROWS))
+            x = _with_edges(f, field_elements(f, shape, gen, dev), dev)
+            factor = field_elements(f, shape, gen, dev) if pass_b else None
+            compare(f, x, tw, factor, not pass_b, True, WIDE_CLUSTER_ROWS,
+                    f"{role} pass {'B' if pass_b else 'A'}", False, False, log_n)
+            del x, factor
+        torch.cuda.empty_cache()
     return out
 
 
+ORACLE_SPIKES = 16    # random elements set into the geometric input
+ORACLE_OUTPUTS = 8    # outputs of a large forward NTT held to Python ints
+
+
+def stored_ints(f, t: torch.Tensor) -> list:
+    """The stored integers of a vector of elements (limbs or goldilocks
+    words, little-endian uint32 bit patterns), as Python ints, as they are
+    held (Montgomery form stays Montgomery form)."""
+    words = (t.reshape(t.shape[0], -1).to(torch.int64) & 0xFFFFFFFF).cpu().tolist()
+    return [sum(v << (32 * i) for i, v in enumerate(row)) for row in words]
+
+
+def spiked_geometric(f, n: int, gen, dev):
+    """A dense NTT input whose transform has a closed form: stored values
+    u_j = c a^j (`_powers_mont`'s, c = R mod p or 1, a random) but at
+    ORACLE_SPIKES random positions, which hold random elements. Returns (u,
+    oracle), oracle(k) the stored value of y_k = sum_j u_j w^(jk) mod p in
+    Python ints, w the forward root of order n: c (a^n - 1) / (a w^k - 1)
+    plus each spike's correction (v - c a^j) w^(jk)."""
+    from icicle_tpu_torch.ops import ntt as N
+
+    p = f.modulus
+    a = 2 + int(torch.randint(0, 1 << 62, (1,), generator=gen, device=dev)) % (p - 2)
+    u = N._powers_mont(f, a, n, dev)
+    c, ca = stored_ints(f, u[:2])
+    if ca != c * a % p:
+        raise AssertionError(f"{f.name}: _powers_mont's u_1 is not c a")
+    pos = torch.randint(0, n, (ORACLE_SPIKES,), generator=gen, device=dev).unique()
+    u[pos] = field_elements(f, (pos.numel(),), gen, dev)
+    spikes = list(zip(pos.tolist(), stored_ints(f, u[pos])))
+    w = f.params.omega(n.bit_length() - 1)
+    an = pow(a, n, p)
+
+    def oracle(k: int) -> int:
+        wk = pow(w, k, p)
+        q = a * wk % p
+        if q == 1:
+            raise AssertionError("a w^k = 1: the closed form does not hold")
+        y = c * (an - 1) * pow(q - 1, -1, p)
+        for j, v in spikes:
+            y += (v - c * pow(a, j, p)) * pow(wk, j, p)
+        return y % p
+
+    return u, oracle
+
+
 def wide_ntt_paths(dev, gen, smi: str, launches: dict) -> list:
-    """The NTT over goldilocks and 8-limb fields through icicle_tpu_torch.ntt
-    on CUDA tensors: goldilocks 2^24 (forward, inverse, a coset forward),
-    bn254_scalar 2^22, stark252 and bls12_381_scalar 2^16; each NTT exactly
-    two dif_rows_wide launches (counted), the forward equal to `_ntt_torch`
-    on the card (goldilocks and bn254_scalar at full size, bn254_scalar also
-    at 2^18), the inverse giving the input back; host-clock ms (median of 3
-    after a warm-up) and butterflies/s; a profile of one forward goldilocks
-    2^24 and bn254_scalar 2^22 NTT, two dif_rows_wide launches and no other
-    device work."""
+    """The NTT over goldilocks, 8- and 12-limb fields through
+    icicle_tpu_torch.ntt on CUDA tensors: goldilocks 2^24 (forward, inverse,
+    a coset forward), bn254_scalar 2^22, stark252 and bls12_381_scalar 2^16,
+    bw6_761_scalar 2^22, and the paths whose rows span a cluster,
+    bn254_scalar 2^25 and goldilocks 2^29; each NTT exactly two
+    dif_rows_wide launches (counted), the forward equal to `_ntt_torch` on
+    the card (at full size, bn254_scalar and bw6_761_scalar also at 2^18;
+    the cluster paths, on a spiked geometric input, to Python-int sums at
+    ORACLE_OUTPUTS sampled outputs), the inverse giving the input back;
+    host-clock ms (median of 3 after a warm-up) and butterflies/s; a
+    profile of one forward goldilocks 2^24 and bn254_scalar 2^22 NTT, two
+    dif_rows_wide launches and no other device work."""
     from icicle_tpu_torch import NTTConfig, NTTDir, get_field, ntt
+    from icicle_tpu_torch.kernels import ntt_wide as NW
     from icicle_tpu_torch.ops import ntt as N
 
     def expect(count: int) -> dict:
         return dict(dict.fromkeys(kernel_counters(), 0), dif_rows_wide=count)
 
     paths = []
-    for fname, logn, small_ref, coset, profiled in (
-            ("goldilocks", GL_NTT_LOG, None, 7, True), ("bn254_scalar", BN_NTT_LOG, 18, None, True),
-            ("stark252", 16, None, None, False), ("bls12_381_scalar", 16, None, None, False)):
+    for fname, logn, small_ref, coset, profiled, oracle_check in (
+            ("goldilocks", GL_NTT_LOG, None, 7, True, False),
+            ("bn254_scalar", BN_NTT_LOG, 18, None, True, False),
+            ("stark252", 16, None, None, False, False),
+            ("bls12_381_scalar", 16, None, None, False, False),
+            ("bw6_761_scalar", BW_NTT_LOG, 18, None, False, False),
+            ("bn254_scalar", BN_CLUSTER_LOG, None, None, False, True),
+            ("goldilocks", GL_CLUSTER_LOG, None, None, False, True)):
         f = get_field(fname)
         n = 1 << logn
-        x = _with_edges(f, field_elements(f, (n,), gen, dev), dev)
+        if oracle_check:
+            x, oracle = spiked_geometric(f, n, gen, dev)
+        else:
+            x = _with_edges(f, field_elements(f, (n,), gen, dev), dev)
         label = f"ntt {fname} 2^{logn} fwd+inv"
 
         def fwd_inv():
@@ -2002,19 +2111,31 @@ def wide_ntt_paths(dev, gen, smi: str, launches: dict) -> list:
                                  "for two NTTs and nothing else")
         if y.shape != x.shape or y.dtype != torch.int32 or not torch.equal(z, x):
             raise AssertionError(f"{label}: inverse(forward(x)) != x")
+        del z
         t0 = time.perf_counter()
-        if not torch.equal(y, N._ntt_torch(f, x, NTTDir.FORWARD, NTTConfig())):
-            raise AssertionError(f"{label}: forward != _ntt_torch at 2^{logn}")
+        if oracle_check:
+            ks = [0, 1, n // 2, n - 1] + torch.randint(
+                0, n, (ORACLE_OUTPUTS - 4,), generator=gen, device=dev).tolist()
+            got = stored_ints(f, y[torch.tensor(ks, device=dev)])
+            bad = [k for k, v in zip(ks, got) if v != oracle(k)]
+            if bad:
+                raise AssertionError(f"{label}: forward != the Python-int sum at outputs {bad}")
+            checked = {"python_int_outputs": ks}
+        else:
+            if not torch.equal(y, N._ntt_torch(f, x, NTTDir.FORWARD, NTTConfig())):
+                raise AssertionError(f"{label}: forward != _ntt_torch at 2^{logn}")
+            checked = [logn]
         plain_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        checked = [logn]
         if small_ref is not None:
             xs = x[:1 << small_ref].contiguous()
             if not torch.equal(ntt(f, xs), N._ntt_torch(f, xs, NTTDir.FORWARD, NTTConfig())):
                 raise AssertionError(f"{fname}: forward != _ntt_torch at 2^{small_ref}")
             checked.append(small_ref)
         row = {"field": fname, "logn": logn, "checked_against_torch": checked,
-               "plain_check_s": plain_s}
+               "plain_check_s": plain_s,
+               "plan": [NW.wide_plan(1 << (logn - logn // 2), logn // 2, NW.instance(f)),
+                        NW.wide_plan(1 << (logn // 2), logn - logn // 2, NW.instance(f))]}
         if coset is not None:
             cfg = NTTConfig(coset_gen=coset)
             clabel = f"ntt {fname} 2^{logn} coset fwd"
@@ -2034,8 +2155,9 @@ def wide_ntt_paths(dev, gen, smi: str, launches: dict) -> list:
         row.update(forward_ms=fwd_ms, inverse_ms=inv_ms,
                    butterflies_per_s=bfly / (fwd_ms * 1e-3), bound_ms=bound_ms,
                    bound_by=bound_by)
-        log(f"  {fname} NTT 2^{logn}: 2 dif_rows_wide launches per NTT, fwd == _ntt_torch at "
-            f"2^{checked} ({plain_s:.1f} s plain), inv round trip exact"
+        log(f"  {fname} NTT 2^{logn}: 2 dif_rows_wide launches per NTT (plans A / B "
+            f"{row['plan']}), fwd == {'Python ints' if oracle_check else '_ntt_torch'} at "
+            f"{checked} ({plain_s:.1f} s), inv round trip exact"
             f"{', coset fwd too' if coset else ''}; forward {fwd_ms:.3f} ms "
             f"({bfly / (fwd_ms * 1e-3):.4g} butterflies/s), inverse {inv_ms:.3f} ms; bound "
             f"{bound_ms:.3f} ms ({bound_by}) [{smi}]")
@@ -2048,7 +2170,9 @@ def wide_ntt_paths(dev, gen, smi: str, launches: dict) -> list:
                                      f"dif_rows_wide launches: {prof}")
             row["profile"] = prof
         paths.append(row)
-        del x, y, z
+        del x, y
+        if oracle_check:
+            N.ntt_release_domain(f)   # the 2^25 / 2^29 twiddle tables
         torch.cuda.empty_cache()
     return paths
 
@@ -4626,8 +4750,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     dif_variants = time_dif_variants(f=get_field("babybear"), dev=dev, rand=rand, K=K, smi=smi)
     phase_done("kernels: dif_rows")
-    log("== kernels: dif_rows_wide against dif_rows_wide_ref on the card, both instances, "
-        "every layout")
+    log("== kernels: dif_rows_wide against dif_rows_wide_ref on the card, every instance, "
+        "every layout, rows that span a cluster")
     wide_rows = check_wide_kernel(dev, gen, smi)
     phase_done("kernels: dif_rows_wide")
     log("== kernels: poseidon2 against Poseidon2.hash_fields_ref on the card")
@@ -4713,8 +4837,8 @@ def main() -> None:
     log("== main path: the sumcheck prover (sumcheck_prove) on CUDA tensors")
     sumcheck = sumcheck_main_path(dev, smi, launches)
     phase_done("main path: sumcheck")
-    log("== main paths: the field layer -- the NTT over goldilocks and 8-limb fields, a "
-        "goldilocks Poseidon2 Merkle tree, polynomials -- on CUDA tensors")
+    log("== main paths: the field layer -- the NTT over goldilocks, 8- and 12-limb fields, "
+        "a goldilocks Poseidon2 Merkle tree, polynomials -- on CUDA tensors")
     wide_ntt = wide_ntt_paths(dev, gen, smi, launches)
     phase_done("main path: ntt over limb fields")
     gl_merkle = gl_merkle_path(dev, gen, smi, launches)
@@ -5137,7 +5261,9 @@ def main() -> None:
             ("gl64", "goldilocks", GL_NTT_MAIN, "goldilocks 2^24 fwd pass A",
              "goldilocks 2^24 inv pass B"),
             ("fp8", "bn254_scalar", BN_NTT_MAIN, "bn254_scalar 2^22 fwd pass A",
-             "bn254_scalar 2^22 inv pass B")):
+             "bn254_scalar 2^22 inv pass B"),
+            ("fp12", "bw6_761_scalar", BW_NTT_MAIN, "bw6_761_scalar 2^22 fwd pass A",
+             "bw6_761_scalar 2^22 inv pass B")):
         rows = [r for r in wide_rows if r["instance"] == inst]
         pair = [next(r for r in rows if r["role"] == a_role and r["main_path"]
                      and not r["factor"]),
@@ -5157,6 +5283,7 @@ def main() -> None:
             "plain_rows": [r["compared_rows"] for r in pair],
             "bound_ms": sum(r["bound_ms"] for r in pair), "bound_by": pair[1]["bound_by"],
             "library_ms": None,  # no PyTorch call computes a prime-field NTT butterfly pass
+            "ptxas": lib_ptxas(reports, "ntt_wide_l12" if inst == "fp12" else "ntt_wide"),
             "shapes": rows, "card": smi})
     gl_rows = [r for r in p2_rows if r["field"] == "goldilocks"]
     gl_main, gl_checked = p2_row(GL_POSEIDON2_ROLE), p2_row("goldilocks t=2")

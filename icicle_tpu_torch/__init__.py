@@ -12,8 +12,8 @@ int32 tensors holding the uint32 word bit patterns.
 Ported so far: the runtime, the field layer (Mont32, goldilocks and
 multi-limb), the NTT over every field, whose four-step row passes run in
 hand-written Hopper kernels (kernels/csrc/ntt_dif.cu for single-word
-fields, ntt_wide.cu for goldilocks and 8-limb fields), the polynomial API
-over it, field matmul, the extension fields and the pairing towers
+fields, ntt_wide.cu for goldilocks, 8- and 12-limb fields), the polynomial
+API over it, field matmul, the extension fields and the pairing towers
 (fields/extension.py) with the extension-field NTT `ntt_ext`, the G1 and
 G2 groups (curves/group.py), the optimal-ate and Tate pairings on the host
 (curves/ate.py, curves/pairing.py), and the MSM over every curve and both

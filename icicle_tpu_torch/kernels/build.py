@@ -37,8 +37,10 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # (8 and 12 limbs) and precompute_bases' over Fp2, are their sources
 # compiled again with another ICICLE_EC_LIMBS / ICICLE_EC_DEGREE (DEFINES),
 # each in its own nvcc; so are the 12- and 24-limb instances of B5, B6 and
-# B7 and the ECNTT kernel's (ecntt.cu at 8, 12 and 24 limbs).
-LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "msm_scan": ["msm_scan.cu"],
+# B7, the ECNTT kernel's (ecntt.cu at 8, 12 and 24 limbs) and the NTT row
+# kernel's (ntt_wide.cu: goldilocks and 8 limbs, and 12 limbs).
+LIBRARIES = {"ntt": ["ntt_dif.cu"], "ntt_wide": ["ntt_wide.cu"], "ntt_wide_l12": ["ntt_wide.cu"],
+             "msm_scan": ["msm_scan.cu"],
              "msm_scan_l12": ["msm_scan.cu"], "msm_scan_l24": ["msm_scan.cu"],
              "ec_reduce": ["ec_reduce.cu"], "ec_reduce_l12": ["ec_reduce.cu"],
              "ec_reduce_l24": ["ec_reduce.cu"], "msm_scan_fp2": ["msm_scan.cu"],
@@ -66,7 +68,8 @@ DEFINES = {**{f"{kernel}_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"]
            **{f"{kernel}_fp2{sfx}": [f"-DICICLE_EC_LIMBS={nl}", "-DICICLE_EC_DEGREE=2"]
               for kernel in ("msm_scan", "ec_reduce") for nl, sfx in ((8, ""), (12, "_l12"))},
            "precompute_bases_fp2": ["-DICICLE_EC_DEGREE=2"],
-           **{f"ecntt_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"] for nl in (12, 24)}}
+           **{f"ecntt_l{nl}": [f"-DICICLE_EC_LIMBS={nl}"] for nl in (12, 24)},
+           "ntt_wide_l12": ["-DICICLE_EC_LIMBS=12"]}
 
 def define(name: str, macro: str, default: int) -> int:
     """The value library `name`'s DEFINES give `macro`, else `default`."""
@@ -82,8 +85,8 @@ def define(name: str, macro: str, default: int) -> int:
 # ec_wide.cuh (the carry-chain arithmetic): msm_scan.cu and ec_reduce.cu
 # include it where ICICLE_EC_LIMBS * ICICLE_EC_DEGREE >= 12 (words a
 # coordinate), so not in bn254's libmsm_scan and libec_reduce;
-# precompute_bases.cu, poseidon_limbs.cu and ecntt.cu always.
-WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu")
+# precompute_bases.cu, poseidon_limbs.cu, ecntt.cu and ntt_wide.cu always.
+WIDE_SOURCES = ("precompute_bases.cu", "poseidon_limbs.cu", "ecntt.cu", "ntt_wide.cu")
 GATED_SOURCES = ("msm_scan.cu", "ec_reduce.cu")
 HEADERS = {name: ["ec_wide.cuh"] for name, sources in LIBRARIES.items()
            if sources[0] in WIDE_SOURCES or (

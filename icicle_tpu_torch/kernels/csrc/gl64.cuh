@@ -1,22 +1,10 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) on one uint64 a value,
-// for NVIDIA Hopper (sm_90a): shared by ntt_wide.cu (dif_rows_wide: the
-// canonical functions) and poseidon2.cuh (the Gl64 instances in
-// poseidon2_gl64.cu: the lazy ones, at the end).
+// for NVIDIA Hopper (sm_90a): shared by ntt_wide.cu (dif_rows_wide's Gl64
+// instance) and poseidon2.cuh (the Gl64 instances in poseidon2_gl64.cu).
 //
 // The values are the bits the torch side keeps as an int32 pair [lo, hi]
-// (icicle_tpu_torch/math/gl64.py), canonical in [0, p). No Montgomery
-// form. The canonical functions return a canonical value, so results are
-// bit-equal to the torch engine's and the JAX package's.
-//   add: a carry out of 64 bits is 2^64 = eps = 2^32 - 1 (mod p), and
-//     a + b - 2^64 + eps < p, so adding eps ends the carry; then one
-//     conditional subtract of p. The field has no slack bit: a sum of two
-//     canonical values can carry.
-//   sub: a - b, plus p on a borrow.
-//   mul: the 128-bit product (a 64-bit multiply and __umul64hi),
-//     n3 2^96 + n2 2^64 + lo, reduced by 2^96 = -1 and 2^64 = eps step for
-//     step as icicle_tpu/math/gl64.py `_reduce128`: t = lo - n3 (a borrow
-//     takes eps back), t + n2 eps (a carry adds eps), one conditional
-//     subtract. It reduces any two 64-bit operands.
+// (icicle_tpu_torch/math/gl64.py), canonical in [0, p) at every load and
+// store. No Montgomery form.
 
 #pragma once
 
@@ -28,32 +16,8 @@
 namespace icicle_gl {
 
 constexpr uint64_t P = 0xFFFFFFFF00000001ull;
-constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
 
-__device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) s += EPS;  // carried 2^64 = eps; s + eps < p, no second carry
-  return s >= P ? s - P : s;
-}
-
-__device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
-  const uint64_t d = a - b;
-  return a < b ? d + P : d;  // a borrow wrapped by 2^64: add p back
-}
-
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  const uint64_t lo = a * b;
-  const uint64_t hi = __umul64hi(a, b);
-  const uint64_t n2 = hi & 0xFFFFFFFFull, n3 = hi >> 32;
-  uint64_t t = lo - n3;                // 2^96 = -1
-  if (lo < n3) t -= EPS;               // the borrow added 2^64 = eps; t >= eps here
-  const uint64_t e = (n2 << 32) - n2;  // n2 eps = n2 2^64 mod p, below 2^64
-  uint64_t r = t + e;
-  if (r < t) r += EPS;                 // carried 2^64 = eps; cannot carry again
-  return r >= P ? r - P : r;
-}
-
-// -- lazy representatives (poseidon2.cuh's Gl64) ------------------------------
+// -- lazy representatives ------------------------------------------------------
 //
 // Between a load and a store a value is any 64-bit word congruent to it mod
 // p: no function below subtracts p, and `canonical` does so once, at the
@@ -77,6 +41,11 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
 //     2^64 = eps: t + r2 eps, whose product by eps is a mad.lo.cc /
 //     madc.hi.cc pair in the chain, its carry folded back as eps (after a
 //     carry t < 2^64 - 2^33 + 1, so no second). Any two 64-bit operands.
+//   lazy_sub: d = a - b; a borrow is + 2^64 = + eps, taken back by
+//     subtracting eps (the mask of the flag); that borrows again only
+//     where d < eps, i.e. b - a > p, and then leaves d - eps + 2^64 >=
+//     2^64 - eps, from which the second eps cannot borrow. Any two 64-bit
+//     operands.
 //   canonical: a - p where a >= p.
 // tests/test_torch_gl64_arith.py models each word by word, its carry flag
 // one bit, and checks every "carry out: none" below.
@@ -125,6 +94,19 @@ __device__ __forceinline__ uint64_t lazy_mul(uint64_t a, uint64_t b) {
   t0 = mad_lo_cc(c, EPS32, t0);
   t1 = madc_hi(c, EPS32, t1);        // carry out: none, t < 2^64 - 2^33 + 1 after a carry
   return join(t0, t1);
+}
+
+__device__ __forceinline__ uint64_t lazy_sub(uint64_t a, uint64_t b) {
+  using namespace icicle_ptx;
+  uint32_t d0 = sub_cc(lo32(a), lo32(b));
+  uint32_t d1 = subc_cc(hi32(a), hi32(b));
+  uint32_t borrow = subc(0, 0);      // eps where a - b borrowed: - eps
+  d0 = sub_cc(d0, borrow);
+  d1 = subc_cc(d1, 0);
+  borrow = subc(0, 0);               // where that borrowed again
+  d0 = sub_cc(d0, borrow);
+  d1 = subc(d1, 0);                  // carry out: none, d >= 2^64 - eps after a second borrow
+  return join(d0, d1);
 }
 
 __device__ __forceinline__ uint64_t canonical(uint64_t a) {

@@ -80,7 +80,7 @@
 // bit-equal to the plain version. A multiply is four 32x32 products and
 // the folds of 2^96 = -1 and 2^64 = eps as carry chains, an add a 64-bit
 // add and its carries folded back as eps, none with a compare or a final
-// subtract (ntt_wide.cu keeps the canonical functions). The field has no
+// subtract (as in ntt_wide.cu's Gl64 instance). The field has no
 // Montgomery form, so the conversion in is none and the constants are
 // plain values. Its M_ext and, at t = 2 and 3, its M_int have the structure above; at t >= 4
 // M_int's diagonal is general, t multiplies a partial round. State in

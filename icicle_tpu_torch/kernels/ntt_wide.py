@@ -1,6 +1,6 @@
 """Four-step NTT over a hand-written CUDA DIF row kernel for elements wider
-than one word (kernels/csrc/ntt_wide.cu): goldilocks and the 8-limb fields
-below 2^255.
+than one word (kernels/csrc/ntt_wide.cu): goldilocks, the 8-limb fields
+below 2^255 and the 12-limb fields with two spare bits.
 
 `dif_rows_wide` is `dif_rows`' function (kernels/ntt_kernel.py) for
 elements with a trailing limb axis: all logN radix-2 DIF stages of every
@@ -17,16 +17,48 @@ field as XLA (`_ntt_xla` -> `_ntt_four_step` / `_ntt_vecfirst`,
 icicle_tpu/ops/ntt.py:223-329), since `_ntt_pallas` takes single-word
 fields only (ntt.py:342-344).
 
-Instances (`instance`): "gl64", goldilocks, one uint64 an element, whose
-twiddles are plain values (the field has no Montgomery form); "fp8", every
-8-limb field below 2^255 (bn254_scalar, bls12_381_scalar,
-bls12_377_scalar, grumpkin_scalar, stark252; `MAX_BITS_8`, the rule of
-kernels/poseidon2_kernel.py), with Montgomery twiddles (R = 2^256):
-canonical times Montgomery gives canonical, as `BigField.mul_mont`. A
-CUDA tensor of another field (the 12-limb bw6_761_scalar and
-bls12_377_base) raises API_NOT_IMPLEMENTED. A row lies whole in one
-block's shared memory, so N is at most 2^14 for gl64 and 2^12 for fp8
-(`MAX_LOG_N`): NTTs up to 2^28 and 2^24.
+Instances (`instance`), each a struct of ntt_wide.cu:
+  * "gl64", goldilocks, one uint64 an element, lazy 64-bit words between
+    load and store (gl64.cuh); twiddles are plain values (the field has no
+    Montgomery form). Rows up to 2^17 (`MAX_LOG_N`): NTTs up to 2^34,
+    beyond goldilocks' 2^32 domain and beyond the card (at 2^32 the
+    four-step's four arrays of 8-byte elements -- x, the pass A output, the
+    inter-pass twiddles, out -- are 128 GiB).
+  * "fp8", every 8-limb field below 2^255 (bn254_scalar, bls12_381_scalar,
+    bls12_377_scalar, grumpkin_scalar, stark252, bn254_base; `MAX_BITS_8`),
+    over ec_wide.cuh's carry chains with Montgomery twiddles (R = 2^256):
+    canonical times Montgomery gives canonical, as `BigField.mul_mont`.
+    Lazy in [0, 2p) where 4p < 2^256, canonical after every operation on
+    bls12_381_scalar (the C entry picks by the modulus). Rows up to 2^14:
+    NTTs up to 2^28, bn254_scalar's whole domain; at 2^29 the four arrays
+    of 32-byte elements are 64 GiB and the inter-pass twiddles' plain
+    construction (ops/ntt.py `twiddle_matrix`: a table of 2^29 powers and
+    the int64 temporaries of its multiplies) needs more than the card's 80
+    GB beside them.
+  * "fp12", the 12-limb fields with 4p < 2^384 (bw6_761_scalar =
+    bls12_377_base, bls12_381_base; `MAX_BITS_12`), lazy, in
+    libntt_wide_l12. Rows up to 2^14: NTTs up to 2^28; at 2^29 the four
+    arrays of 48-byte elements are 96 GiB, more than the card's 80 GB.
+A CUDA tensor of another limb field raises API_NOT_IMPLEMENTED: of the
+registered fields only the 24-limb bw6_761_base, whose domain ends at 2^1
+(no NTT reaches the four-step).
+
+The launch plan (`wide_plan`: TR, threads, cluster): a tile of TR rows
+(TR elements fill a 32-byte sector of a column in the transposed layouts:
+4 for gl64, 1 for the wider ones) is split over a thread-block cluster of
+1, 2, 4 or 8 blocks, each holding 1/cluster of every row in its shared
+memory; the cluster is the least whose blocks fit two an SM, or else the
+least that fits one; rows too long for one block (above 2^12 at every
+instance, gl64 at TR 4) always span one. The stage groups (`group_sizes`:
+at most GROUP index bits a group, 3 for gl64, 2 for fp8 and fp12) are
+planned here and passed to the C entry, which checks them against the
+instance it was built for (its kMaxGroup, which GROUP equals), as it
+checks the plan's shared memory (`smem_bytes`, its `row_words`) and
+cluster rule (the first group holds the log2(cluster) stages that cross
+blocks).
+
+The stage table's w^0 entries (k = 0) are never read: both the kernel
+and the plain version take them as one.
 """
 
 from __future__ import annotations
@@ -45,13 +77,15 @@ from icicle_tpu_torch.ops.ntt import _bit_reverse_index, twiddle_matrix
 from icicle_tpu_torch.runtime.config import NTTDir
 from icicle_tpu_torch.runtime.errors import IcicleError, IcicleException
 
-ELEMENT_BYTES = {"gl64": 8, "fp8": 32}
-KIND = {"gl64": 0, "fp8": 1}  # the C entry's instance argument
+MAX_BITS_12 = 382  # the lazy instance keeps values below 2p: 4p < 2^384
+ELEMENT_BYTES = {"gl64": 8, "fp8": 32, "fp12": 48}
+KIND = {"gl64": 0, "fp8": 1, "fp12": 2}  # the C entry's instance argument
+LIBRARY = {"gl64": "ntt_wide", "fp8": "ntt_wide", "fp12": "ntt_wide_l12"}
+GROUP = {"gl64": 3, "fp8": 2, "fp12": 2}  # index bits a stage group, at most (= kMaxGroup)
+CLUSTERS = (1, 2, 4, 8)  # blocks a cluster, up to the portable limit (ntt_wide.cu kMaxCluster)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
-# a row lies whole in shared memory: the largest log N whose row fits
-MAX_LOG_N = {k: (SMEM_LIMIT // b).bit_length() - 1 for k, b in ELEMENT_BYTES.items()}
 SECTOR = 32  # bytes: a tile's rows make whole sectors in the transposed layouts
-MAX_THREADS = 256
+MAX_THREADS = 256    # ntt_wide.cu kThreads
 
 
 def instance(f: Field) -> str | None:
@@ -60,14 +94,85 @@ def instance(f: Field) -> str | None:
         return "gl64"
     if f.limb_shape == (8,) and f.modulus.bit_length() <= MAX_BITS_8:
         return "fp8"
+    if f.limb_shape == (12,) and f.modulus.bit_length() <= MAX_BITS_12:
+        return "fp12"
     return None
+
+
+def group_sizes(log_n: int, kind: str) -> list[int]:
+    """Index bits of each stage group, top first, as the C entry takes
+    them: the last takes the low min(log_n, GROUP) bits, the others the
+    rest, evenly, larger first."""
+    k = GROUP[kind]
+    low = min(log_n, k)
+    upper = -(-(log_n - low) // k)
+    return [(log_n - low) // upper + (g < (log_n - low) % upper) for g in range(upper)] + [low]
+
+
+def smem_bytes(log_n: int, tr: int, cluster: int, kind: str) -> int:
+    """Shared memory of one block (ntt_wide.cu `row_words`): TR rows, each
+    its element's 32-bit words in planes of the block's 2^log_n / cluster
+    elements, padded by one word in 32, rows skewed by 32/TR words."""
+    s = (1 << log_n) // cluster
+    words = ELEMENT_BYTES[kind] // 4
+    return 4 * tr * (words * (s + s // 32) + (32 // tr if tr > 1 else 0))
+
+
+def _cluster_ok(log_n: int, cluster: int, kind: str) -> bool:
+    """The C side's check: the first stage group holds the cross-slice
+    stages (at least log2(cluster) bits) and leaves every block a chunk."""
+    if cluster == 1:
+        return True
+    c = cluster.bit_length() - 1
+    sizes = group_sizes(log_n, kind)
+    return len(sizes) >= 2 and sizes[0] >= c and log_n - sizes[0] >= c
+
+
+def _clusters(log_n: int, tr: int, kind: str) -> list[int]:
+    return [c for c in CLUSTERS if _cluster_ok(log_n, c, kind)
+            and smem_bytes(log_n, tr, c, kind) <= SMEM_LIMIT]
+
+
+def _threads(log_n: int, tr: int, cluster: int, kind: str) -> int:
+    """One thread a chunk of the last stage group in a block's share of the
+    tile, from 32 to MAX_THREADS."""
+    chunks = (tr << log_n) // cluster >> group_sizes(log_n, kind)[-1]
+    return min(MAX_THREADS, max(32, chunks))
+
+
+def wide_plan(rows: int, log_n: int, kind: str) -> tuple[int, int, int] | None:
+    """(TR, threads, cluster) of a launch, or None where no plan fits. TR,
+    the rows of a tile: the largest power of two that divides `rows` whose
+    TR elements fill at most a 32-byte sector (4 for gl64, 1 for fp8 and
+    fp12: the transposed layouts read and write runs of TR elements), and
+    for which some cluster fits (else half as many). cluster: the least
+    whose blocks fit two an SM (half of SMEM_LIMIT each), else the least
+    that fits. threads: `_threads`."""
+    eb = ELEMENT_BYTES[kind]
+    tr = 1
+    while 2 * tr * eb <= SECTOR and rows % (2 * tr) == 0:
+        tr *= 2
+    while tr >= 1:
+        fits = _clusters(log_n, tr, kind)
+        if fits:
+            two = [c for c in fits if 2 * smem_bytes(log_n, tr, c, kind) <= SMEM_LIMIT]
+            cluster = (two or fits)[0]
+            return tr, _threads(log_n, tr, cluster, kind), cluster
+        tr //= 2
+    return None
+
+
+# the largest log N a plan exists for (at TR = 1)
+MAX_LOG_N = {k: max(n for n in range(1, 25) if wide_plan(1, n, k) is not None)
+             for k in ELEMENT_BYTES}
 
 
 def require_instance(f: Field, x: torch.Tensor, log_n: int | None = None) -> None:
     """Raises API_NOT_IMPLEMENTED for a CUDA tensor of a field that no
     instance serves, or with rows longer than the instance's 2^MAX_LOG_N
     (`log_n`, where given, is a four-step's: its longer pass has
-    ceil(log_n / 2))."""
+    ceil(log_n / 2)); each limit lies beyond what the field's domain or the
+    card's memory allows (module docstring)."""
     if not x.is_cuda:
         return
     kind = instance(f)
@@ -75,32 +180,34 @@ def require_instance(f: Field, x: torch.Tensor, log_n: int | None = None) -> Non
         raise IcicleException(
             IcicleError.API_NOT_IMPLEMENTED,
             f"ntt: no CUDA kernel for {f.name} ({f.nlimbs} limbs): dif_rows_wide is built for "
-            f"goldilocks and 8-limb fields below 2^{MAX_BITS_8}; other limb counts wait for "
-            "the limb-count template of ROADMAP.md queue A item 6")
+            f"goldilocks, 8-limb fields below 2^{MAX_BITS_8} and 12-limb fields below "
+            f"2^{MAX_BITS_12}")
     if log_n is not None and log_n - log_n // 2 > MAX_LOG_N[kind]:
         raise IcicleException(
             IcicleError.API_NOT_IMPLEMENTED,
-            f"ntt: {f.name} 2^{log_n} needs rows of 2^{log_n - log_n // 2}; dif_rows_wide "
-            f"keeps a row in shared memory, at most 2^{MAX_LOG_N[kind]} elements "
-            "(ROADMAP.md queue B, the dif_rows_wide redesign)")
-
-
-def wide_plan(rows: int, log_n: int, kind: str) -> tuple[int, int]:
-    """(TR, threads) of a launch. TR, the rows of a block's tile: the largest
-    power of two that divides `rows`, whose TR elements fill at most a
-    32-byte sector (4 for gl64, 1 for fp8: the transposed layouts read and
-    write runs of TR elements) and whose tile fits SMEM_LIMIT. threads: one
-    a butterfly of a stage, from 32 to MAX_THREADS."""
-    eb = ELEMENT_BYTES[kind]
-    tr = 1
-    while (2 * tr * eb <= SECTOR and rows % (2 * tr) == 0
-           and (2 * tr << log_n) * eb <= SMEM_LIMIT):
-        tr *= 2
-    return tr, min(MAX_THREADS, max(32, (tr << log_n) // 2))
+            f"ntt: {f.name} 2^{log_n} needs rows of 2^{log_n - log_n // 2}; dif_rows_wide's "
+            f"{kind} rows reach 2^{MAX_LOG_N[kind]}, past what the field's domain or the "
+            "card's memory allows")
 
 
 def _invalid(msg: str) -> IcicleException:
     return IcicleException(IcicleError.INVALID_ARGUMENT, f"dif_rows_wide: {msg}")
+
+
+def launch_plan(rows: int, log_n: int, kind: str,
+                plan: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """(TR, threads, cluster) of a launch: `wide_plan`'s, or for `plan` =
+    (TR, cluster) that tile, checked as the C entry checks it (TR a power
+    of two dividing `rows`, a cluster the stage groups allow, within the
+    shared memory), with `_threads`."""
+    if plan is None:
+        return wide_plan(rows, log_n, kind)
+    tr, cluster = plan
+    if tr < 1 or tr & (tr - 1) or rows % tr or cluster not in _clusters(log_n, tr, kind):
+        raise _invalid(f"plan (TR {tr}, cluster {cluster}) must have a power of two TR dividing "
+                       f"{rows} rows and a cluster of {_clusters(log_n, tr, kind)} at TR {tr}, "
+                       f"N 2^{log_n}")
+    return tr, _threads(log_n, tr, cluster, kind), cluster
 
 
 def _check(f: Field, x, tw, factor, transpose_in, transpose_out) -> tuple[int, int]:
@@ -138,10 +245,11 @@ def _check(f: Field, x, tw, factor, transpose_in, transpose_out) -> tuple[int, i
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = build.load("ntt_wide")
+def _kernel(library: str):
+    lib = build.load(library)
     fn = lib.icicle_ntt_dif_rows_wide
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int8), ctypes.c_int] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     # ec_field.cuh, which the source includes, exports the error text
@@ -152,13 +260,15 @@ def _kernel():
 
 def dif_rows_wide(f: Field, x: torch.Tensor, tw: torch.Tensor,
                   factor: torch.Tensor | None = None, *, transpose_in: bool = False,
-                  transpose_out: bool = False) -> torch.Tensor:
-    """All logN radix-2 DIF stages along each row, for goldilocks or an
-    8-limb field.
+                  transpose_out: bool = False,
+                  _plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """All logN radix-2 DIF stages along each row, for goldilocks, an
+    8-limb or a 12-limb field.
 
     x: (rows, N)+lim int32 canonical elements (not checked), or with
     `transpose_in` (N, rows)+lim, row r being the column x[:, r];
-    tw: the (logN, N)+lim `_stage_twiddles` table for the direction;
+    tw: the (logN, N)+lim `_stage_twiddles` table for the direction (its
+    w^0 entries, k = 0, are not read: they stand for one);
     factor: optional Montgomery-form multiplier in x's shape and layout,
     applied on load.
     Returns (rows, N)+lim with each row in bit-reversed order, or with
@@ -166,30 +276,38 @@ def dif_rows_wide(f: Field, x: torch.Tensor, tw: torch.Tensor,
     a column: out[bitrev(j), r] = dif_rows_wide(...)[r, j].
 
     On a CUDA tensor this launches the kernel on the current stream (no
-    synchronisation) with `wide_plan`'s tile, counts the launch in
-    `dif_rows_wide.launches` and raises if the field has no instance or the
-    launch is refused. On a CPU tensor it computes `dif_rows_wide_ref`."""
+    synchronisation) with `wide_plan`'s tile (`_plan`: another (TR,
+    cluster), checked by `launch_plan`, for timing only), counts the launch
+    in `dif_rows_wide.launches` and raises if the field has no instance, the
+    library does not build or the launch is refused. On a CPU tensor it
+    computes `dif_rows_wide_ref`."""
     rows, log_n = _check(f, x, tw, factor, transpose_in, transpose_out)
+    kind = instance(f)
+    if kind is not None:
+        tr, threads, cluster = launch_plan(rows, log_n, kind, _plan)
     if not x.is_cuda:
         return dif_rows_wide_ref(f, x, tw, factor, transpose_in=transpose_in,
                                  transpose_out=transpose_out)
     require_instance(f, x)
-    kind = instance(f)
-    tr, threads = wide_plan(rows, log_n, kind)
-    fn, error_string = _kernel()
+    sizes = group_sizes(log_n, kind)
+    fn, error_string = _kernel(LIBRARY[kind])
     n = 1 << log_n
     out = torch.empty(((n, rows) if transpose_out else (rows, n)) + f.limb_shape,
                       dtype=torch.int32, device=x.device)
-    # fp8: ec_field.cuh's {p[8], one[8], inv32, b3} lead poseidon2_kernel's
-    # array; gl64's constants are compile-time
-    consts = None if kind == "gl64" else ctypes.addressof(field_consts(f.name))
+    # fp8, fp12: ec_field.cuh's {p[L], one[L], inv32, b3} lead poseidon2_kernel's
+    # array (kept referenced through the call); gl64's constants are compile-time
+    host = None if kind == "gl64" else field_consts(f.name)
+    consts = None if host is None else ctypes.addressof(host)
     with torch.cuda.device(x.device):
         err = fn(KIND[kind], x.data_ptr(), None if factor is None else factor.data_ptr(),
-                 tw.data_ptr(), out.data_ptr(), rows, log_n, tr, threads, int(transpose_in),
-                 int(transpose_out), consts, torch.cuda.current_stream().cuda_stream)
+                 tw.data_ptr(), out.data_ptr(), rows, log_n, tr, threads, cluster,
+                 (ctypes.c_int8 * len(sizes))(*sizes), len(sizes), int(transpose_in),
+                 int(transpose_out), consts,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise IcicleException(IcicleError.UNKNOWN_ERROR,
-                              f"dif_rows_wide launch failed: {error_string(err).decode()}")
+                              f"dif_rows_wide launch failed ({kind}, rows {rows}, N 2^{log_n}, "
+                              f"TR {tr}, cluster {cluster}): {error_string(err).decode()}")
     dif_rows_wide.launches += 1
     return out
 
@@ -201,7 +319,8 @@ def dif_rows_wide_ref(f: Field, x: torch.Tensor, tw: torch.Tensor,
                       factor: torch.Tensor | None = None, *, transpose_in: bool = False,
                       transpose_out: bool = False) -> torch.Tensor:
     """`dif_rows_wide` in plain torch, stage by stage: `dif_rows_ref`
-    (kernels/ntt_kernel.py) over a trailing limb axis."""
+    (kernels/ntt_kernel.py) over a trailing limb axis, the butterflies whose
+    twiddle is w^0 (k = 0) left unmultiplied, as the kernel leaves them."""
     lim = f.limb_shape
     if transpose_in:
         x = x.transpose(0, 1)
@@ -214,8 +333,10 @@ def dif_rows_wide_ref(f: Field, x: torch.Tensor, tw: torch.Tensor,
         xr = x.reshape((rows, n // (2 * m), 2, m) + lim)
         top, bot = xr[:, :, 0], xr[:, :, 1]
         w = tw[s].reshape((n // (2 * m), 2, m) + lim)[:, 1]  # the bottom lanes' twiddles
-        x = torch.stack([f.add(top, bot), f.mul_mont(f.sub(top, bot), w)],
-                        dim=2).reshape((rows, n) + lim)
+        d = f.sub(top, bot)
+        y = f.mul_mont(d, w)
+        y[:, :, 0] = d[:, :, 0]   # k = 0: times w^0 = one
+        x = torch.stack([f.add(top, bot), y], dim=2).reshape((rows, n) + lim)
     if transpose_out:
         x = x.transpose(0, 1).index_select(0, _bit_reverse_index(n, x.device))
     return x.contiguous()

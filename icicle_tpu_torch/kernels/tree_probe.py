@@ -3,7 +3,7 @@ the port's wrappers on one CUDA card, with chip_smoke.py's inputs, checks
 and timing, so two trees can be compared one process a tree.
 
     python -m icicle_tpu_torch.kernels.tree_probe [--csrc DIR]
-        [--paths b3|bases|gl64|ecntt|b4|sponge] [--against FILE]
+        [--paths b3|bases|gl64|ecntt|b4|sponge|ntt_wide] [--against FILE]
 
 Run it from a checkout's root: it imports chip_smoke.py and the package
 from there. DIR defaults to this checkout's kernels/csrc; a DIR's libraries
@@ -76,6 +76,23 @@ prints the library's ptxas report and the static SASS counts of the three
 sponge instances. To time an older tree's ML-KEM, run this file from a
 checkout of it (as for bases); DIR alone changes the kernel only.
 
+--paths ntt_wide: the NTT row kernel dif_rows_wide (ntt_wide.cu; ntt_wide
+and, where the tree has it, ntt_wide_l12) at NTT_WIDE_SHAPES, through
+ntt_wide.dif_rows_wide in the four-step's layouts (pass A: columns in
+and out; pass B: rows in, columns out, times a factor): the passes of
+the goldilocks 2^24 and bn254_scalar 2^22 NTTs, bls12_381_scalar's (the
+canonical instance) and bw6_761_scalar's at 2^22, and passes whose rows
+span a thread-block cluster; each output held to dif_rows_wide_ref at
+sampled rows, then timed (chip_smoke.cuda_ms, a median of 5 after a
+warm-up) and its first 2^22 elements hashed, and at NTT_WIDE_PLANS's
+other (TR, cluster) plans, bit-equal and timed; then forward NTTs of
+goldilocks 2^24, bn254_scalar 2^22 and bw6_761_scalar 2^22 through
+icicle_tpu_torch.ntt on the host clock, hashed. A tree whose wrapper has
+no plan for a shape (an older tree's field or row length) skips it. Also
+prints each library's ptxas report and the static SASS counts of its
+kernels. The wrapper's C call has changed between trees: time an older
+tree from a checkout of it, as for bases.
+
 Last, one JSON line of the card, the tree and the times.
 """
 
@@ -83,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -91,7 +109,7 @@ import torch
 
 from icicle_tpu_torch.kernels import build, sass
 
-PATHS = ("b3", "bases", "gl64", "ecntt", "b4", "sponge")
+PATHS = ("b3", "bases", "gl64", "ecntt", "b4", "sponge", "ntt_wide")
 BASES_LIBRARIES = ("precompute_bases", "precompute_bases_fp2", "poseidon_limbs",
                    "poseidon2_limbs")
 P1_FIELDS = ("bls12_381_scalar", "bn254_scalar")
@@ -109,6 +127,38 @@ B4_SEGMENTS = (4, 8, 16, 32)   # the cross-tile sum's segment counts timed besid
 # a copy, since an older tree's chip_smoke.py has none)
 SPONGE_MATRIX = ("SHAKE128 XOF matrix, 9 entries a key", 9 << 16, 34, 168, 0x1F, 504 * 3)
 MLKEM_LOG = 16
+# (field, rows, log_n, pass, role) of dif_rows_wide: pass "A" (forward
+# twiddles, columns in and out) or "B" (inverse twiddles, rows in, columns
+# out, times a factor), as ntt_four_step_wide launches them
+NTT_WIDE_SHAPES = (
+    ("goldilocks", 4096, 12, "A", "goldilocks 2^24 pass A"),
+    ("goldilocks", 4096, 12, "B", "goldilocks 2^24 pass B"),
+    ("bn254_scalar", 2048, 11, "A", "bn254_scalar 2^22 pass A"),
+    ("bn254_scalar", 2048, 11, "B", "bn254_scalar 2^22 pass B"),
+    ("bls12_381_scalar", 2048, 11, "A", "bls12_381_scalar 2^22 pass A"),
+    ("bls12_381_scalar", 2048, 11, "B", "bls12_381_scalar 2^22 pass B"),
+    ("bw6_761_scalar", 2048, 11, "A", "bw6_761_scalar 2^22 pass A"),
+    ("bw6_761_scalar", 2048, 11, "B", "bw6_761_scalar 2^22 pass B"),
+    ("bn254_scalar", 4096, 12, "B", "bn254_scalar 2^24 pass B"),
+    ("bn254_scalar", 8192, 13, "B", "bn254_scalar 2^26 pass B"),
+    ("bn254_scalar", 8192, 14, "B", "bn254_scalar 2^27 pass B"),
+    ("goldilocks", 16384, 15, "B", "goldilocks 2^29 pass B"),
+    ("bw6_761_scalar", 4096, 12, "B", "bw6_761_scalar 2^24 pass B"),
+    ("bw6_761_scalar", 4096, 13, "B", "bw6_761_scalar 2^25 pass B"),
+    ("bw6_761_scalar", 8192, 14, "B", "bw6_761_scalar 2^27 pass B"),
+)
+# other (TR, cluster) plans timed beside the wrapper's, through its `_plan`
+# (where the tree's wrapper takes it), each held bit-equal to the wrapper's
+# plan
+NTT_WIDE_PLANS = {"goldilocks 2^24 pass A": ((4, 1), (4, 4), (8, 2), (8, 4)),
+                  "goldilocks 2^24 pass B": ((4, 1), (4, 4), (8, 2), (8, 4)),
+                  "bn254_scalar 2^22 pass A": ((1, 2), (1, 4), (2, 2)),
+                  "bn254_scalar 2^22 pass B": ((1, 2), (1, 4), (2, 2)),
+                  "bw6_761_scalar 2^22 pass A": ((1, 2), (1, 4), (2, 4)),
+                  "bw6_761_scalar 2^22 pass B": ((1, 2), (1, 4), (2, 4))}
+NTT_WIDE_NTTS = (("goldilocks", 24), ("bn254_scalar", 22), ("bw6_761_scalar", 22))
+NTT_WIDE_CHECKED = 16        # sampled rows of a pass held to the plain version
+NTT_WIDE_HASHED = 1 << 22    # elements of a pass's output hashed
 
 
 def madd_trips(lib: str, wide: bool) -> int:
@@ -450,6 +500,87 @@ def sponge_paths(smi: str) -> dict:
     return {"ms": times, "digest": digests, "ptxas": ptxas, "sponge_sass": counts}
 
 
+def ntt_wide_paths(smi: str) -> dict:
+    import chip_smoke
+    from icicle_tpu_torch import NTTDir, get_field, ntt
+    from icicle_tpu_torch.kernels import ntt_kernel as K
+    from icicle_tpu_torch.kernels import ntt_wide as NW
+
+    libraries = tuple(lib for lib in ("ntt_wide", "ntt_wide_l12") if lib in build.LIBRARIES)
+    reports = build.build_all(libraries)
+    ptxas, counts = {}, {}
+    for lib in libraries:
+        ptxas[lib] = chip_smoke.lib_ptxas(reports, lib)
+        found = sass.kernel_counts(build.lib_path(lib), "dif_rows_wide_kernel")
+        counts[lib] = {name: {k: v["counts"].get(k, 0) for k in
+                              ("total", "IMAD.WIDE", "IMAD", "IADD3", "LDS", "STS", "BAR", "LDL",
+                               "STL")} for name, v in found.items()}
+        chip_smoke.log(f"lib{lib}: {reports[lib].splitlines()[-1] if lib in reports else ''}; "
+                       f"ptxas {ptxas[lib]}; SASS (static) {counts[lib]}")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    times, digests, plans = {}, {}, {}
+    for fname, rows, log_n, pas, role in NTT_WIDE_SHAPES:
+        f = get_field(fname)
+        kind = NW.instance(f)
+        if kind is None or log_n > NW.MAX_LOG_N.get(kind, 0):
+            chip_smoke.log(f"{role}: skipped, this tree's wrapper has no plan for it")
+            continue
+        gen = torch.Generator(device=dev).manual_seed(21 + log_n)
+        tin, factor_too = pas == "A", pas == "B"
+        shape = (1 << log_n, rows) if tin else (rows, 1 << log_n)
+        tw = K._stage_twiddles(f, log_n, pas == "A", dev)
+        x = chip_smoke._with_edges(f, chip_smoke.field_elements(f, shape, gen, dev), dev)
+        factor = chip_smoke.field_elements(f, shape, gen, dev) if factor_too else None
+
+        def call():
+            return NW.dif_rows_wide(f, x, tw, factor, transpose_in=tin, transpose_out=True)
+
+        out = call()
+        idx = torch.cat([torch.tensor([0, 1, rows - 1], device=dev),
+                         torch.randperm(rows, generator=gen, device=dev)[:NTT_WIDE_CHECKED]])
+        idx = idx.unique()
+        pick = (lambda t: t[:, idx].contiguous()) if tin else (lambda t: t[idx].contiguous())
+        want = NW.dif_rows_wide_ref(f, pick(x), tw, None if factor is None else pick(factor),
+                                    transpose_in=tin, transpose_out=True)
+        if not torch.equal(out[:, idx], want):
+            raise AssertionError(f"{role}: != dif_rows_wide_ref at {idx.numel()} rows")
+        digests[role] = digest(out.view(-1)[:NTT_WIDE_HASHED * max(1, f.nlimbs)])
+        times[role] = chip_smoke.cuda_ms(call, reps=5)
+        plans[role] = NW.wide_plan(rows, log_n, kind)
+        ns = times[role] * 1e6 / (rows << log_n)
+        chip_smoke.log(f"{role}: ({rows}, 2^{log_n}), plan {plans[role]}, exact at "
+                       f"{idx.numel()} rows; {times[role]} ms, {ns:.4f} ns an element [{smi}]")
+        if "_plan" in inspect.signature(NW.dif_rows_wide).parameters:
+            for tr, cluster in NTT_WIDE_PLANS.get(role, ()):
+                def other(tr=tr, cluster=cluster):
+                    return NW.dif_rows_wide(f, x, tw, factor, transpose_in=tin,
+                                            transpose_out=True, _plan=(tr, cluster))
+
+                if not torch.equal(other(), out):
+                    raise AssertionError(f"{role}: TR {tr}, cluster {cluster} != the plan's")
+                label = f"{role}, TR {tr} cluster {cluster}"
+                times[label] = chip_smoke.cuda_ms(other, reps=5)
+                chip_smoke.log(f"{label}: {times[label]} ms [{smi}]")
+        del x, factor, out
+        torch.cuda.empty_cache()
+    for fname, logn in NTT_WIDE_NTTS:
+        f = get_field(fname)
+        kind = NW.instance(f)
+        if kind is None or logn - logn // 2 > NW.MAX_LOG_N.get(kind, 0):
+            continue
+        gen = torch.Generator(device=dev).manual_seed(logn)
+        x = chip_smoke.field_elements(f, (1 << logn,), gen, dev)
+        label = f"ntt {fname} 2^{logn} forward"
+        digests[label] = digest(ntt(f, x, NTTDir.FORWARD))
+        times[label] = chip_smoke.host_ms(lambda: ntt(f, x, NTTDir.FORWARD), reps=5)[0]
+        chip_smoke.log(f"{label}: {times[label]} ms, host clock [{smi}]")
+        del x
+        torch.cuda.empty_cache()
+    return {"ms": times, "digest": digests, "plan": plans, "ptxas": ptxas, "sass": counts}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", default=build.CSRC)
@@ -485,7 +616,8 @@ def main() -> None:
     chip_smoke.log(f"{smi}; {args.paths} built from {csrc}, run from {os.getcwd()}")
     result = {"b3": lambda: b3_paths(csrc, smi), "bases": lambda: bases_paths(smi),
               "gl64": lambda: gl64_paths(smi), "ecntt": lambda: ecntt_paths(smi),
-              "b4": lambda: b4_paths(csrc, smi), "sponge": lambda: sponge_paths(smi)}[args.paths]()
+              "b4": lambda: b4_paths(csrc, smi), "sponge": lambda: sponge_paths(smi),
+              "ntt_wide": lambda: ntt_wide_paths(smi)}[args.paths]()
     if args.against:
         other = json.loads(open(args.against).read().strip().splitlines()[-1])
         bad = mismatches(result, other)

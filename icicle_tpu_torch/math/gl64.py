@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from icicle_tpu_torch.math.bigint import _normalize, _product_columns, _settle
+from icicle_tpu_torch.math.bigint import _MUL_BYTES, _normalize, _product_columns, _settle
 from icicle_tpu_torch.math.params import FieldParams
 
 I32 = torch.int32
@@ -132,6 +132,23 @@ class Goldilocks:
         return self.sub(torch.zeros_like(a), a)
 
     def mul(self, a, b):
+        """a * b mod p, canonical words out. Over many elements it runs a
+        chunk of them at a time, as BigField.mul_mont does, so that its
+        int64 buffers (the padded 16-bit column products, 256 bytes an
+        element) stay near _MUL_BYTES: a 2^28-element multiply (the
+        twiddles of a 2^29 NTT) would otherwise need about 100 GB."""
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        rows = shape.numel() // 2
+        chunk = _MUL_BYTES // 256
+        if rows > chunk:
+            a2 = a.expand(shape).reshape(rows, 2)
+            b2 = b.expand(shape).reshape(rows, 2)
+            return torch.cat([self._mul(a2[s:s + chunk], b2[s:s + chunk])
+                              for s in range(0, rows, chunk)]).view(shape)
+        return self._mul(a, b)
+
+    @staticmethod
+    def _mul(a, b):
         alo, ahi = _split(a)
         blo, bhi = _split(b)
         return _join(*_reduce128(*_mul128(alo, ahi, blo, bhi)))

@@ -11,9 +11,9 @@ F3: include/icicle/ntt.h + CPU backend ntt_cpu.h / cpu_ntt_domain.h).
   * "cuda" backend, `_ntt_cuda` (counterpart of `_ntt_pallas`): the
     four-step decomposition with both row passes in a hand-written DIF
     kernel (kernels/ntt_kernel.py for single-word fields,
-    kernels/ntt_wide.py for goldilocks and 8-limb fields), for large single
-    vectors in natural order; every other shape goes to `_ntt_torch` on the
-    same device, as the JAX package routes it.
+    kernels/ntt_wide.py for goldilocks, 8- and 12-limb fields), for large
+    single vectors in natural order; every other shape goes to `_ntt_torch`
+    on the same device, as the JAX package routes it.
 
 Elements are int32 tensors: single-word values (math/mont32.py), or
 goldilocks word pairs and multi-limb limbs on a trailing axis (math/gl64.py,
@@ -318,8 +318,9 @@ def _ntt_cuda(f: Field, x, dir: NTTDir, cfg: NTTConfig):
     kernel, for a single natural-order vector of size >= 2^_FOUR_STEP_MIN_LOGN
     (the rule of the JAX package's `_ntt_pallas`): `dif_rows`
     (kernels/ntt_kernel.py) for single-word fields, `dif_rows_wide`
-    (kernels/ntt_wide.py) for goldilocks and the 8-limb fields below 2^255;
-    a wider field raises API_NOT_IMPLEMENTED there on a CUDA tensor. Every
+    (kernels/ntt_wide.py) for goldilocks, the 8-limb fields below 2^255 and
+    the 12-limb fields with two spare bits; another limb field raises
+    API_NOT_IMPLEMENTED there on a CUDA tensor. Every
     other shape is `_ntt_torch` on the same device, as the JAX package
     routes it. (`_ntt_pallas` itself sends every limb field to XLA: its
     Pallas kernels take single-word fields only.)"""

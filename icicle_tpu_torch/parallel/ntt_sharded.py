@@ -12,7 +12,7 @@ whose columns are split over the d devices:
      (pass B), the twiddles riding in pass B's `factor`.
 
 Both passes are the single-card four-step's (kernels/ntt_kernel.py
-`ntt_four_step_cuda`, ntt_wide.py for goldilocks and the 8-limb fields),
+`ntt_four_step_cuda`, ntt_wide.py for goldilocks, 8- and 12-limb fields),
 in its layouts: pass A reads the columns and writes [k1, j2]; pass B takes
 the twiddle matrix on load, for the inverse times n^-1, and writes
 [k2, k1]. So a rank runs two row-kernel launches an NTT, as one card does;

@@ -85,6 +85,22 @@ def test_unary_ops_match_jax(op):
     assert np.array_equal(_u32(getattr(TF, op)(_port(a))), want)
 
 
+def test_mul_in_chunks_is_the_whole_product(monkeypatch):
+    """Above _MUL_BYTES // 256 elements `mul` runs a chunk at a time (a
+    ragged last chunk included, and a broadcast operand): the same words as
+    one pass."""
+    from icicle_tpu_torch.math import gl64 as G
+    a = TF.from_ints(_values(24, seed=21), CPU)   # the 13 edges and 24 more: 37
+    b = TF.from_ints(_values(24, seed=22), CPU)
+    assert a.shape == (37, 2)
+    whole, scaled = TF.mul(a, b), TF.mul(a, b[:1])
+    monkeypatch.setattr(G, "_MUL_BYTES", 256 * 8)   # chunks of 8 elements
+    assert torch.equal(TF.mul(a, b), whole)
+    assert torch.equal(TF.mul(a, b[:1]), scaled)
+    assert torch.equal(TF.mul(a.view(37, 1, 2), b.view(1, 37, 2)),
+                       G.Goldilocks._mul(a.view(37, 1, 2), b.view(1, 37, 2)))
+
+
 def test_pow_eq_is_zero_const_match_jax():
     a = np.asarray(JF.from_ints(_values(16, seed=3)), dtype=np.uint32)
     for e in (0, 1, 2, 7, 12345, P - 2):

@@ -1,9 +1,9 @@
-"""The goldilocks Poseidon2's lazy arithmetic (icicle_tpu_torch/kernels/
-csrc/gl64.cuh: lazy_add, lazy_mul, canonical), modelled word by word on
-the CPU.
+"""The lazy goldilocks arithmetic of the goldilocks Poseidon2 and the NTT
+row kernel (icicle_tpu_torch/kernels/csrc/gl64.cuh: lazy_add, lazy_mul,
+lazy_sub, canonical), modelled word by word on the CPU.
 
 The CUDA source cannot run here, so this file keeps a Python model of the
-three functions that follows the source step for step: the two 32-bit
+four functions that follows the source step for step: the two 32-bit
 halves of a 64-bit word, the four 32x32 products of the multiply, and
 PTX's carry flag as one bit that each `.cc` step writes and each `c` step
 reads. Every place where the source ends a chain without taking its carry
@@ -34,10 +34,12 @@ EPS = (1 << 32) - 1          # 2^64 mod p
 SOURCE = os.path.join(build.CSRC, "gl64.cuh")
 # the sites where gl64.cuh's lazy functions drop a chain's carry out
 DROP_SITES = ("lazy_add: the second fold", "lazy_mul: the product's top word",
-              "lazy_mul: the borrow's fold", "lazy_mul: the carry's fold")
+              "lazy_mul: the borrow's fold", "lazy_mul: the carry's fold",
+              "lazy_sub: the second fold")
 # the data-dependent paths: a fold that adds eps (or takes it back)
 PATHS = ("lazy_add: first carry", "lazy_add: second carry", "lazy_mul: borrow",
-         "lazy_mul: carry", "canonical: subtract")
+         "lazy_mul: carry", "lazy_sub: first borrow", "lazy_sub: second borrow",
+         "canonical: subtract")
 EDGES = [0, 1, P - 1, P, P + 1, EPS, (1 << 64) - 1, (1 << 64) - EPS, 1 << 63, 1 << 32,
          (1 << 32) + 1, P - 2, 2 * P - (1 << 64)]
 
@@ -169,6 +171,22 @@ def lazy_mul(F: Flag, a: int, b: int) -> int:
     return join(t0, t1)
 
 
+def lazy_sub(F: Flag, a: int, b: int) -> int:
+    d0 = F.sub_cc(lo(a), lo(b))
+    d1 = F.subc_cc(hi(a), hi(b))
+    borrow = F.subc(0, 0)
+    if borrow:
+        F.paths.add("lazy_sub: first borrow")
+    d0 = F.sub_cc(d0, borrow)
+    d1 = F.subc_cc(d1, 0)
+    borrow = F.subc(0, 0)
+    if borrow:
+        F.paths.add("lazy_sub: second borrow")
+    d0 = F.sub_cc(d0, borrow)
+    d1 = F.subc(d1, 0, "lazy_sub: the second fold")
+    return join(d0, d1)
+
+
 def canonical(F: Flag, a: int) -> int:
     d0 = F.sub_cc(lo(a), lo(P))
     d1 = F.subc_cc(hi(a), hi(P))
@@ -220,6 +238,28 @@ def test_second_carry_of_an_add():
         assert ("lazy_add: second carry" in F.paths) == twice
 
 
+def test_lazy_sub_is_the_difference_mod_p():
+    F = Flag()
+    vals = words64(40, seed=4)
+    for a in vals:
+        for b in vals:
+            r = lazy_sub(F, a, b)
+            assert 0 <= r < 1 << 64 and r % P == (a - b) % P, (a, b)
+    assert "lazy_sub: the second fold" in F.hits
+    assert {"lazy_sub: first borrow", "lazy_sub: second borrow"} <= F.paths
+
+
+def test_second_borrow_of_a_sub():
+    """a - b borrows twice exactly where b - a > p: 0 - (p + 1) and
+    0 - (2^64 - 1) do; 0 - p (d = eps after the first borrow) and
+    (p - 1) - (2^64 - 1) do not."""
+    for a, b, twice in ((0, P + 1, True), (0, (1 << 64) - 1, True), (0, P, False),
+                        (P - 1, (1 << 64) - 1, False), (5, 7, False)):
+        F = Flag()
+        assert lazy_sub(F, a, b) % P == (a - b) % P
+        assert ("lazy_sub: second borrow" in F.paths) == twice, (a, b)
+
+
 def test_canonical():
     F = Flag()
     for a in words64(200, seed=3):
@@ -234,14 +274,15 @@ def test_model_names_every_site_the_source_drops_a_carry():
     text = open(SOURCE).read()
     lazy = text[text.index("-- lazy representatives"):]
     assert lazy.count("// carry out: none") == len(DROP_SITES)
-    assert text.count("// carry out: none") == len(DROP_SITES)   # the canonical functions have none
-    for fn in ("lazy_add", "lazy_mul", "canonical"):
+    assert text.count("// carry out: none") == len(DROP_SITES)   # no site outside them
+    for fn in ("lazy_add", "lazy_mul", "lazy_sub", "canonical"):
         body = re.search(rf"\b{fn}\(uint64_t a.*?\n\}}\n", lazy, re.S).group(0)
         assert body.count("// carry out: none") == sum(s.startswith(f"{fn}:") for s in DROP_SITES)
     F = Flag()
     for a in EDGES:
         for b in EDGES:
-            canonical(F, lazy_add(F, lazy_mul(F, a, b), b))
+            canonical(F, lazy_sub(F, lazy_add(F, lazy_mul(F, a, b), b), a))
+            lazy_sub(F, a, b)
     assert F.hits == set(DROP_SITES)
     assert F.paths == set(PATHS)
 
@@ -294,4 +335,5 @@ def test_permutation_in_the_model_is_the_plain_version(t):
     F = Flag()
     got = [canonical(F, permute_model(F, h, list(row))[1]) for row in rows]
     assert got == [int(v) for v in want]
-    assert F.hits == set(DROP_SITES)
+    # the permutation adds and multiplies: every site but lazy_sub's
+    assert F.hits == {s for s in DROP_SITES if not s.startswith("lazy_sub")}

@@ -41,12 +41,13 @@ WIDE_HEADER = os.path.join(CSRC, "ec_wide.cuh")
 WIDE_SCANS = ("msm_scan_l12", "msm_scan_l24", "msm_scan_fp2", "msm_scan_fp2_l12")
 WIDE_REDUCES = ("ec_reduce_l12", "ec_reduce_l24", "ec_reduce_fp2", "ec_reduce_fp2_l12")
 # every library whose source includes ec_wide.cuh: B3's and B4's wide
-# instances, precompute_bases (both), the 8-limb Poseidon and the ECNTT
-# (every limb count)
+# instances, precompute_bases (both), the 8-limb Poseidon, the ECNTT
+# (every limb count) and the NTT row kernel (both libraries)
 WIDE_LIBRARIES = WIDE_SCANS + WIDE_REDUCES + ("precompute_bases", "precompute_bases_fp2",
-                                              "poseidon_limbs", "ecntt", "ecntt_l12", "ecntt_l24")
+                                              "poseidon_limbs", "ecntt", "ecntt_l12", "ecntt_l24",
+                                              "ntt_wide", "ntt_wide_l12")
 WIDE_SOURCES = {"msm_scan.cu", "ec_reduce.cu", "precompute_bases.cu", "poseidon_limbs.cu",
-                "ecntt.cu"}
+                "ecntt.cu", "ntt_wide.cu"}
 # the sources that include ec_wide.cuh only at 12 or more words a
 # coordinate, and their 8-limb G1 libraries, which do not
 GATED = {"msm_scan.cu": ("msm_scan", WIDE_SCANS), "ec_reduce.cu": ("ec_reduce", WIDE_REDUCES)}
@@ -520,8 +521,8 @@ def test_build_gives_the_wide_header_to_the_four_wide_libraries():
 def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, name):
     """A change to ec_wide.cuh makes the libraries that include it stale
     (B3's and B4's four wide instances each, precompute_bases,
-    precompute_bases_fp2, poseidon_limbs, ecntt, ecntt_l12, ecntt_l24), and
-    no other (build.py's staleness rule over a temp copy of csrc/)."""
+    precompute_bases_fp2, poseidon_limbs, ecntt, ecntt_l12, ecntt_l24,
+    ntt_wide, ntt_wide_l12), and no other (build.py's staleness rule over a temp copy of csrc/)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
@@ -539,8 +540,8 @@ def test_a_newer_wide_header_rebuilds_only_its_libraries(tmp_path, monkeypatch, 
 
 def test_only_msm_scan_includes_the_wide_header():
     """Only the sources that build.HEADERS gives ec_wide.cuh to include it:
-    msm_scan.cu, ec_reduce.cu, precompute_bases.cu, poseidon_limbs.cu and
-    ecntt.cu (build.WIDE_SOURCES and build.GATED_SOURCES), so no other
+    msm_scan.cu, ec_reduce.cu, precompute_bases.cu, poseidon_limbs.cu,
+    ecntt.cu and ntt_wide.cu (build.WIDE_SOURCES and build.GATED_SOURCES), so no other
     source misses a rebuild when the header changes. (The name predates
     ec_reduce.cu's wide instances.)"""
     including = {f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))

@@ -2,8 +2,9 @@
 the vector axis before the limb axis) against the JAX package's `ntt` /
 `ntt_jit` on the CPU, at the JAX tests' sizes (tests/test_ntt.py:18 and
 :129: bn254_scalar at 2^3 and 2^5, stark252 at 2^5 and a batch of 3 x 64),
-every ordering, a coset and the batch axis. The four-step route at 2^16 is
-in tests/test_torch_ntt_limbs_four_step.py.
+every ordering, a coset and the batch axis; and a 12-limb field
+(bw6_761_scalar, 377 bits) at the same sizes. The four-step route at 2^16
+is in tests/test_torch_ntt_limbs_four_step.py.
 
 Inputs come from numpy seeds; tolerance: exact equality (integers mod p).
 """
@@ -26,11 +27,13 @@ CPU = torch.device("cpu")
 ORDERINGS = [o.value for o in Ordering]
 
 
-def limb_vec(fname: str, shape, seed: int) -> np.ndarray:
-    """Canonical uint32 (..., L) limbs from a seed, with 0 and p - 1 first."""
+def limb_vec(fname: str, shape, seed: int, nbytes: int = 40) -> np.ndarray:
+    """Canonical uint32 (..., L) limbs from a seed (`nbytes` random bytes
+    each, reduced mod p), with 0 and p - 1 first."""
     f = jax_field(fname)
     rng = np.random.default_rng(seed)
-    vals = [int.from_bytes(rng.bytes(40), "little") % f.modulus for _ in range(int(np.prod(shape)))]
+    vals = [int.from_bytes(rng.bytes(nbytes), "little") % f.modulus
+            for _ in range(int(np.prod(shape)))]
     vals[:2] = [0, f.modulus - 1]
     return np.asarray(f.from_ints(np.array(vals, dtype=object).reshape(shape)), dtype=np.uint32)
 
@@ -103,3 +106,16 @@ def test_batch_of_64_takes_the_vector_major_route():
     got = TN.ntt(tf, x)
     for r in (0, 17, 63):
         assert torch.equal(got[r], TN.ntt(tf, x[r]))
+
+
+@pytest.mark.parametrize("logn", [3, 5])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_twelve_limb_orderings_match_jax(logn, direction):
+    """bw6_761_scalar (= bls12_377_base, 12 limbs), whose NTT the CUDA route
+    sends to dif_rows_wide's 12-limb instance at 2^16 and more: every
+    ordering at 2^3 and 2^5, forward and inverse."""
+    x = limb_vec("bw6_761_scalar", (1 << logn,), seed=40 + logn, nbytes=56)
+    for ordering in ORDERINGS:
+        got = port_ntt("bw6_761_scalar", x, direction, ordering)
+        assert got.shape == x.shape
+        assert np.array_equal(got, jax_ntt("bw6_761_scalar", x, direction, ordering)), ordering

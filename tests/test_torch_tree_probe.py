@@ -19,7 +19,8 @@ def test_parse_args_takes_every_path(paths):
 def test_parse_args_defaults():
     args = tree_probe.parse_args([])
     assert (args.paths, args.csrc, args.against) == ("b3", build.CSRC, None)
-    assert set(tree_probe.PATHS) == {"b3", "bases", "gl64", "ecntt", "b4", "sponge"}
+    assert set(tree_probe.PATHS) == {"b3", "bases", "gl64", "ecntt", "b4", "sponge",
+                                     "ntt_wide"}
 
 
 def test_parse_args_refuses_an_unknown_path():
